@@ -3,13 +3,15 @@
 
 The JAX package stays the reference; every module here keeps its
 counterpart's path and names and is tested against it on the CPU.
-Ported so far: the host scene layer and Cornell-box path tracing, whose
-one kernel is a hand-written CUDA kernel (csrc/path_camera.cu).
+Ported so far: the host scene layer, Cornell-box path tracing and
+one-emitter Whitted ray tracing; each runs one hand-written CUDA kernel
+(csrc/path_camera.cu, csrc/whitted_uber.cu).
 
 Layout:
   models/    scene data model: meshes, spheres, materials, lights, Scene
-  ops/       device scene, RNG-exact path kernel and its plain version
-  render/    user-facing pipelines (PathTracing)
+  ops/       device scene, optics, the path and Whitted kernels' wrappers
+             and their plain versions
+  render/    user-facing pipelines (PathTracing, RayTracing)
   utils/     host-side: transforms, OBJ/texture loaders, image IO, RNG
   csrc/      CUDA sources, built with nvcc at first use into _build/
 """

@@ -3,10 +3,10 @@ Scene::updatePosition, Scene.cpp:882-901; Triangle.cpp:215-231).
 
 `prepare_rt_scene` transforms the host geometry (`models.scene.RTGeometry`
 + `RTFrame`) into trace space on a torch device. `RTScene` holds the
-fields the path-tracing slice reads; the JAX package's other fields
-(`prim_attr`, `prim_shadow`, `prim_cls`, `mt_coef`, `chunk_lo/hi`,
-`tex_packed`, uv and texture tables) come with the slices that read
-them.
+fields the path-tracing and Whitted slices read; the JAX package's other
+fields (`tri_obj`, `sph_obj`, `emitter_center/radius/mask/order`,
+`prim_attr`, `prim_shadow`, `prim_cls`, `mt_coef`, `chunk_lo/hi`,
+`tex_packed`) come with the slices that read them.
 """
 
 from __future__ import annotations
@@ -31,7 +31,11 @@ class RTScene:
     n0: torch.Tensor          # (F,3) normalized vertex normals
     n1: torch.Tensor
     n2: torch.Tensor
+    uv0: torch.Tensor         # (F,2) vertex uvs
+    uv1: torch.Tensor
+    uv2: torch.Tensor
     tri_mat: torch.Tensor     # (F,) i32
+    tri_tex: torch.Tensor     # (F,) i32 texture id (-1 none)
     tri_valid: torch.Tensor   # (F,) bool
     tri_table: torch.Tensor   # (F,12) [v0|e1|e2|pad], invalid rows zero
     n_tri: int                # 1 + last valid triangle index
@@ -41,13 +45,19 @@ class RTScene:
     sph_valid: torch.Tensor   # (S,) bool
     n_sph: int                # 1 + last valid sphere index
     mat_type: torch.Tensor    # (M,) i32
+    mat_ka: torch.Tensor      # (M,3)
     mat_kd: torch.Tensor      # (M,3)
+    mat_ks: torch.Tensor      # (M,3)
+    mat_spec: torch.Tensor    # (M,) specular exponent
+    mat_ior: torch.Tensor     # (M,)
     mat_emit: torch.Tensor    # (M,3)
     emitter_cr: torch.Tensor  # (max(n_emitters,1),4) [center, radius],
                               # emissive objects first
     n_emitters: int
     background: torch.Tensor  # (3,)
     eye: torch.Tensor         # (3,)
+    textures: torch.Tensor    # (K,Hm,Wm,3) u8 atlas
+    tex_wh: torch.Tensor      # (K,2) i32 (width, height)
     tex_on_emitter: bool      # an emissive triangle carries a texture
 
     @property
@@ -122,6 +132,7 @@ def prepare_rt_scene(geom, frame, device) -> RTScene:
     faces = t(geom.faces, torch.int64)
     tv = pos[faces]   # (F,3,3)
     tn = nrm[faces]
+    tuv = t(geom.uvs, f32)[faces]   # (F,3,2)
     valid = t(geom.face_valid, torch.bool)
 
     sc = hom_transform(t(frame.sph_mvp, f32), t(geom.sph_center, f32))
@@ -153,14 +164,20 @@ def prepare_rt_scene(geom, frame, device) -> RTScene:
     return RTScene(
         v0=tv[:, 0], v1=tv[:, 1], v2=tv[:, 2],
         n0=tn[:, 0], n1=tn[:, 1], n2=tn[:, 2],
-        tri_mat=t(geom.tri_mat, torch.int32), tri_valid=valid,
+        uv0=tuv[:, 0], uv1=tuv[:, 1], uv2=tuv[:, 2],
+        tri_mat=t(geom.tri_mat, torch.int32),
+        tri_tex=t(geom.tri_tex, torch.int32), tri_valid=valid,
         tri_table=tri_table, n_tri=loop_bound(geom.face_valid),
         sph_c=sc, sph_r=sr, sph_mat=t(geom.sph_mat, torch.int32),
         sph_valid=sph_valid, n_sph=loop_bound(geom.sph_valid),
-        mat_type=t(mt.type, torch.int32), mat_kd=t(mt.kd, f32),
+        mat_type=t(mt.type, torch.int32), mat_ka=t(mt.ka, f32),
+        mat_kd=t(mt.kd, f32), mat_ks=t(mt.ks, f32),
+        mat_spec=t(mt.spec_exp, f32), mat_ior=t(mt.ior, f32),
         mat_emit=t(mt.emission, f32),
         emitter_cr=emitter_cr, n_emitters=n_emit,
         background=t(frame.background, f32), eye=t(frame.eye, f32),
+        textures=t(geom.textures, torch.uint8),
+        tex_wh=t(geom.tex_wh, torch.int32),
         tex_on_emitter=bool(np.asarray(geom.tex_on_emitter).size),
     )
 
@@ -179,14 +196,19 @@ def rt_scene_from_numpy(arrays: Dict[str, np.ndarray], device) -> RTScene:
     return RTScene(
         v0=t("v0", f32), v1=t("v1", f32), v2=t("v2", f32),
         n0=t("n0", f32), n1=t("n1", f32), n2=t("n2", f32),
-        tri_mat=t("tri_mat", torch.int32), tri_valid=t("tri_valid", torch.bool),
+        uv0=t("uv0", f32), uv1=t("uv1", f32), uv2=t("uv2", f32),
+        tri_mat=t("tri_mat", torch.int32), tri_tex=t("tri_tex", torch.int32),
+        tri_valid=t("tri_valid", torch.bool),
         tri_table=t("tri_table", f32), n_tri=int(arrays["n_tri"]),
         sph_c=t("sph_c", f32), sph_r=t("sph_r", f32),
         sph_mat=t("sph_mat", torch.int32), sph_valid=t("sph_valid", torch.bool),
         n_sph=loop_bound(arrays["sph_valid"]),
-        mat_type=t("mat_type", torch.int32), mat_kd=t("mat_kd", f32),
+        mat_type=t("mat_type", torch.int32), mat_ka=t("mat_ka", f32),
+        mat_kd=t("mat_kd", f32), mat_ks=t("mat_ks", f32),
+        mat_spec=t("mat_spec", f32), mat_ior=t("mat_ior", f32),
         mat_emit=t("mat_emit", f32),
         emitter_cr=t("emitter_cr", f32), n_emitters=int(arrays["n_emitters"]),
         background=t("background", f32), eye=t("eye", f32),
+        textures=t("textures", torch.uint8), tex_wh=t("tex_wh", torch.int32),
         tex_on_emitter=bool(np.asarray(arrays["tex_on_emitter"]).size),
     )

@@ -66,14 +66,17 @@ class RenderingPipeline:
 
 def pipeline_from_config(cfg, kind: str = "path", device="cpu"):
     """Construct a render pipeline from a RenderConfig (config.py) on a
-    torch device. kind: "raster" | "whitted" | "path"; only "path" is
-    ported so far."""
+    torch device. kind: "raster" | "whitted" | "path"; "raster" is not
+    ported yet."""
     if kind == "raster":
         raise NotImplementedError(
             "the raster pipeline is not ported yet (ROADMAP queue 1 step 7)")
     if kind == "whitted":
-        raise NotImplementedError(
-            "the Whitted pipeline is not ported yet (ROADMAP queue 1 step 6)")
+        from software_rasterizer_tpu_torch.render.raytracer import RayTracing
+
+        return RayTracing(cfg.width, cfg.height, spp=cfg.spp,
+                          max_depth=cfg.max_depth, seed=cfg.seed,
+                          device=device)
     if kind == "path":
         from software_rasterizer_tpu_torch.render.pathtracer import PathTracing
 

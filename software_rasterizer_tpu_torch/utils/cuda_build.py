@@ -5,6 +5,7 @@ Each library is compiled at first use from `csrc/` into
 and flags, so an edit rebuilds and an unchanged tree reuses the file.
 The sources export plain C functions; nothing includes PyTorch's headers,
 which keeps a build to seconds. A failed build raises with nvcc's output.
+Each library has its own lock, so threads can build several at once.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ NVCC_FLAGS = [
 ]
 
 _LOCK = threading.Lock()
+_NAME_LOCKS: Dict[str, threading.Lock] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # nvcc's output (ptxas register and spill counts) per built library
 BUILD_LOGS: Dict[str, str] = {}
@@ -69,6 +71,8 @@ def load_library(name: str, sources: List[str]) -> ctypes.CDLL:
     """Compile csrc/<sources> into _build/lib<name>-<hash>.so (once) and
     load it. Raises RuntimeError with nvcc's output if the build fails."""
     with _LOCK:
+        lock = _NAME_LOCKS.setdefault(name, threading.Lock())
+    with lock:
         if name in _LIBS:
             return _LIBS[name]
         srcs = [CSRC_DIR / s for s in sources]

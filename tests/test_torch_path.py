@@ -8,7 +8,7 @@
     order (rtol=2e-5, as tests/test_path.py's resume check);
   * checkpoints cross between the packages with the same keys and values;
   * a CUDA request without CUDA, a missing or failing nvcc, a launch on
-    CPU tensors and an unported pipeline each raise;
+    CPU tensors and the unported raster pipeline each raise;
   * importing every module of the port imports no JAX.
 """
 
@@ -93,7 +93,7 @@ def test_cuda_request_without_cuda_raises():
                              device="cuda")
 
 
-@pytest.mark.parametrize("kind", ["raster", "whitted"])
+@pytest.mark.parametrize("kind", ["raster"])
 def test_unported_pipelines_raise(kind):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pipeline_from_config(RenderConfig(), kind)
