@@ -2,14 +2,14 @@
 
     python3 chip_smoke.py
 
-Drives the port's two pipelines at full width (1024x1024) through their
-hand-written CUDA kernels, and holds each kernel against its plain
-PyTorch version: Cornell-box path tracing at 16 spp, and Whitted ray
-tracing at max_depth 5. Phases, one line each; any failure exits
-non-zero:
+Drives the port's three pipelines at full width (1024x1024) through
+their hand-written CUDA kernels, and holds each kernel against its plain
+PyTorch version: Cornell-box path tracing at 16 spp, Whitted ray tracing
+at max_depth 5, and the rasterizer on a lit, tessellated Cornell box of
+9,216 triangles. Phases, one line each; any failure exits non-zero:
 
-  1. device: CUDA present, card name and power limit, both kernels
-     built at once (one nvcc each);
+  1. device: CUDA present, card name and power limit, the three CUDA
+     libraries built at once (one nvcc each);
   2. path: kernel vs plain on three 4096-lane windows of the full frame;
   3. path golden: 48x48 at 8 spp against tests/goldens path_mean;
   4. path main path: pipeline_from_config -> PathTracing.draw() -> save(),
@@ -20,9 +20,22 @@ non-zero:
   7. Whitted golden: 64x64 at max_depth 4 against tests/goldens whitted;
   8. Whitted main path: pipeline_from_config -> RayTracing.draw() ->
      save(), one kernel launch, the frame and stats of phase 6;
-  9. Whitted times of the kernel and the plain version (CUDA events).
+  9. Whitted times of the kernel and the plain version (CUDA events);
+ 10. raster: the fused tile kernel vs plain on the whole frame (winners,
+     depth, attribute planes, ids);
+ 11. raster: the shaded tile kernel vs plain on the whole frame, and the
+     shaded image against the deferred one;
+ 12. raster golden: Cornell 96x96 against tests/goldens raster / raster_z;
+ 13. raster main path: pipeline_from_config(cfg, "raster") on the default
+     device -> TraditionalRasterizer.draw() -> save(), deferred and
+     shaded, and draw_batch() of 8 turned frames; launch counts,
+     bin_dropped, coverage; then the batch against 8 draw()s;
+ 14. raster times (CUDA events, median and range): the frame, the bare
+     launch of each kernel, the stages around it, draw_batch per frame,
+     and the plain versions.
 
-The last lines are a JSON line of per-kernel results, the card's
+The last lines are a JSON line of per-kernel results (time beside the
+card's bound for the same work), the card's
 `nvidia-smi` name and power limit, and `{"ok": true, "device": ...}`.
 Images go to chiprun_out/ under the repository root.
 """
@@ -60,6 +73,21 @@ PIX_RTOL, PIX_ATOL, PIX_SHARE = 1e-3, 1e-4, 0.999
 RAYS_RTOL = 1e-3
 # tests/test_goldens.py whitted rule
 WG_TOL, WG_SHARE = 5e-3, 0.995
+# raster: tessellation of each Cornell mesh (4: 36 x 256 = 9,216 triangles)
+RASTER_LEVELS = 4
+RASTER_BATCH = 8
+RASTER_COVERAGE_MIN = 0.40
+# raster kernels vs plain: the same per-operation rounding, so the target
+# is 0 differing pixels; winners may differ on at most 0.1% of the pixels
+# and planes are held to rtol = atol = 1e-5 where the winners agree (only
+# expf / logf in the shaded kernel could differ in a last bit)
+RASTER_RTOL, RASTER_ATOL, RASTER_SHARE = 1e-5, 1e-5, 0.999
+# tests/test_goldens.py raster rule
+RG_COVER, RG_TOL = 0.01, 1e-3
+# the card's published peaks (H100 SXM data sheet): float32 outside the
+# tensor cores, and device memory
+FP32_PEAK = 67e12
+HBM_RATE = 3.35e12
 
 
 def phase(n: int, msg: str) -> None:
@@ -81,9 +109,9 @@ def card_line() -> str:
     return proc.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, repeats: int = 3) -> float:
-    """Median wall time of fn() on the device (CUDA events), after one
-    warm-up call."""
+def cuda_times(fn, repeats: int = 3) -> list:
+    """Wall times of fn() on the device in ms (CUDA events), sorted,
+    after one warm-up call."""
     import torch
 
     fn()
@@ -97,7 +125,56 @@ def cuda_ms(fn, repeats: int = 3) -> float:
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return sorted(times)
+
+
+def cuda_ms(fn, repeats: int = 3) -> float:
+    """Median of `cuda_times`."""
+    return statistics.median(cuda_times(fn, repeats))
+
+
+def spread(times: list) -> str:
+    """'median [min-max]' of a sorted list of ms."""
+    return f"{statistics.median(times):.3f} [{times[0]:.3f}-{times[-1]:.3f}]"
+
+
+def bound(n_bytes: float, n_ops: float):
+    """The least time in ms the card could take: the larger of the bytes
+    over the memory rate and the float32 operations over the peak rate,
+    and which of the two it is."""
+    t_bytes = n_bytes / HBM_RATE * 1e3
+    t_ops = n_ops / FP32_PEAK * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def tensor_bytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def build_kernels() -> float:
+    """Build the three CUDA libraries at once (one nvcc each); returns the
+    seconds it took."""
+    from software_rasterizer_tpu_torch.ops import path_kernel as pk
+    from software_rasterizer_tpu_torch.ops import raster_kernel as rk
+    from software_rasterizer_tpu_torch.ops import whitted_kernel as wk
+
+    t0 = time.perf_counter()
+    errors = []
+
+    def build(mod):
+        try:
+            mod.build_kernel()
+        except Exception as e:  # re-raised below, after every build ends
+            errors.append(e)
+
+    threads = [threading.Thread(target=build, args=(m,)) for m in (pk, wk, rk)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    if errors:
+        raise errors[0]
+    return time.perf_counter() - t0
 
 
 def main() -> int:
@@ -122,26 +199,10 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     card = card_line()
 
-    # ---- 1. device + build (one nvcc per kernel, started together)
-    t0 = time.perf_counter()
-    errors = []
-
-    def build(mod):
-        try:
-            mod.build_kernel()
-        except Exception as e:  # re-raised below, after both builds end
-            errors.append(e)
-
-    threads = [threading.Thread(target=build, args=(m,)) for m in (pk, wk)]
-    for th in threads:
-        th.start()
-    for th in threads:
-        th.join()
-    if errors:
-        raise errors[0]
-    build_s = time.perf_counter() - t0
+    # ---- 1. device + build (one nvcc per library, started together)
+    build_s = build_kernels()
     ptxas = []
-    for name in ("path_camera", "whitted_uber"):
+    for name in ("path_camera", "whitted_uber", "raster_tiles"):
         log = BUILD_LOGS.get(name, "")
         (OUT_DIR / f"{name}_build.log").write_text(log)
         ptxas += [f"{name}: {ln.strip()}" for ln in log.splitlines()
@@ -238,7 +299,8 @@ def main() -> int:
     # ---- 5. times
     k_ms = cuda_ms(lambda: pk.path_camera_render(*args, **kw))
     t0 = time.perf_counter()
-    pk.path_camera_render_plain(*args, **kw)
+    work = {}
+    pk.path_camera_render_plain(*args, stats=work, **kw)
     torch.cuda.synchronize()
     plain_once = time.perf_counter() - t0
     if plain_once <= PLAIN_FULL_LIMIT_S:
@@ -257,7 +319,19 @@ def main() -> int:
              f"plain {p_ms:.1f} ms ({paths / p_ms / 1e3:.3f} Mpaths/s; {how}) "
              f"at {WIDTH}x{HEIGHT} {SPP} spp on {card}")
 
+    # the kernel's bound: each lane-iteration intersects two rays with
+    # every primitive (~80 float32 operations a triangle, ~40 a sphere)
+    # and spends ~300 on sampling and shading; the tables and the (3,N)
+    # sum are the only bytes
+    attr_t, sph_t, n_sph = pk.pack_scene_tables(rt)
+    path_bound, path_by = bound(
+        tensor_bytes(rt.tri_table, attr_t, sph_t, rt.emitter_cr, full) + 4 * SPP + 32,
+        work["lane_iterations"] * (80 * rt.n_tri + 40 * n_sph + 300))
+    print(f"[phase 5] bound {path_bound:.4f} ms by {path_by} "
+          f"({work['lane_iterations']} lane-iterations of this frame)", flush=True)
+
     whitted = whitted_phases(dev, card)
+    raster = raster_phases(dev, card)
 
     print(json.dumps({"kernels": [{
         "name": "path_camera",
@@ -268,7 +342,10 @@ def main() -> int:
         "max_abs_err": max_err,
         "ms": k_ms,
         "plain_ms": p_ms,
-    }, whitted]}))
+        "bound_ms": path_bound,
+        "bound_by": path_by,
+        "library_ms": None,
+    }, whitted, *raster]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
@@ -463,6 +540,16 @@ def whitted_phases(dev, card: str) -> dict:
                  f"{WIDTH}x{HEIGHT} max_depth {md} on {card}")
 
     k_ms, p_ms = times["cornell"]
+    # the kernel's bound on Cornell: every main and shadow ray meets every
+    # primitive (~30 float32 operations a triangle, ~25 a sphere), every
+    # diffuse hit spends ~200 on Phong; rays in, colours and counts out
+    r = runs["cornell"]
+    main_rays, shadow_rays = r["rays"]
+    tri, attr, sph, n_tri, n_sph = wk.pack_whitted_tables(r["rt"])
+    w_bound, w_by = bound(
+        tensor_bytes(tri, attr, sph, r["o"], r["d"], r["rgb"]) + 8 * n + 32,
+        (main_rays + shadow_rays) * (30 * n_tri + 25 * n_sph) + 200 * shadow_rays)
+    phase(9, f"Whitted cornell bound {w_bound:.4f} ms by {w_by}")
     return {
         "name": "whitted_uber",
         "route": "cuda",
@@ -472,7 +559,314 @@ def whitted_phases(dev, card: str) -> dict:
         "max_abs_err": max_err,
         "ms": k_ms,
         "plain_ms": p_ms,
+        "bound_ms": w_bound,
+        "bound_by": w_by,
+        "library_ms": None,
     }
+
+
+def raster_scene(variant: str):
+    """The lit, tessellated Cornell box of tests/torch_scenes.py, built
+    with the port's models."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_scenes import raster_cornell
+
+    from software_rasterizer_tpu_torch import models
+    from software_rasterizer_tpu_torch.ops.shading import ShaderType
+    from software_rasterizer_tpu_torch.scenes import build_cornell_scene
+    from software_rasterizer_tpu_torch.scenes.stress import subdivide_mesh
+    from software_rasterizer_tpu_torch.utils.texture import Texture
+
+    return raster_cornell(models, build_cornell_scene, subdivide_mesh,
+                          ShaderType, Texture, RASTER_LEVELS, variant)
+
+
+def compare_raster(kern: dict, plain: dict) -> dict:
+    """A tile kernel's result against its plain version's: pixels whose
+    winner differs, pixels where any other output differs at all, and,
+    over the pixels with equal winners, the largest |difference| of a
+    float plane and the pixels outside rtol / atol."""
+    import torch
+
+    same = kern["best_idx"] == plain["best_idx"]
+    any_diff = ~same
+    bad = torch.zeros_like(same)
+    max_err = 0.0
+    for key, k in kern.items():
+        q = plain[key]
+        if key in ("best_idx", "bin_dropped"):
+            continue
+        k, q = k[same], q[same]
+        eq = k == q                      # +inf == +inf where nothing covers
+        if not k.is_floating_point():
+            off = ~eq
+        else:
+            d = torch.where(eq, torch.zeros_like(k), (k - q).abs())
+            d = torch.nan_to_num(d, nan=float("inf"), posinf=float("inf"))
+            if d.numel():
+                max_err = max(max_err, float(d.max()))
+            off = d > RASTER_ATOL + RASTER_RTOL * q.abs()
+        if off.dim() == 2:
+            eq, off = eq.all(dim=1), off.any(dim=1)
+        pix = torch.zeros_like(same)
+        pix[same] = ~eq
+        any_diff |= pix
+        pix = torch.zeros_like(same)
+        pix[same] = off
+        bad |= pix
+    return {"n": int(same.numel()), "winners": int((~same).sum()),
+            "any": int(any_diff.sum()), "bad": int(bad.sum()),
+            "max_abs_err": max_err,
+            "dropped": (int(kern["bin_dropped"]), int(plain["bin_dropped"]))}
+
+
+def raster_phases(dev, card: str) -> list:
+    """Phases 10-14; returns the two raster kernels' entries of the JSON
+    line."""
+    import numpy as np
+    import torch
+
+    from software_rasterizer_tpu_torch.config import RenderConfig
+    from software_rasterizer_tpu_torch.ops import raster as tr
+    from software_rasterizer_tpu_torch.ops import raster_kernel as rk
+    from software_rasterizer_tpu_torch.render import (
+        TraditionalRasterizer,
+        pipeline_from_config,
+    )
+    from software_rasterizer_tpu_torch.scenes import build_cornell_scene
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_scenes import set_raster_cornell_angle
+
+    H, W = HEIGHT, WIDTH
+    n = H * W
+
+    def setup(variant):
+        scene = raster_scene(variant)
+        scene.set_ndc_matrix(W, H)
+        host = scene.raster_geometry()
+        geom = tr.prepare_raster_geometry(host, dev)
+        frame = tr.prepare_raster_frame(scene.raster_frame(), dev)
+        active = tuple(sorted(set(int(t) for t in host.shader_type)))
+        return scene, geom, frame, active, tr.raster_tables(geom, frame)
+
+    def check(name, c):
+        line = (f"{name}: winners differ on {c['winners']}/{c['n']} pixels, any "
+                f"output on {c['any']}, {c['bad']} outside rtol={RASTER_RTOL} "
+                f"atol={RASTER_ATOL}, max |diff| {c['max_abs_err']:.3g}, "
+                f"bin_dropped {c['dropped'][0]} / {c['dropped'][1]}")
+        if (c["winners"] > (1.0 - RASTER_SHARE) * c["n"] or c["bad"] > 0
+                or c["dropped"] != (0, 0)):
+            fail(f"raster kernel disagrees with plain: {line}")
+        return line
+
+    # ---- 10. fused kernel vs plain, whole frame, five shaders
+    scene5, geom5, frame5, active5, tab5 = setup("five")
+    n_faces = int(geom5.face_valid.sum())
+    k_f = rk.raster_tiles_fused(*tab5, H, W)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p_f = rk.raster_tiles_fused_plain(*tab5, H, W)
+    torch.cuda.synchronize()
+    plain_f_s = time.perf_counter() - t0
+    coverage = float((k_f["best_idx"] >= 0).float().mean())
+    if not bool(torch.isfinite(k_f["normal"]).all()):
+        fail("the fused kernel's planes hold non-finite values")
+    c_f = compare_raster(k_f, p_f)
+    phase(10, f"raster fused kernel vs plain {W}x{H}, {n_faces} triangles, "
+              f"coverage {coverage:.4f}, whole frame (plain {plain_f_s:.2f}s): "
+              + check("five shaders", c_f))
+
+    # ---- 11. shaded kernel vs plain, whole frame, three shaders
+    scene3, geom3, frame3, active3, tab3 = setup("three")
+    lights = frame3.lights.contiguous()
+    k_s = rk.raster_tiles_shaded(*tab3, lights, H, W)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p_s = rk.raster_tiles_shaded_plain(*tab3, lights, H, W)
+    torch.cuda.synchronize()
+    plain_s_s = time.perf_counter() - t0
+    c_s = compare_raster(k_s, p_s)
+    img_d, z_d, st_d = tr.render_raster_frame(
+        geom3, frame3, H, W, active_types=active3, with_stats=True)
+    img_s, z_s, st_s = tr.render_raster_frame(
+        geom3, frame3, H, W, active_types=active3, with_stats=True, shaded=True)
+    if (st_d["kernel"], st_s["kernel"]) != ("raster_tiles", "raster_tiles_shaded"):
+        fail(f"wrong kernels ran: {st_d['kernel']}, {st_s['kernel']}")
+    sd = float((img_s - img_d).abs().max())
+    sd_ok = bool(torch.isclose(img_s, img_d, rtol=1e-5, atol=1e-5).all())
+    if not torch.equal(z_s, z_d) or not sd_ok:
+        fail(f"shaded frame differs from the deferred one: z equal "
+             f"{torch.equal(z_s, z_d)}, max |diff| {sd}")
+    phase(11, f"raster shaded kernel vs plain {W}x{H}, whole frame (plain "
+              f"{plain_s_s:.2f}s): " + check("three shaders", c_s)
+              + f"; shaded vs deferred image max |diff| {sd:.3g} (rtol=atol=1e-5), "
+              f"z-buffers identical")
+
+    # ---- 12. golden
+    gscene = build_cornell_scene()
+    gscene.set_ndc_matrix(96, 96)
+    ggeom = tr.prepare_raster_geometry(gscene.raster_geometry(), dev)
+    gimg, gz = tr.render_raster_frame(ggeom, gscene.raster_frame(), 96, 96)
+    gimg, gz = gimg.cpu().numpy(), gz.cpu().numpy()
+    goldens = np.load(ROOT / "tests" / "goldens" / "cornell_goldens.npz")
+    got_cov, want_cov = np.isfinite(gz), np.isfinite(goldens["raster_z"])
+    mism = float((got_cov != want_cov).mean())
+    both = got_cov & want_cov
+    gerr = float(np.abs(gimg[both] - goldens["raster"][both]).max())
+    if not (mism < RG_COVER and np.allclose(gimg[both], goldens["raster"][both],
+                                            rtol=RG_TOL, atol=RG_TOL)):
+        fail(f"raster golden: coverage mismatch {mism}, max |diff| {gerr}")
+    phase(12, f"raster golden 96x96 through the kernel: coverage mismatch "
+              f"{mism:.4f} (< {RG_COVER}), max |diff| {gerr:.3g} on {int(both.sum())} "
+              f"covered pixels (rtol=atol={RG_TOL})")
+
+    # ---- 13. main path through the normal entry point, default device
+    angles = [8.0 + 5.0 * i for i in range(RASTER_BATCH)]
+    rk.LAUNCHES = rk.LAUNCHES_SHADED = 0
+    render = pipeline_from_config(RenderConfig(width=W, height=H), "raster")
+    render.add_scene(scene5)
+    render.draw()
+    png5 = OUT_DIR / "chip_smoke_raster_cornell.png"
+    render.save(str(png5))
+    frame_d, zbuf_d = render.frame.copy(), render.zbuffer.copy()
+    stats_d = dict(render.last_stats[scene5.name])
+    render_s = pipeline_from_config(RenderConfig(width=W, height=H), "raster")
+    render_s.shaded = True
+    render_s.add_scene(scene3)
+    render_s.draw()
+    png3 = OUT_DIR / "chip_smoke_raster_cornell_shaded.png"
+    render_s.save(str(png3))
+    stats_s = dict(render_s.last_stats[scene3.name])
+    frames = []
+    for a in angles:
+        set_raster_cornell_angle(scene5, a)
+        frames.append(scene5.raster_frame())
+    imgs, zbufs = render.draw_batch(scene5, frames)
+    torch.cuda.synchronize()
+    launches, launches_s = rk.LAUNCHES, rk.LAUNCHES_SHADED
+    batch_dropped = int(render.last_stats[scene5.name]["bin_dropped"])
+    if not (isinstance(render, TraditionalRasterizer) and render.device.type == "cuda"):
+        fail(f"pipeline_from_config gave {type(render).__name__} on {render.device}")
+    if (launches, launches_s) != (1 + RASTER_BATCH, 1):
+        fail(f"expected {1 + RASTER_BATCH} fused and 1 shaded launches on the "
+             f"main path, counted {launches} and {launches_s}")
+    if stats_d != {"bin_dropped": 0, "kernel": "raster_tiles"} or stats_s != {
+            "bin_dropped": 0, "kernel": "raster_tiles_shaded"} or batch_dropped:
+        fail(f"last_stats {stats_d} / {stats_s} / batch bin_dropped {batch_dropped}")
+    cov_d = float(np.isfinite(zbuf_d).mean())
+    if frame_d.shape != (H, W, 3) or not np.isfinite(frame_d).all():
+        fail("TraditionalRasterizer.draw() frame has the wrong shape or non-finite values")
+    if cov_d < RASTER_COVERAGE_MIN:
+        fail(f"coverage {cov_d:.4f} is below {RASTER_COVERAGE_MIN}")
+    img10, z10 = tr.render_raster_frame(geom5, frame5, H, W, active_types=active5)
+    if not (np.array_equal(frame_d, img10.cpu().numpy())
+            and np.array_equal(zbuf_d, z10.cpu().numpy())):
+        fail("draw() differs from render_raster_frame on phase 10's tables")
+    if not np.array_equal(render_s.frame, img_s.cpu().numpy()):
+        fail("the shaded draw() differs from phase 11's shaded frame")
+    # after the counts are read: the batch against one draw() per frame
+    imgs, zbufs = imgs.cpu().numpy(), zbufs.cpu().numpy()
+    for i, a in enumerate(angles):
+        set_raster_cornell_angle(scene5, a)
+        render.clear()
+        render.draw()
+        if not (np.array_equal(imgs[i], render.frame)
+                and np.array_equal(zbufs[i], render.zbuffer)):
+            fail(f"draw_batch frame {i} differs from draw()")
+    if np.array_equal(imgs[0], imgs[-1]):
+        fail("the turned frames of draw_batch are all the same")
+    phase(13, f"pipeline_from_config(cfg, \"raster\") on {render.device} -> draw -> "
+              f"{png5.name} / {png3.name}: coverage {cov_d:.4f} (>= "
+              f"{RASTER_COVERAGE_MIN}), mean {frame_d.mean():.5f} / "
+              f"{render_s.frame.mean():.5f}, launches fused {launches} shaded "
+              f"{launches_s}, bin_dropped 0, equal to phases 10 and 11; "
+              f"draw_batch of {RASTER_BATCH} turned frames bit-identical to "
+              f"{RASTER_BATCH} draws")
+
+    # ---- 14. times
+    set_raster_cornell_angle(scene5, angles[0])
+    host5, host3 = scene5.raster_frame(), scene3.raster_frame()
+    reps = 20
+    t_frame_d = cuda_times(lambda: tr.render_raster_frame(
+        geom5, host5, H, W, active_types=active5), reps)
+    t_frame_s = cuda_times(lambda: tr.render_raster_frame(
+        geom3, host3, H, W, active_types=active3, shaded=True), reps)
+    t_tables = cuda_times(lambda: tr.raster_tables(
+        geom5, tr.prepare_raster_frame(host5, dev)), reps)
+    th, tw = rk.TILE_H, rk.TILE_W
+    gh, gw = -(-H // th), -(-W // tw)
+    cap = min(2048, max(256, ((tab5[0].shape[0] + 127) // 128) * 128))
+    t_bin = cuda_times(lambda: rk.bin_triangles(tab5[2], tab5[3], gh, gw, th, tw, cap), reps)
+    kw = dict(height=H, width=W, gh=gh, gw=gw, tile_h=th, tile_w=tw)
+    lists5, counts5, _ = rk.bin_triangles(tab5[2], tab5[3], gh, gw, th, tw, cap)
+    lists3, counts3, _ = rk.bin_triangles(tab3[2], tab3[3], gh, gw, th, tw, cap)
+    t_wrap_f = cuda_times(lambda: rk.raster_tiles_fused(*tab5, H, W), reps)
+    t_wrap_s = cuda_times(lambda: rk.raster_tiles_shaded(*tab3, lights, H, W), reps)
+    t_bare_f = cuda_times(lambda: rk.launch_raster_tiles(
+        tab5[0], tab5[1], lists5, counts5, None, **kw), reps)
+    t_bare_s = cuda_times(lambda: rk.launch_raster_tiles(
+        tab3[0], tab3[1], lists3, counts3, lights, **kw), reps)
+    t_shade_d = cuda_times(lambda: tr.shade_deferred(
+        k_f, geom5, frame5, 0, active5), reps)
+    t_shade_s = cuda_times(lambda: tr.apply_tex_quadratic(k_s, geom3), reps)
+    t_batch = [t / RASTER_BATCH for t in cuda_times(
+        lambda: render.draw_batch(scene5, frames), 5)]
+    t_plain_f = cuda_times(lambda: rk.raster_tiles_fused_plain(*tab5, H, W), 3)
+    t_plain_s = cuda_times(lambda: rk.raster_tiles_shaded_plain(*tab3, lights, H, W), 3)
+    t0 = time.perf_counter()
+    render.clear()
+    render.draw()
+    draw_wall = (time.perf_counter() - t0) * 1e3
+    med = statistics.median
+    phase(14, f"raster {W}x{H}, {n_faces} triangles, tile {th}x{tw}, ms as median "
+              f"[min-max] of {reps} after a warm-up, on {card}: frame deferred "
+              f"{spread(t_frame_d)} ({1e3 / med(t_frame_d):.1f} frames/s), frame "
+              f"shaded {spread(t_frame_s)}; stages: upload + vertex + setup + "
+              f"tables {spread(t_tables)}, binning {spread(t_bin)}, fused wrapper "
+              f"(binning + launch) {spread(t_wrap_f)} with the bare launch "
+              f"{spread(t_bare_f)}, shaded wrapper {spread(t_wrap_s)} with the "
+              f"bare launch {spread(t_bare_s)}, "
+              f"deferred shading {spread(t_shade_d)}, texel quadratic "
+              f"{spread(t_shade_s)}; draw_batch per frame {spread(t_batch)} "
+              f"(5 batches of {RASTER_BATCH}); one draw() with its copy to the "
+              f"host {draw_wall:.1f} ms wall; plain fused {spread(t_plain_f)}, "
+              f"plain shaded {spread(t_plain_s)} (3 each)")
+
+    # the wrappers' bounds: ~21 float32 operations a pixel and list entry in
+    # the walk, ~60 to interpolate a covered pixel, and for the shaded
+    # kernel ~30 + 70 a light on top; the four operand tables read once,
+    # every output plane written once (the lists are an intermediate)
+    pix = th * tw
+    n_lights = (lights.numel() - 3) // 6
+    entries5, entries3 = int(counts5.sum()), int(counts3.sum())
+    covered3 = int((k_s["best_idx"] >= 0).sum())
+    covered5 = int((k_f["best_idx"] >= 0).sum())
+    b_f, by_f = bound(
+        tensor_bytes(*tab5) + 48 * n,
+        21 * entries5 * pix + 60 * covered5)
+    b_s, by_s = bound(
+        tensor_bytes(*tab3, lights) + 64 * n,
+        21 * entries3 * pix + (90 + 70 * n_lights) * covered3)
+    phase(14, f"bounds: fused {b_f:.4f} ms by {by_f} ({entries5} list entries, mean "
+              f"{entries5 / (gh * gw):.1f} a tile, longest {int(counts5.max())}), "
+              f"shaded {b_s:.4f} ms by {by_s}")
+
+    common = {"route": "cuda",
+              "source": "software_rasterizer_tpu_torch/csrc/raster_tiles.cu",
+              "library_ms": None}
+    return [
+        {"name": "raster_tiles",
+         "replaces": "software_rasterizer_tpu/ops/pallas_raster.py:86",
+         "launches": launches, "max_abs_err": c_f["max_abs_err"],
+         "ms": med(t_wrap_f), "plain_ms": med(t_plain_f),
+         "bound_ms": b_f, "bound_by": by_f, **common},
+        {"name": "raster_tiles_shaded",
+         "replaces": "software_rasterizer_tpu/ops/pallas_raster.py:167",
+         "launches": launches_s, "max_abs_err": c_s["max_abs_err"],
+         "ms": med(t_wrap_s), "plain_ms": med(t_plain_s),
+         "bound_ms": b_s, "bound_by": by_s, **common},
+    ]
 
 
 if __name__ == "__main__":

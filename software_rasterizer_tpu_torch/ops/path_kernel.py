@@ -359,10 +359,12 @@ def path_camera_render_plain(scene: RTScene, seed: int, width: int,
                              height: int, fovy_deg: float, spp: int,
                              start_sample: int = 0, lane_offset: int = 0,
                              n_lanes: Optional[int] = None,
-                             p_rr: float = 0.8,
-                             max_bounces: int = 16) -> torch.Tensor:
+                             p_rr: float = 0.8, max_bounces: int = 16,
+                             stats: Optional[dict] = None) -> torch.Tensor:
     """Plain PyTorch version of `path_camera_render` (same signature and
-    semantics), on the scene's device."""
+    semantics), on the scene's device. A `stats` dict gets
+    "lane_iterations": the loop iterations summed over lanes, each a
+    restart or a bounce with its two traces (the kernel's unit of work)."""
     n = _lane_count(width, height, lane_offset, n_lanes, spp, max_bounces)
     dev = scene.device
     f32 = torch.float32
@@ -398,7 +400,10 @@ def path_camera_render_plain(scene: RTScene, seed: int, width: int,
     pos = nrm = kd = emit = col = tp = (zero, zero, zero)
     acc = [zero, zero, zero]
 
+    lane_iterations = 0
     while bool((live | (next_s < spp)).any()):
+        if stats is not None:
+            lane_iterations += int((live | (next_s < spp)).sum())
         restart = ~live & (next_s < spp)
         local_s = torch.clamp(next_s - 1, min=0)
         sseed = seeds[torch.clamp(local_s, max=max(spp - 1, 0))]
@@ -498,4 +503,6 @@ def path_camera_render_plain(scene: RTScene, seed: int, width: int,
         next_s = torch.where(restart, next_s + 1, next_s)
         depth = torch.where(restart, 0, depth_n)
 
+    if stats is not None:
+        stats["lane_iterations"] = stats.get("lane_iterations", 0) + lane_iterations
     return torch.stack(acc)

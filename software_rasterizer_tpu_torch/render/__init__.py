@@ -9,3 +9,4 @@ from software_rasterizer_tpu_torch.render.pipeline import (  # noqa: F401
 )
 from software_rasterizer_tpu_torch.render.pathtracer import PathTracing  # noqa: F401
 from software_rasterizer_tpu_torch.render.raytracer import RayTracing  # noqa: F401
+from software_rasterizer_tpu_torch.render.rasterizer import TraditionalRasterizer  # noqa: F401

@@ -34,7 +34,7 @@ from software_rasterizer_tpu_torch.render.pipeline import Primitive, RenderingPi
 
 class PathTracing(RenderingPipeline):
     def __init__(self, width: int, height: int, spp: int = 16,
-                 max_bounces: int = 16, seed: int = 0, device="cpu"):
+                 max_bounces: int = 16, seed: int = 0, device="cuda"):
         super().__init__(width, height)
         self.spp = spp
         self.max_bounces = max_bounces

@@ -64,13 +64,18 @@ class RenderingPipeline:
         write_png(path, self.frame)
 
 
-def pipeline_from_config(cfg, kind: str = "path", device="cpu"):
+def pipeline_from_config(cfg, kind: str = "path", device="cuda"):
     """Construct a render pipeline from a RenderConfig (config.py) on a
-    torch device. kind: "raster" | "whitted" | "path"; "raster" is not
-    ported yet."""
+    torch device: the card unless the caller asks for "cpu". kind:
+    "raster" | "whitted" | "path". `cfg.raster_tile` sizes the TPU
+    kernel's blocks and is not read: the CUDA tile kernels keep their own
+    default tile, and no output depends on it."""
     if kind == "raster":
-        raise NotImplementedError(
-            "the raster pipeline is not ported yet (ROADMAP queue 1 step 7)")
+        from software_rasterizer_tpu_torch.render.rasterizer import (
+            TraditionalRasterizer,
+        )
+
+        return TraditionalRasterizer(cfg.width, cfg.height, device=device)
     if kind == "whitted":
         from software_rasterizer_tpu_torch.render.raytracer import RayTracing
 

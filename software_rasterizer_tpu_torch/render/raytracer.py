@@ -21,7 +21,7 @@ from software_rasterizer_tpu_torch.render.pipeline import Primitive, RenderingPi
 
 class RayTracing(RenderingPipeline):
     def __init__(self, width: int, height: int, spp: int = 1,
-                 max_depth: int = 5, seed: int = 0, device="cpu"):
+                 max_depth: int = 5, seed: int = 0, device="cuda"):
         super().__init__(width, height)
         self.spp = spp
         self.max_depth = max_depth

@@ -7,8 +7,8 @@
   * accumulate 4 + 4 equals one 8-sample draw up to float32 summation
     order (rtol=2e-5, as tests/test_path.py's resume check);
   * checkpoints cross between the packages with the same keys and values;
-  * a CUDA request without CUDA, a missing or failing nvcc, a launch on
-    CPU tensors and the unported raster pipeline each raise;
+  * a CUDA request without CUDA, a missing or failing nvcc and a launch
+    on CPU tensors each raise;
   * importing every module of the port imports no JAX.
 """
 
@@ -91,12 +91,6 @@ def test_cuda_request_without_cuda_raises():
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         pipeline_from_config(RenderConfig(width=8, height=8), "path",
                              device="cuda")
-
-
-@pytest.mark.parametrize("kind", ["raster"])
-def test_unported_pipelines_raise(kind):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pipeline_from_config(RenderConfig(), kind)
 
 
 def test_textured_emitter_raises():

@@ -72,3 +72,106 @@ def edge_tie_pixels(arrays, dirs, rel=1e-6):
     t_min = np.where(np.isfinite(t_min), t_min, 0.0)   # rows with no hit
     near = hit & (np.abs(t - t_min) <= rel * np.abs(t_min))
     return near.sum(axis=1) >= 2
+
+
+RASTER_CORNELL_SCALE = (-0.25, 0.25, 0.25)
+
+
+def set_raster_cornell_angle(scene, degrees):
+    """Turn every mesh of `raster_cornell` about the y axis, keeping its
+    mirrored scale."""
+    for name, _ in scene.meshes():
+        scene.set_model_matrix(name, (0.0, 1.0, 0.0), float(degrees),
+                               (0.0, 0.0, 0.0), RASTER_CORNELL_SCALE)
+
+
+def raster_cornell(models, build_cornell, subdivide, shader_type, texture_cls,
+                   levels, variant="three", angle=8.0):
+    """The Cornell box as a lit raster scene of real size: every mesh
+    tessellated by `subdivide(data, levels)` (levels=4: 36 x 256 = 9,216
+    triangles), uvs filled from vertex positions (the inline OBJs carry
+    none), two point lights plus the camera light, and a smooth 256x256
+    texture made from a NumPy seed.
+
+    variant "three": TEXTURE on the back wall and the floor, NORMAL on the
+    short box, PHONG elsewhere (what the shaded tile kernel takes);
+    variant "five": also BUMP on the short box, DISPLACEMENT on the tall
+    box and NORMAL on the ceiling (deferred shading only).
+
+    The box is mirrored in x and the eye moved in to (0, 0, -0.75): under
+    the reference's cull rule (the screen-space face normal dotted with
+    the eye) the default framing keeps 9% of the frame, this one most of
+    it. It is turned by `angle` degrees about y so that the tessellation's
+    edges do not run along pixel rows and columns."""
+    import numpy as np
+
+    scene = build_cornell()
+    scene.set_view_matrix((0.0, 0.0, -0.75), (0.0, 0.0, 0.0), (0.0, 1.0, 0.0))
+    for _, obj in scene.meshes():
+        data = subdivide(obj.data, levels)
+        v = data.vertices
+        span = v.max(0) - v.min(0)
+        ax = np.sort(np.argsort(-span)[:2])       # the two widest axes
+        uv = (v[:, ax] - v.min(0)[ax]) / np.maximum(span[ax], 1e-6)
+        data.uvs = (0.02 + 0.95 * uv).astype(np.float32)
+        obj.data = data
+    set_raster_cornell_angle(scene, angle)
+
+    rng = np.random.default_rng(11)
+    yy, xx = np.mgrid[0:256, 0:256] / 256.0
+    tex = np.zeros((256, 256, 3))
+    for c in range(3):
+        fx, fy = rng.integers(1, 4, 2)
+        ph = rng.uniform(0, 2 * np.pi, 2)
+        tex[..., c] = 0.55 + 0.2 * np.sin(2 * np.pi * fx * xx + ph[0]) \
+            + 0.2 * np.cos(2 * np.pi * fy * yy + ph[1])
+    tex = texture_cls(np.round(tex * 255.0).astype(np.uint8))
+
+    binds = {"back": shader_type.TEXTURE, "floor": shader_type.TEXTURE,
+             "shortbox": shader_type.NORMAL}
+    if variant == "five":
+        binds.update({"shortbox": shader_type.BUMP,
+                      "tallbox": shader_type.DISPLACEMENT,
+                      "top": shader_type.NORMAL})
+    elif variant != "three":
+        raise ValueError(f"unknown variant {variant!r}")
+    for mesh, st in binds.items():
+        scene.add_shader(f"{mesh}_shader",
+                         None if st == shader_type.NORMAL else tex, st)
+        scene.bind_shader_to_mesh(mesh, f"{mesh}_shader")
+    scene.add_light("Light1", models.PointLight((0.9, 0.9, -0.9), (100.0,) * 3))
+    scene.add_light("Light2", models.PointLight((0.0, 0.8, 0.9), (50.0,) * 3))
+    scene.camera_light(True)
+    return scene
+
+
+def raster_knife_edge_pixels(geo, idx_a, idx_b, row0=0, tol=1e-5):
+    """(H,W) bool: where two rasterizations of the same (F,12) coefficient
+    table `geo` picked different winners `idx_a` / `idx_b` (-1: none) and
+    float64 shows why: a barycentric of one of the two winners lies within
+    `tol` of 0 or 1 at the pixel (coverage decided by the last bit), or
+    both cover it at depths within `tol` relative (the z test decided by
+    the last bit). A differing pixel that is False here is a real
+    disagreement."""
+    import numpy as np
+
+    g = np.asarray(geo, np.float64)
+    ia, ib = np.asarray(idx_a), np.asarray(idx_b)
+    h, w = ia.shape
+    y, x = np.mgrid[0:h, 0:w].astype(np.float64)
+    y = y + row0
+
+    def evaluate(idx):
+        r = g[np.maximum(idx, 0)]
+        alpha = x * r[..., 0] + y * r[..., 1] + r[..., 2]
+        beta = x * r[..., 3] + y * r[..., 4] + r[..., 5]
+        bary = np.stack([alpha, beta, 1.0 - alpha - beta], -1)
+        edge = ((np.abs(bary) <= tol) | (np.abs(bary - 1.0) <= tol)).any(-1)
+        z = x * r[..., 6] + y * r[..., 7] + r[..., 8]
+        return edge & (idx >= 0), z
+
+    edge_a, za = evaluate(ia)
+    edge_b, zb = evaluate(ib)
+    z_tie = ((ia >= 0) & (ib >= 0)
+             & (np.abs(za - zb) <= tol * np.maximum(np.abs(za), np.abs(zb))))
+    return (ia != ib) & (edge_a | edge_b | z_tie)
