@@ -2,13 +2,15 @@
 
     python3 chip_smoke.py
 
-Drives the port's three pipelines at full width (1024x1024) through
-their hand-written CUDA kernels, and holds each kernel against its plain
-PyTorch version: Cornell-box path tracing at 16 spp, Whitted ray tracing
-at max_depth 5, and the rasterizer on a lit, tessellated Cornell box of
-9,216 triangles. Phases, one line each; any failure exits non-zero:
+Drives the port's three pipelines and its explicit-ray layer at full
+width (1024x1024) through their hand-written CUDA kernels, and holds each
+kernel against its plain PyTorch version: Cornell-box path tracing at 16
+spp, Whitted ray tracing at max_depth 5, the rasterizer on a lit,
+tessellated Cornell box of 9,216 triangles, and the wavefront path
+integrator on the frame's 1,048,576 camera rays as explicit tensors.
+Phases, one line each; any failure exits non-zero:
 
-  1. device: CUDA present, card name and power limit, the three CUDA
+  1. device: CUDA present, card name and power limit, the five CUDA
      libraries built at once (one nvcc each);
   2. path: kernel vs plain on three 4096-lane windows of the full frame;
   3. path golden: 48x48 at 8 spp against tests/goldens path_mean;
@@ -32,10 +34,29 @@ at max_depth 5, and the rasterizer on a lit, tessellated Cornell box of
      bin_dropped, coverage; then the batch against 8 draw()s;
  14. raster times (CUDA events, median and range): the frame, the bare
      launch of each kernel, the stages around it, draw_batch per frame,
-     and the plain versions.
+     and the plain versions;
+ 15. trace: the nearest-triangle kernel vs plain on all camera rays and
+     on as many bounce rays from their hit points (winners and t
+     identical), and `nearest_hit` over the kernel against `nearest_hit`
+     over the plain version, field by field;
+ 16. bounce: the fused bounce kernel vs plain on the whole frame's state
+     at 1 bounce and at 16 (acc, live and state lane for lane);
+ 17. wavefront main path: camera rays -> path_render_accumulate on the
+     default device, 16 samples (16 + 16 launches), against the camera
+     kernel's frame of phase 4 and the golden; PathTracing.draw() of
+     Cornell with a textured light through pipeline_from_config, and at
+     one bounce every pixel on the light a texel exactly; the
+     plain wavefront (fused=False) on a quarter frame, nothing dropped;
+ 18. wavefront times (CUDA events, median and range): both kernels bare
+     and wrapped, nearest_hit and path_trace whole, the host's share,
+     Mpaths/s beside the camera kernel's, the plain versions, the bounds;
+ 19. Whitted with two emitters: kernel vs plain on the whole frame at
+     spp 1 and 4, RayTracing.draw() through pipeline_from_config, two draws
+     differ, times beside the one-emitter frame.
 
 The last lines are a JSON line of per-kernel results (time beside the
-card's bound for the same work), the card's
+card's bound for the same work; the Whitted kernel's `launches` is phase
+8's main path and `launches_two_emitters` phase 19's), the card's
 `nvidia-smi` name and power limit, and `{"ok": true, "device": ...}`.
 Images go to chiprun_out/ under the repository root.
 """
@@ -84,6 +105,12 @@ RASTER_COVERAGE_MIN = 0.40
 RASTER_RTOL, RASTER_ATOL, RASTER_SHARE = 1e-5, 1e-5, 0.999
 # tests/test_goldens.py raster rule
 RG_COVER, RG_TOL = 0.01, 1e-3
+# wavefront against the camera kernel: another random stream under the
+# same estimator, 16 samples of a million lanes
+WAVE_MEAN_RTOL = 0.02
+# the plain wavefront's lanes on the card (a quarter frame)
+PLAIN_WAVE_LANES = 1 << 18
+WHITTED_EMITTER_SPP = 4
 # the card's published peaks (H100 SXM data sheet): float32 outside the
 # tensor cores, and device memory
 FP32_PEAK = 67e12
@@ -152,22 +179,25 @@ def tensor_bytes(*tensors) -> int:
 
 
 def build_kernels() -> float:
-    """Build the three CUDA libraries at once (one nvcc each); returns the
+    """Build the five CUDA libraries at once (one nvcc each); returns the
     seconds it took."""
     from software_rasterizer_tpu_torch.ops import path_kernel as pk
     from software_rasterizer_tpu_torch.ops import raster_kernel as rk
+    from software_rasterizer_tpu_torch.ops import trace_kernel as tk
     from software_rasterizer_tpu_torch.ops import whitted_kernel as wk
 
     t0 = time.perf_counter()
     errors = []
 
-    def build(mod):
+    def build(fn):
         try:
-            mod.build_kernel()
+            fn()
         except Exception as e:  # re-raised below, after every build ends
             errors.append(e)
 
-    threads = [threading.Thread(target=build, args=(m,)) for m in (pk, wk, rk)]
+    threads = [threading.Thread(target=build, args=(fn,)) for fn in (
+        pk.build_kernel, pk.build_bounce_kernel, tk.build_kernel,
+        wk.build_kernel, rk.build_kernel)]
     for th in threads:
         th.start()
     for th in threads:
@@ -193,6 +223,7 @@ def main() -> int:
     from software_rasterizer_tpu_torch.render import pipeline_from_config
     from software_rasterizer_tpu_torch.scenes import build_cornell_scene
     from software_rasterizer_tpu_torch.utils.cuda_build import BUILD_LOGS
+    from software_rasterizer_tpu_torch.utils.rng import sample_seeds
 
     OUT_DIR.mkdir(exist_ok=True)
     dev = torch.device("cuda")
@@ -202,7 +233,8 @@ def main() -> int:
     # ---- 1. device + build (one nvcc per library, started together)
     build_s = build_kernels()
     ptxas = []
-    for name in ("path_camera", "whitted_uber", "raster_tiles"):
+    for name in ("path_camera", "path_bounce", "trace_nearest", "whitted_uber",
+                 "raster_tiles"):
         log = BUILD_LOGS.get(name, "")
         (OUT_DIR / f"{name}_build.log").write_text(log)
         ptxas += [f"{name}: {ln.strip()}" for ln in log.splitlines()
@@ -315,7 +347,17 @@ def main() -> int:
                f"{WINDOW}-lane window ({w_ms:.1f} ms) and scaled by "
                f"{n // WINDOW}")
     paths = n * SPP
-    phase(5, f"kernel {k_ms:.3f} ms ({paths / k_ms / 1e3:.2f} Mpaths/s), "
+    # the launch alone, with the operand tables packed beforehand
+    attr_t, sph_t, n_sph = pk.pack_scene_tables(rt)
+    operands = (rt.tri_table.float().contiguous(), attr_t, sph_t,
+                rt.emitter_cr.float().contiguous(),
+                torch.as_tensor(sample_seeds(SEED, 0, SPP)).to(dev),
+                pk._camera_table(rt, scene.fovy, WIDTH, HEIGHT))
+    bare_ms = cuda_ms(lambda: pk.launch_path_camera(
+        *operands, n_tri=rt.n_tri, n_sph=n_sph, n_emitters=rt.n_emitters,
+        lane_offset=0, n_lanes=n, width=WIDTH, height=HEIGHT, **kw))
+    phase(5, f"kernel {k_ms:.3f} ms ({paths / k_ms / 1e3:.2f} Mpaths/s; bare "
+             f"launch {bare_ms:.3f} ms), "
              f"plain {p_ms:.1f} ms ({paths / p_ms / 1e3:.3f} Mpaths/s; {how}) "
              f"at {WIDTH}x{HEIGHT} {SPP} spp on {card}")
 
@@ -323,7 +365,6 @@ def main() -> int:
     # every primitive (~80 float32 operations a triangle, ~40 a sphere)
     # and spends ~300 on sampling and shading; the tables and the (3,N)
     # sum are the only bytes
-    attr_t, sph_t, n_sph = pk.pack_scene_tables(rt)
     path_bound, path_by = bound(
         tensor_bytes(rt.tri_table, attr_t, sph_t, rt.emitter_cr, full) + 4 * SPP + 32,
         work["lane_iterations"] * (80 * rt.n_tri + 40 * n_sph + 300))
@@ -332,6 +373,11 @@ def main() -> int:
 
     whitted = whitted_phases(dev, card)
     raster = raster_phases(dev, card)
+    cam_mean = float(torch.clamp(full.T / float(SPP), 0, 1).mean())
+    wavefront = wavefront_phases(dev, card, cam_mean, paths / k_ms / 1e3)
+    picks = whitted_emitter_phases(dev, card)
+    whitted["launches_two_emitters"] = picks["launches"]
+    whitted["max_abs_err"] = max(whitted["max_abs_err"], picks["max_abs_err"])
 
     print(json.dumps({"kernels": [{
         "name": "path_camera",
@@ -341,11 +387,12 @@ def main() -> int:
         "launches": launches,
         "max_abs_err": max_err,
         "ms": k_ms,
+        "bare_ms": bare_ms,
         "plain_ms": p_ms,
         "bound_ms": path_bound,
         "bound_by": path_by,
         "library_ms": None,
-    }, whitted, *raster]}))
+    }, whitted, *raster, *wavefront]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
@@ -532,14 +579,14 @@ def whitted_phases(dev, card: str) -> dict:
                r["o"], r["d"])
         bare_ms = cuda_ms(lambda: wk.launch_whitted_uber(
             *ops, n_tri=n_tri, n_sph=n_sph, max_depth=md), repeats=20)
-        times[name] = (k_ms, p_ms)
+        times[name] = (k_ms, p_ms, bare_ms)
         phase(9, f"Whitted {name}: kernel {k_ms:.3f} ms ({n / k_ms / 1e3:.2f} M "
                  f"primary rays/s; bare launch {bare_ms:.3f} ms, median of 20), "
                  f"plain {p_ms:.1f} ms ({n / p_ms / 1e3:.4f} M "
                  f"primary rays/s; {how}, median of 3 after warm-up) at "
                  f"{WIDTH}x{HEIGHT} max_depth {md} on {card}")
 
-    k_ms, p_ms = times["cornell"]
+    k_ms, p_ms, bare_ms = times["cornell"]
     # the kernel's bound on Cornell: every main and shadow ray meets every
     # primitive (~30 float32 operations a triangle, ~25 a sphere), every
     # diffuse hit spends ~200 on Phong; rays in, colours and counts out
@@ -558,6 +605,7 @@ def whitted_phases(dev, card: str) -> dict:
         "launches": launches,
         "max_abs_err": max_err,
         "ms": k_ms,
+        "bare_ms": bare_ms,
         "plain_ms": p_ms,
         "bound_ms": w_bound,
         "bound_by": w_by,
@@ -859,14 +907,443 @@ def raster_phases(dev, card: str) -> list:
         {"name": "raster_tiles",
          "replaces": "software_rasterizer_tpu/ops/pallas_raster.py:86",
          "launches": launches, "max_abs_err": c_f["max_abs_err"],
-         "ms": med(t_wrap_f), "plain_ms": med(t_plain_f),
+         "ms": med(t_wrap_f), "bare_ms": med(t_bare_f),
+         "plain_ms": med(t_plain_f),
          "bound_ms": b_f, "bound_by": by_f, **common},
         {"name": "raster_tiles_shaded",
          "replaces": "software_rasterizer_tpu/ops/pallas_raster.py:167",
          "launches": launches_s, "max_abs_err": c_s["max_abs_err"],
-         "ms": med(t_wrap_s), "plain_ms": med(t_plain_s),
+         "ms": med(t_wrap_s), "bare_ms": med(t_bare_s),
+         "plain_ms": med(t_plain_s),
          "bound_ms": b_s, "bound_by": by_s, **common},
     ]
+
+
+def same_lanes(a, b):
+    """(N,) bool: the lanes on which two tensors of N rows agree bit for
+    bit (a NaN equals a NaN)."""
+    eq = a == b
+    if a.is_floating_point():
+        eq = eq | ((a != a) & (b != b))
+    return eq.reshape(eq.shape[0], -1).all(dim=1)
+
+
+def wavefront_phases(dev, card: str, cam_mean: float, cam_mpaths: float) -> list:
+    """Phases 15-18: the explicit-ray layer. Returns the entries of the
+    trace kernel and the bounce kernel for the JSON line. `cam_mean` is
+    the clipped mean of the camera kernel's frame of phase 4, and
+    `cam_mpaths` its rate."""
+    import numpy as np
+    import torch
+
+    from software_rasterizer_tpu_torch.config import RenderConfig
+    from software_rasterizer_tpu_torch.ops import intersect as ti
+    from software_rasterizer_tpu_torch.ops import path as tp
+    from software_rasterizer_tpu_torch.ops import path_kernel as pk
+    from software_rasterizer_tpu_torch.ops import trace_kernel as tk
+    from software_rasterizer_tpu_torch.ops.camera import camera_rays
+    from software_rasterizer_tpu_torch.ops.shading import ShaderType
+    from software_rasterizer_tpu_torch.render import pipeline_from_config
+    from software_rasterizer_tpu_torch.scenes import build_cornell_scene
+    from software_rasterizer_tpu_torch.utils.rng import fold_in, key_bits
+    from software_rasterizer_tpu_torch.utils.texture import Texture
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_scenes import textured_light_cornell
+
+    n = WIDTH * HEIGHT
+    scene = build_cornell_scene()
+    scene.set_ndc_matrix(WIDTH, HEIGHT)
+    rt = ti.prepare_rt_scene(scene.rt_geometry(), scene.rt_frame(), dev)
+    o, d = (x.contiguous() for x in camera_rays(
+        rt.eye.cpu().numpy(), scene.fovy, WIDTH, HEIGHT, dev))
+    allowed = (1.0 - LANE_SHARE) * n
+
+    def nearest_hit_over_plain(o_, d_):
+        """`nearest_hit` with the trace kernel's plain version under it."""
+        kernel = tk.trace_nearest_vpu
+        tk.trace_nearest_vpu = tk.trace_nearest_vpu_plain
+        try:
+            return ti.nearest_hit(rt, o_, d_)
+        finally:
+            tk.trace_nearest_vpu = kernel
+
+    # ---- 15. trace kernel vs plain: camera rays, then bounce rays
+    hit = ti.nearest_hit(rt, o, d)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    w = torch.randn((n, 3), generator=gen, device=dev)
+    w = w / torch.sqrt((w * w).sum(dim=1, keepdim=True))
+    w = torch.where(((w * hit.normal).sum(dim=1) < 0)[:, None], -w, w)
+    # lanes that missed start their second ray at the eye
+    o2 = torch.where(hit.hit[:, None], hit.coords + 1e-6 * hit.normal, o).contiguous()
+    d2 = torch.where(hit.hit[:, None], w, d).contiguous()
+    trace_err, lines = 0.0, []
+    for name, (o_, d_) in {"camera": (o, d), "bounce": (o2, d2)}.items():
+        k = tk.trace_nearest_vpu(rt.tri_table, rt.n_tri, o_, d_)
+        torch.cuda.synchronize()
+        p = tk.trace_nearest_vpu_plain(rt.tri_table, rt.n_tri, o_, d_)
+        if k[0].shape != (n,) or k[1].dtype != torch.int64 or k[2].dtype != torch.float32:
+            fail(f"trace kernel outputs have the wrong shape or type on {name} rays")
+        bad = int(((k[0] != p[0]) | (k[1] != p[1]) | (k[2] != p[2])).sum())
+        trace_err = max(trace_err, float((k[2] - p[2]).abs().max()))
+        hk = ti.nearest_hit(rt, o_, d_)
+        hp = nearest_hit_over_plain(o_, d_)
+        off = torch.zeros(n, dtype=torch.bool, device=dev)
+        fields = []
+        for f, a, b in zip(hk._fields, hk, hp):
+            differ = ~same_lanes(a, b)
+            if bool(differ.any()):
+                fields.append(f)
+                off |= differ
+        lines.append(f"{name} rays: {bad}/{n} differ in (hit, idx, t), "
+                     f"{int(k[0].sum())} hit; nearest_hit fields differ on "
+                     f"{int(off.sum())} rays" + (f" ({', '.join(fields)})" if fields else ""))
+        if bad > allowed or int(off.sum()) > allowed:
+            fail(f"trace kernel disagrees with plain: {lines[-1]}")
+    phase(15, f"trace kernel vs plain, {rt.n_tri} triangles: " + "; ".join(lines)
+              + f"; max |t diff| {trace_err:.3g}")
+
+    # ---- 16. bounce kernel vs plain on the whole frame's state
+    state = tp.primary_state(hit).contiguous()
+    live = hit.hit.contiguous()
+    seed = int(key_bits(fold_in(fold_in(SEED, 0), 0)))   # sample 0, block 0
+    bounce_err, lines = 0.0, []
+    lane_bounces, plain_bounce_ms = {}, {}
+    for nb in (1, MAX_BOUNCES):
+        ka, ks, kl = pk.fused_bounce_group(rt, state, live, seed, nb, p_rr=scene.rr)
+        torch.cuda.synchronize()
+        work = {}
+        t0 = time.perf_counter()
+        pa, ps, pl = pk.fused_bounce_group_plain(rt, state, live, seed, nb,
+                                                 p_rr=scene.rr, stats=work)
+        torch.cuda.synchronize()
+        plain_bounce_ms[nb] = (time.perf_counter() - t0) * 1e3
+        lane_bounces[nb] = work["lane_bounces"]
+        if ka.shape != (3, n) or ks.shape != (18, n) or kl.shape != (n,) \
+                or not bool(torch.isfinite(ka).all()):
+            fail(f"bounce kernel outputs have the wrong shape or non-finite values")
+        da = (ka - pa).abs()
+        bounce_err = max(bounce_err, float(da.max()))
+        acc_bad = int((da > LANE_ATOL + LANE_RTOL * pa.abs()).any(dim=0).sum())
+        acc_any = int((ka != pa).any(dim=0).sum())
+        live_bad = int((kl != pl).sum())
+        ds = torch.nan_to_num((ks - ps).abs(), nan=0.0, posinf=0.0)
+        state_bad = int(((ds > LANE_ATOL + LANE_RTOL * ps.abs())
+                         & torch.isfinite(ps)).any(dim=0).sum())
+        state_any = int((~same_lanes(ks.T, ps.T)).sum())
+        lines.append(f"{nb} bounce(s): acc differs on {acc_bad}/{n} lanes "
+                     f"(any bit: {acc_any}), live on {live_bad}, state on "
+                     f"{state_bad} (any bit: {state_any}), {lane_bounces[nb]} "
+                     f"lane-bounces, {int(kl.sum())} lanes live after, plain "
+                     f"{plain_bounce_ms[nb]:.0f} ms")
+        if max(acc_bad, live_bad, state_bad) > allowed:
+            fail(f"bounce kernel disagrees with plain: {lines[-1]}")
+    phase(16, f"bounce kernel vs plain on {n} lanes (rtol={LANE_RTOL} "
+              f"atol={LANE_ATOL}): " + "; ".join(lines)
+              + f"; max_abs_err {bounce_err:.3g}")
+
+    # ---- 17. main path: explicit rays through path_render_accumulate
+    kw = dict(p_rr=scene.rr, max_bounces=MAX_BOUNCES)
+
+    def counts():
+        return tk.LAUNCHES, pk.LAUNCHES_BOUNCE, pk.LAUNCHES
+
+    def accumulate():
+        return tp.path_render_accumulate(
+            rt, o, d, SEED, torch.zeros((n, 3), dtype=torch.float32, device=dev),
+            0, SPP, **kw)
+
+    tk.LAUNCHES = pk.LAUNCHES_BOUNCE = pk.LAUNCHES = 0
+    acc = accumulate()
+    torch.cuda.synchronize()
+    launches = counts()
+    if launches != (SPP, SPP, 0):
+        fail(f"expected {SPP} trace and {SPP} bounce launches and no camera-kernel "
+             f"launch on the wavefront's main path, counted {launches}")
+    img = acc / float(SPP)
+    if img.shape != (n, 3) or img.device.type != dev.type \
+            or not bool(torch.isfinite(img).all()):
+        fail("path_render_accumulate's sum has the wrong shape, device or values")
+    w_mean = float(torch.clamp(img, 0, 1).mean())
+    rel = abs(w_mean - cam_mean) / cam_mean
+    if rel > WAVE_MEAN_RTOL:
+        fail(f"wavefront clipped mean {w_mean} vs the camera kernel's {cam_mean}")
+    gscene = build_cornell_scene()
+    gscene.set_ndc_matrix(48, 48)
+    grt = ti.prepare_rt_scene(gscene.rt_geometry(), gscene.rt_frame(), dev)
+    go, gd = (x.contiguous() for x in camera_rays(
+        grt.eye.cpu().numpy(), gscene.fovy, 48, 48, dev))
+    gacc = tp.path_render_accumulate(
+        grt, go, gd, SEED, torch.zeros((48 * 48, 3), dtype=torch.float32, device=dev),
+        0, 8, p_rr=gscene.rr)
+    gmean = float(torch.clamp(gacc / 8.0, 0, 1).mean())
+    want = float(np.load(ROOT / "tests" / "goldens" / "cornell_goldens.npz")["path_mean"])
+    if not abs(gmean - want) < GOLDEN_TOL:
+        fail(f"wavefront golden mean {gmean} vs path_mean {want}")
+    phase(17, f"camera rays -> path_render_accumulate on {img.device}, {SPP} samples "
+              f"of {n} lanes: launches trace {launches[0]} bounce {launches[1]} "
+              f"camera kernel {launches[2]}, clipped mean {w_mean:.5f} vs the camera "
+              f"kernel's {cam_mean:.5f} (rel {rel:.4f} < {WAVE_MEAN_RTOL}); golden "
+              f"48x48 8 samples {gmean:.5f} vs {want:.5f} (< {GOLDEN_TOL})")
+
+    # a textured light: PathTracing.draw() takes the wavefront by itself
+    cfg = RenderConfig(width=WIDTH, height=HEIGHT, spp=SPP,
+                       max_bounces=MAX_BOUNCES, seed=SEED)
+    render = pipeline_from_config(cfg, "path")
+    tscene = textured_light_cornell(build_cornell_scene, ShaderType, Texture)
+    render.add_scene(tscene)
+    tk.LAUNCHES = pk.LAUNCHES_BOUNCE = pk.LAUNCHES = 0
+    render.draw()
+    torch.cuda.synchronize()
+    t_launches = counts()
+    png = OUT_DIR / "chip_smoke_textured_light.png"
+    render.save(str(png))
+    frame = render.frame
+    if render.device.type != dev.type or t_launches != (SPP, SPP, 0):
+        fail(f"PathTracing.draw() of the textured light on {render.device}: "
+             f"launches {t_launches}, expected ({SPP}, {SPP}, 0)")
+    if frame.shape != (HEIGHT, WIDTH, 3) or not np.isfinite(frame).all():
+        fail("the textured-light frame has the wrong shape or non-finite values")
+    trt = ti.prepare_rt_scene(tscene.rt_geometry(), tscene.rt_frame(), dev)
+    if not trt.tex_on_emitter:
+        fail("the textured-light scene does not report a textured emitter")
+    th = ti.nearest_hit(trt, o, d)
+    on_light = (th.hit & (torch.sqrt((th.emit * th.emit).sum(dim=1)) > 1e-5)
+                ).reshape(HEIGHT, WIDTH).cpu().numpy()
+    # every texel has a zero channel and the light's Kd is 0.65 grey; a
+    # lane that stands on the light draws its next-event samples at
+    # distances near zero, so some of its pixels carry a white firefly
+    texel_share = float((frame[on_light].min(axis=1) < 0.2).mean())
+    if on_light.sum() < n // 2000 or texel_share < 0.85:
+        fail(f"{int(on_light.sum())} pixels see the light, {texel_share:.4f} of "
+             f"them show a texel")
+    # with one bounce a pixel on the light is its first term alone: all
+    # of them must be a texel exactly
+    one = pipeline_from_config(RenderConfig(
+        width=WIDTH, height=HEIGHT, spp=1, max_bounces=1, seed=SEED), "path")
+    one.add_scene(tscene)
+    one.draw()
+    texels = np.array([[1, 0, 0], [0, 1, 0], [0, 0, 1], [1, 1, 0]], np.float32)
+    off_texel = np.abs(one.frame[on_light][:, None, :] - texels[None]
+                       ).max(axis=2).min(axis=1)
+    n_off = int((off_texel > 1e-6).sum())
+    if n_off:
+        fail(f"{n_off} of the light's {int(on_light.sum())} pixels are no texel "
+             f"at one bounce (largest distance {float(off_texel.max())})")
+    phase(17, f"pipeline_from_config(cfg, \"path\") on {render.device} -> "
+              f"PathTracing.draw of Cornell with a textured light -> {png.name}: "
+              f"launches trace {t_launches[0]} bounce {t_launches[1]} camera kernel "
+              f"{t_launches[2]}, mean {frame.mean():.5f}, {int(on_light.sum())} "
+              f"pixels on the light, {texel_share:.4f} of them a texel; at one bounce "
+              f"{n_off} of them differ from a texel (tolerance 1e-6)")
+
+    # the plain wavefront on the card, a quarter of the frame's lanes
+    lo = n // 2 - PLAIN_WAVE_LANES // 2
+    po, pd = o[lo:lo + PLAIN_WAVE_LANES], d[lo:lo + PLAIN_WAVE_LANES]
+    t0 = time.perf_counter()
+    plain_r, st = tp.path_trace(rt, po, pd, SEED, fused=False, with_stats=True, **kw)
+    torch.cuda.synchronize()
+    plain_wave_s = time.perf_counter() - t0
+    fused_r = tp.path_trace(rt, po, pd, SEED, fused=True, **kw)
+    pm = float(torch.clamp(plain_r, 0, 1).mean())
+    fm = float(torch.clamp(fused_r, 0, 1).mean())
+    if int(st["dropped_lanes"]) != 0 or abs(pm - fm) / fm > 0.05 \
+            or not bool(torch.isfinite(plain_r).all()):
+        fail(f"plain wavefront: dropped {int(st['dropped_lanes'])}, clipped mean "
+             f"{pm} vs the fused route's {fm}")
+    phase(17, f"path_trace(fused=False) on {PLAIN_WAVE_LANES} lanes of the card: "
+              f"dropped_lanes 0, one sample's clipped mean {pm:.5f} vs the fused "
+              f"route's {fm:.5f} (within 5%), {plain_wave_s:.2f}s")
+
+    # ---- 18. times
+    reps = 20
+    attr, sph, n_sph = pk.pack_scene_tables(rt)
+    tri = rt.tri_table.float().contiguous()
+    ecr = rt.emitter_cr.float().contiguous()
+
+    def bare_bounce(nb):
+        return pk.launch_path_bounce(
+            tri, attr, sph, ecr, state, live, n_tri=rt.n_tri, n_sph=n_sph,
+            n_emitters=rt.n_emitters, seed=seed, n_bounces=nb, p_rr=scene.rr)
+
+    t_trace_bare = cuda_times(lambda: tk.launch_trace_nearest(
+        rt.tri_table, rt.n_tri, o, d), reps)
+    t_trace = cuda_times(lambda: tk.trace_nearest_vpu(rt.tri_table, rt.n_tri, o, d), reps)
+    t_trace2 = cuda_times(lambda: tk.trace_nearest_vpu(rt.tri_table, rt.n_tri, o2, d2), reps)
+    t_nh = cuda_times(lambda: ti.nearest_hit(rt, o, d), reps)
+    t_state = cuda_times(lambda: tp.primary_state(hit), reps)
+    t_bounce_bare = cuda_times(lambda: bare_bounce(MAX_BOUNCES), reps)
+    t_bounce_bare1 = cuda_times(lambda: bare_bounce(1), reps)
+    t_bounce = cuda_times(lambda: pk.fused_bounce_group(
+        rt, state, live, seed, MAX_BOUNCES, p_rr=scene.rr), reps)
+    t_pt = cuda_times(lambda: tp.path_trace(rt, o, d, SEED, **kw), reps)
+    t_acc = cuda_times(accumulate, 3)
+    # the host's share: the time path_trace takes to queue its work
+    queue = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tp.path_trace(rt, o, d, SEED, **kw)
+        queue.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    queue.sort()
+    t_trace_plain = cuda_times(lambda: tk.trace_nearest_vpu_plain(
+        rt.tri_table, rt.n_tri, o, d), 3)
+    med = statistics.median
+    wave_mpaths = n * SPP / med(t_acc) / 1e3
+    phase(18, f"wavefront {WIDTH}x{HEIGHT} = {n} rays, {rt.n_tri} triangles, ms as "
+              f"median [min-max] of {reps} after a warm-up, on {card}: trace kernel "
+              f"bare {spread(t_trace_bare)}, wrapper {spread(t_trace)} on camera rays "
+              f"and {spread(t_trace2)} on bounce rays; nearest_hit whole "
+              f"{spread(t_nh)}; state stack {spread(t_state)}; bounce kernel bare "
+              f"{spread(t_bounce_bare)} at {MAX_BOUNCES} bounces and "
+              f"{spread(t_bounce_bare1)} at 1, wrapper {spread(t_bounce)}; path_trace "
+              f"whole {spread(t_pt)}, of which the host queues for {spread(queue)} "
+              f"(wall, 5); path_render_accumulate {SPP} samples {spread(t_acc)} (3) = "
+              f"{wave_mpaths:.2f} Mpaths/s beside the camera kernel's "
+              f"{cam_mpaths:.2f}; plain trace {spread(t_trace_plain)} (3), plain "
+              f"bounce {plain_bounce_ms[MAX_BOUNCES]:.1f} at {MAX_BOUNCES} bounces and "
+              f"{plain_bounce_ms[1]:.1f} at 1 (once each)")
+
+    # bounds. Trace: ~58 float32 operations a ray and triangle; the table
+    # and the rays read once, (hit, idx, t) written once. Bounce: a live
+    # lane-bounce meets every primitive with two rays (~80 operations a
+    # triangle, ~40 a sphere) and spends ~300 on sampling and shading;
+    # the state read and written once, live and the (3,N) sum beside it
+    b_t, by_t = bound(tensor_bytes(rt.tri_table, o, d) + 13 * n,
+                      58.0 * n * rt.n_tri)
+    b_b, by_b = bound(
+        tensor_bytes(tri, attr, sph, ecr, live) + 2 * tensor_bytes(state) + 13 * n,
+        lane_bounces[MAX_BOUNCES] * (80.0 * rt.n_tri + 40.0 * n_sph + 300.0))
+    phase(18, f"bounds: trace {b_t:.4f} ms by {by_t}, bounce {b_b:.4f} ms by {by_b} "
+              f"({lane_bounces[MAX_BOUNCES]} lane-bounces of this frame)")
+    return [
+        {"name": "trace_nearest", "route": "cuda",
+         "source": "software_rasterizer_tpu_torch/csrc/trace_nearest.cu",
+         "replaces": "software_rasterizer_tpu/ops/pallas_trace.py:431",
+         "launches": launches[0], "max_abs_err": trace_err,
+         "ms": med(t_trace), "bare_ms": med(t_trace_bare),
+         "plain_ms": med(t_trace_plain), "bound_ms": b_t, "bound_by": by_t,
+         "library_ms": None},
+        {"name": "path_bounce", "route": "cuda",
+         "source": "software_rasterizer_tpu_torch/csrc/path_bounce.cu",
+         "replaces": "software_rasterizer_tpu/ops/pallas_path.py:635",
+         "launches": launches[1], "max_abs_err": bounce_err,
+         "ms": med(t_bounce), "bare_ms": med(t_bounce_bare),
+         "plain_ms": plain_bounce_ms[MAX_BOUNCES], "bound_ms": b_b,
+         "bound_by": by_b, "library_ms": None},
+    ]
+
+
+def whitted_emitter_phases(dev, card: str) -> dict:
+    """Phase 19: Whitted with two emitters. Returns the launches of its
+    main path and the largest kernel-against-plain difference, to be
+    merged into the Whitted kernel's entry of the JSON line."""
+    import numpy as np
+    import torch
+
+    from software_rasterizer_tpu_torch import models
+    from software_rasterizer_tpu_torch.config import RenderConfig
+    from software_rasterizer_tpu_torch.ops import whitted_kernel as wk
+    from software_rasterizer_tpu_torch.ops.camera import camera_rays
+    from software_rasterizer_tpu_torch.ops.intersect import prepare_rt_scene
+    from software_rasterizer_tpu_torch.ops.whitted import whitted_render
+    from software_rasterizer_tpu_torch.render import pipeline_from_config
+    from software_rasterizer_tpu_torch.scenes import build_cornell_scene
+    from software_rasterizer_tpu_torch.utils.rng import prng_key, split
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_scenes import two_emitter_cornell
+
+    n = WIDTH * HEIGHT
+    md = WHITTED_DEPTH
+    scene = two_emitter_cornell(models, build_cornell_scene)
+    scene.set_ndc_matrix(WIDTH, HEIGHT)
+    rt = prepare_rt_scene(scene.rt_geometry(), scene.rt_frame(), dev)
+    if rt.n_emitters != 2:
+        fail(f"the two-emitter scene has {rt.n_emitters} emitters")
+    o, d = (x.contiguous() for x in camera_rays(
+        rt.eye.cpu().numpy(), scene.fovy, WIDTH, HEIGHT, dev))
+
+    max_err, lines, frames = 0.0, [], {}
+    for spp in (1, WHITTED_EMITTER_SPP):
+        k_rgb, k_nray = wk.whitted_uber_trace(rt, o, d, md, key=SEED, spp=spp)
+        torch.cuda.synchronize()
+        if k_rgb.shape != (n, 3) or not bool(torch.isfinite(k_rgb).all()):
+            fail(f"two-emitter Whitted frame at spp {spp} has the wrong shape or values")
+        # the whole frame, the plain version a quarter of the lanes at a time
+        quarter = n // 4
+        t0 = time.perf_counter()
+        parts = [wk.whitted_uber_trace_plain(
+            rt, o[off:off + quarter], d[off:off + quarter], md, key=SEED,
+            spp=spp, lane_offset=off) for off in range(0, n, quarter)]
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        c = compare_whitted(k_rgb, k_nray, torch.cat([p[0] for p in parts]),
+                            torch.cat([p[1] for p in parts], dim=1))
+        max_err = max(max_err, c["max_abs_err"])
+        lines.append(f"spp {spp}: {c['bad']}/{c['n']} pixels differ over the full "
+                     f"frame (plain {plain_s:.1f}s), mean rel {c['mean_rel']:.2e}, "
+                     f"rays main/shadow {c['k_rays'][0]}/{c['k_rays'][1]} vs "
+                     f"{c['p_rays'][0]}/{c['p_rays'][1]}, frame mean "
+                     f"{float(k_rgb.mean()):.6f}")
+        if (c["bad"] > (1.0 - PIX_SHARE) * c["n"] or c["mean_rel"] > MEAN_RTOL
+                or c["rays_rel"] > RAYS_RTOL):
+            fail(f"two-emitter Whitted kernel disagrees with plain: {lines[-1]}")
+        frames[spp] = k_rgb
+    if torch.equal(frames[1], frames[WHITTED_EMITTER_SPP]):
+        fail("the emitter picks do not depend on spp")
+
+    # main path through the normal entry point, default device
+    cfg = RenderConfig(width=WIDTH, height=HEIGHT, spp=WHITTED_EMITTER_SPP, seed=SEED)
+    render = pipeline_from_config(cfg, "whitted")
+    mscene = two_emitter_cornell(models, build_cornell_scene)
+    render.add_scene(mscene)
+    wk.LAUNCHES = 0
+    render.draw()
+    torch.cuda.synchronize()
+    launches = wk.LAUNCHES
+    png = OUT_DIR / "chip_smoke_whitted_two_emitters.png"
+    render.save(str(png))
+    first = render.frame.copy()
+    st = dict(render.last_stats[mscene.name])
+    if render.device.type != dev.type or launches != 1:
+        fail(f"RayTracing.draw() of two emitters on {render.device}: {launches} launches")
+    if first.shape != (HEIGHT, WIDTH, 3) or not np.isfinite(first).all():
+        fail("the two-emitter frame has the wrong shape or non-finite values")
+    if st["dropped_rays"] != 0 or st["rays_main"] <= n:
+        fail(f"two-emitter last_stats {st}")
+    # the first scene drawn uses the second half of the split key
+    ref = whitted_render(rt, WIDTH, HEIGHT, scene.fovy, seed=split(prng_key(SEED))[1],
+                         spp=WHITTED_EMITTER_SPP, max_depth=mscene.max_depth)
+    if not np.array_equal(first, ref.cpu().numpy()):
+        fail("RayTracing.draw() differs from whitted_render under the split key")
+    render.draw()
+    if np.array_equal(first, render.frame):
+        fail("two draws of one RayTracing picked the same emitters")
+
+    tri, attr, sph, n_tri, n_sph = wk.pack_whitted_tables(rt)
+    ops = (tri, attr, sph, wk.whitted_scalars(rt, wk.SHADOW_BIAS),
+           rt.textures.contiguous(), rt.tex_wh.contiguous(), o, d)
+    ecr = rt.emitter_cr.float().contiguous()
+    times = []
+    for spp in (1, WHITTED_EMITTER_SPP):
+        seeds = torch.as_tensor(wk.pick_seed_table(SEED, md, spp), device=dev)
+        t_wrap = cuda_times(lambda: wk.whitted_uber_trace(
+            rt, o, d, md, key=SEED, spp=spp), 20)
+        t_bare = cuda_times(lambda: wk.launch_whitted_uber(
+            *ops, n_tri=n_tri, n_sph=n_sph, max_depth=md, ecr=ecr,
+            pick_seeds=seeds, n_emitters=rt.n_emitters), 20)
+        times.append(f"spp {spp}: wrapper {spread(t_wrap)}, bare launch {spread(t_bare)}")
+    phase(19, f"Whitted, Cornell with a mirror, a glass sphere and two emitters, "
+              f"{WIDTH}x{HEIGHT} max_depth {md}, kernel vs plain: " + "; ".join(lines)
+              + f"; max_abs_err {max_err:.3g}; pipeline_from_config(cfg, \"whitted\") "
+              f"on {render.device} -> RayTracing.draw -> {png.name}: launches "
+              f"{launches}, last_stats {st}, equal to whitted_render under the "
+              f"split key, a second draw differs; ms as median [min-max] of 20 on "
+              f"{card}: " + "; ".join(times))
+    return {"launches": launches, "max_abs_err": max_err}
 
 
 if __name__ == "__main__":

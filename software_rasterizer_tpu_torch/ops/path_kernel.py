@@ -1,7 +1,10 @@
-"""Persistent path-tracing camera kernel (the port of the JAX package's
-`ops/pallas_path.fused_path_camera_render` / `_pt_kernel`, mm=False).
+"""The two path-tracing kernels: the persistent camera kernel (the port
+of the JAX package's `ops/pallas_path.fused_path_camera_render` /
+`_pt_kernel`, mm=False) and the fused bounce kernel of the wavefront
+integrator (`fused_bounce_group` / `_bounce_kernel`; its section is at
+the end of this file).
 
-One call renders `spp` full path-tracing samples of each pixel lane in
+One camera call renders `spp` full path-tracing samples of each pixel lane in
 [lane_offset, lane_offset + n_lanes) of the (width x height) camera
 frame and returns the UN-normalized radiance sum (3, n) float32.
 
@@ -35,7 +38,11 @@ import torch
 
 from software_rasterizer_tpu_torch.ops.camera import camera_scale
 from software_rasterizer_tpu_torch.ops.intersect import RTScene
-from software_rasterizer_tpu_torch.utils.rng import lowbias32_uniform, sample_seeds
+from software_rasterizer_tpu_torch.utils.rng import (
+    bounce_uniform,
+    lowbias32_uniform,
+    sample_seeds,
+)
 
 INV_2PI = 0.15915494309189535
 INV_PI = 0.3183098861837907
@@ -43,9 +50,11 @@ TWO_PI = 6.283185307179586
 EPS = 1e-5
 BIG = 1e30
 
-# kernel launches made by path_camera_render (the plain version is not
-# counted); a caller may reset it to 0 to count one run
+# kernel launches made by path_camera_render and by fused_bounce_group
+# (the plain versions are not counted); a caller may reset them to 0 to
+# count one run
 LAUNCHES = 0
+LAUNCHES_BOUNCE = 0
 
 
 def pack_scene_tables(scene: RTScene) -> Tuple[torch.Tensor, torch.Tensor, int]:
@@ -506,3 +515,246 @@ def path_camera_render_plain(scene: RTScene, seed: int, width: int,
     if stats is not None:
         stats["lane_iterations"] = stats.get("lane_iterations", 0) + lane_iterations
     return torch.stack(acc)
+
+
+# ------------------------------------------------ the fused bounce kernel
+#
+# `fused_bounce_group` runs up to `n_bounces` bounces of every lane of an
+# explicit wavefront (ops/pallas_path.py:635-797). A bounce draws twelve
+# uniforms in a fixed order (emitter pick 1, Box-Muller 4 + 4, roulette 1,
+# hemisphere 2) from `utils/rng.bounce_uniform`: draw k of bounce b has
+# counter 12 b + k + 1. The light direction comes from two Box-Muller
+# triples (not the camera kernel's (z, phi) form), and the BRDF factor
+# Kd/pi is multiplied in before the weight, as the JAX kernel orders it.
+#
+# Dead lanes: a lane that is dead at the start of a bounce keeps its
+# state as it is; a lane that dies in a bounce still takes that bounce's
+# state update. (The JAX kernel goes on updating dead lanes' state, which
+# nothing reads: compare states on live lanes only.) acc and live are
+# defined on every lane.
+
+STATE_ROWS = 18  # [pos | nrm | kd | emit | color | throughput]
+
+
+def _check_state(state: torch.Tensor, live: torch.Tensor, device) -> int:
+    _check_table("state", state, torch.float32, None, device)
+    _check_table("live", live, torch.bool, None, device)
+    if state.dim() != 2 or state.shape[0] != STATE_ROWS:
+        raise ValueError(f"state has shape {tuple(state.shape)}, expected "
+                         f"({STATE_ROWS}, N)")
+    if live.shape != (state.shape[1],):
+        raise ValueError(f"live has shape {tuple(live.shape)}, expected "
+                         f"({state.shape[1]},)")
+    if state.shape[1] >= 2 ** 31:
+        raise ValueError("too many lanes: lane ids must fit int32")
+    return state.shape[1]
+
+
+def _bounce_fn():
+    from software_rasterizer_tpu_torch.utils.cuda_build import load_library
+
+    lib = load_library("path_bounce", ["path_bounce.cu"])
+    fn = lib.srt_path_bounce
+    if fn.argtypes is None:
+        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes = [vp] * 9 + [ci] * 6 + [cf, vp]
+        fn.restype = ci
+    return fn
+
+
+def build_bounce_kernel() -> None:
+    """Compile (or reuse) and load the bounce kernel's CUDA library."""
+    _bounce_fn()
+
+
+def launch_path_bounce(tri: torch.Tensor, attr: torch.Tensor,
+                       sph: torch.Tensor, ecr: torch.Tensor,
+                       state: torch.Tensor, live: torch.Tensor, *,
+                       n_tri: int, n_sph: int, n_emitters: int, seed: int,
+                       n_bounces: int, p_rr: float
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch csrc/path_bounce.cu on the current stream; returns (acc
+    (3,N), state (18,N), live (N,)). Checks every operand and raises on a
+    launch error."""
+    global LAUNCHES_BOUNCE
+    device = state.device
+    if device.type != "cuda":
+        raise ValueError(f"launch_path_bounce needs CUDA tensors, got {device}")
+    f32 = torch.float32
+    _check_table("tri_table", tri, f32, 12, device)
+    _check_table("attr", attr, f32, 16, device)
+    _check_table("sph", sph, f32, 12, device)
+    _check_table("emitter_cr", ecr, f32, 4, device)
+    n = _check_state(state, live, device)
+    if attr.shape[0] != tri.shape[0] or not 0 <= n_tri <= tri.shape[0]:
+        raise ValueError("triangle tables disagree with n_tri")
+    if not 0 <= n_sph <= sph.shape[0]:
+        raise ValueError("n_sph exceeds the sphere table")
+    if ecr.shape[0] < max(n_emitters, 1):
+        raise ValueError("emitter table has fewer rows than emitters")
+    if n_bounces < 0:
+        raise ValueError(f"bad n_bounces={n_bounces}")
+    out_state = torch.empty_like(state)
+    out_live = torch.empty_like(live)
+    acc = torch.empty((3, n), dtype=f32, device=device)
+    if n == 0:
+        return acc, out_state, out_live
+    seed = int(seed) & 0xFFFFFFFF
+    stream = torch.cuda.current_stream(device).cuda_stream
+    rc = _bounce_fn()(
+        tri.data_ptr(), attr.data_ptr(), sph.data_ptr(), ecr.data_ptr(),
+        state.data_ptr(), live.data_ptr(), out_state.data_ptr(),
+        out_live.data_ptr(), acc.data_ptr(),
+        n_tri, n_sph, n_emitters, n, n_bounces,
+        seed - (1 << 32) if seed >= 1 << 31 else seed, float(p_rr), stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"path_bounce kernel launch failed: cudaError {rc}")
+    LAUNCHES_BOUNCE += 1
+    return acc, out_state, out_live
+
+
+def fused_bounce_group(scene: RTScene, state: torch.Tensor,
+                       live: torch.Tensor, seed: int, n_bounces: int,
+                       p_rr: float = 0.8
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Run up to `n_bounces` fused bounces. state: (18,N) float32 rows
+    [pos, nrm, kd, emit, color, throughput] (component-major); live: (N,)
+    bool; seed: a 32-bit word. Returns (acc (3,N), new state, new live).
+    CUDA scenes run the kernel; CPU scenes run `fused_bounce_group_plain`."""
+    device = scene.device
+    if device.type == "cpu":
+        return fused_bounce_group_plain(scene, state, live, seed, n_bounces, p_rr)
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    attr, sph, n_sph = pack_scene_tables(scene)
+    return launch_path_bounce(
+        scene.tri_table.float().contiguous(), attr, sph,
+        scene.emitter_cr.float().contiguous(), state.contiguous(),
+        live.contiguous(), n_tri=scene.n_tri, n_sph=n_sph,
+        n_emitters=scene.n_emitters, seed=seed, n_bounces=n_bounces, p_rr=p_rr)
+
+
+def fused_bounce_group_plain(scene: RTScene, state: torch.Tensor,
+                             live: torch.Tensor, seed: int, n_bounces: int,
+                             p_rr: float = 0.8, stats: Optional[dict] = None
+                             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of `fused_bounce_group` (same signature and
+    semantics), on the scene's device. A `stats` dict gets
+    "lane_bounces": the bounces summed over the lanes live at their start
+    (the kernel's unit of work)."""
+    dev = scene.device
+    state, live = state.contiguous(), live.contiguous()
+    n = _check_state(state, live, dev)
+    attr_t, sph_t, n_sph = pack_scene_tables(scene)
+    n_tri = scene.n_tri
+    tri = _as_f32_rows(scene.tri_table, n_tri)
+    attr = _as_f32_rows(attr_t, n_tri)
+    sph = _as_f32_rows(sph_t, n_sph)
+    ecr = scene.emitter_cr.float()
+    n_e = scene.n_emitters
+    any_e = n_e > 0
+    n_e_f = float(max(n_e, 1))
+    p_rr = float(torch.tensor(p_rr, dtype=torch.float32))
+    lane = torch.arange(n, dtype=torch.int64, device=dev)
+
+    rows = [state[i] for i in range(STATE_ROWS)]
+    pos, nrm, kd, emit, col, tp = (tuple(rows[3 * g:3 * g + 3]) for g in range(6))
+    zero = torch.zeros(n, dtype=torch.float32, device=dev)
+    acc = [zero, zero, zero]
+    lane_bounces = 0
+
+    def gauss3(c):
+        u1, u2, u3, u4 = (bounce_uniform(seed, lane, c + k) for k in range(4))
+        r1 = torch.sqrt(-2.0 * torch.log(torch.clamp(u1, min=1e-12)))
+        r2 = torch.sqrt(-2.0 * torch.log(torch.clamp(u3, min=1e-12)))
+        a2 = TWO_PI * u2
+        return r1 * torch.cos(a2), r1 * torch.sin(a2), r2 * torch.cos(TWO_PI * u4)
+
+    for b in range(n_bounces):
+        n_live = int(live.sum())
+        if n_live == 0:
+            break
+        lane_bounces += n_live
+        c0 = 12 * b
+        nn = _norm3(*nrm)
+
+        # ---- sampleLight (Scene.cpp:429-476): draws 1-9
+        u_pick = bounce_uniform(seed, lane, c0 + 1)
+        k_e = torch.clamp(torch.floor(u_pick * n_e_f).to(torch.int64),
+                          max=max(n_e - 1, 0))
+        row = ecr[k_e]
+        cc = (row[:, 0], row[:, 1], row[:, 2])
+        crad = row[:, 3]
+        bl = _norm3(cc[0] - pos[0], cc[1] - pos[1], cc[2] - pos[2])
+        sx, sy, sz = _norm3(*gauss3(c0 + 2), 1e-20)
+        flip = sx * bl[0] + sy * bl[1] + sz * bl[2] < 0
+        sx, sy, sz = _where3(flip, (-sx, -sy, -sz), (sx, sy, sz))
+        hx, hy, hz = _norm3(*gauss3(c0 + 6), 1e-20)
+        sx, sy, sz = _norm3(sx + 1e-6 * hx, sy + 1e-6 * hy, sz + 1e-6 * hz)
+        spx, spy, spz = cc[0] + sx * crad, cc[1] + sy * crad, cc[2] + sz * crad
+        ll = _norm3(spx - pos[0], spy - pos[1], spz - pos[2])
+        cos_t = ll[0] * bl[0] + ll[1] * bl[1] + ll[2] * bl[2]
+        pdf_l = cos_t * INV_2PI if any_e else torch.zeros_like(cos_t)
+
+        # ---- RR + uniform hemisphere (Material.cpp:14-34): draws 10-12
+        survive = bounce_uniform(seed, lane, c0 + 10) <= p_rr
+        x1 = bounce_uniform(seed, lane, c0 + 11)
+        x2 = bounce_uniform(seed, lane, c0 + 12)
+        zl = (1.0 - 2.0 * x1).abs()
+        rl = torch.sqrt(torch.clamp(1.0 - zl * zl, min=0.0))
+        phi = TWO_PI * x2
+        w = _norm3(*_to_world(rl * torch.cos(phi), rl * torch.sin(phi), zl, *nn))
+        wdn = w[0] * nn[0] + w[1] * nn[1] + w[2] * nn[2]
+        cos_o = torch.clamp(wdn, min=0.0)
+        pdf_b = torch.where(wdn > 0, INV_2PI, 0.0)
+        fr = tuple(torch.where(wdn > 0, kd[k] * INV_PI, 0.0) for k in range(3))
+
+        # ---- both traces, one primitive loop
+        o = tuple(pos[k] + 1e-6 * nn[k] for k in range(3))
+        (tA, nA, eA), (tB, nB, kB, eB, sB) = _dual_trace(
+            tri, attr, sph, n_tri, n_sph, o, ll, w)
+
+        # ---- NEE evaluation (Scene.cpp:671-717)
+        hit_a = tA < BIG
+        d3 = tuple(pos[k] - (o[k] + ll[k] * tA) for k in range(3))
+        dist2 = d3[0] * d3[0] + d3[1] * d3[1] + d3[2] * d3[2]
+        not_shadow = (tA * tA - dist2).abs() <= 1e-4
+        lit = hit_a & (torch.sqrt(eA[0] * eA[0] + eA[1] * eA[1]
+                                  + eA[2] * eA[2]) > EPS)
+        if not any_e:
+            lit = torch.zeros_like(lit)
+        sn = _norm3(*nA, 1e-20)
+        cos_on = torch.clamp(nn[0] * ll[0] + nn[1] * ll[1] + nn[2] * ll[2],
+                             min=0.0)
+        cos_ln = torch.clamp(-(sn[0] * ll[0] + sn[1] * ll[1] + sn[2] * ll[2]),
+                             min=0.0)
+        ldn = ll[0] * nn[0] + ll[1] * nn[1] + ll[2] * nn[2]
+        pdf_ok_l = (pdf_l >= EPS) & (pdf_l < BIG) & (pdf_l == pdf_l)
+        denom = torch.where(pdf_ok_l, pdf_l, 1.0) * torch.clamp(dist2, min=1e-30)
+        scale = torch.where(lit & not_shadow & pdf_ok_l,
+                            cos_on * cos_ln / denom, 0.0)
+        cur_emissive = torch.sqrt(emit[0] * emit[0] + emit[1] * emit[1]
+                                  + emit[2] * emit[2]) > EPS
+        for k in range(3):
+            nee = eA[k] * torch.where(ldn > 0, kd[k] * INV_PI, 0.0) * scale
+            direct = torch.where(cur_emissive, col[k], nee)
+            acc[k] = acc[k] + torch.where(live, tp[k] * direct, 0.0)
+
+        # ---- state update, for the lanes that were live at the start
+        emis_b = torch.sqrt(eB[0] * eB[0] + eB[1] * eB[1] + eB[2] * eB[2]) > EPS
+        was = live
+        live = live & survive & (pdf_b >= EPS) & (tB < BIG) & ~emis_b
+        wgt = cos_o / torch.clamp(pdf_b * p_rr, min=1e-30)
+        tp = _where3(was, tuple(tp[k] * fr[k] * wgt for k in range(3)), tp)
+        pos = _where3(was, tuple(o[k] + w[k] * tB for k in range(3)), pos)
+        nrm = _where3(was, _norm3(*nB, 1e-20), nrm)
+        kd = _where3(was, kB, kd)
+        emit = _where3(was, eB, emit)
+        col = _where3(was, tuple(torch.where(sB, 0.0, kB[k]) for k in range(3)),
+                      col)
+
+    if stats is not None:
+        stats["lane_bounces"] = stats.get("lane_bounces", 0) + lane_bounces
+    return (torch.stack(acc),
+            torch.stack([*pos, *nrm, *kd, *emit, *col, *tp]), live)

@@ -16,9 +16,11 @@ spheres); reflect/refract children carry kr / (1-kr) (1 for mirrors)
 and start EPSILON off the surface.
 
 With one emitter the reference's per-sample emitter pick always lands on
-it, so the image does not depend on `seed` or `spp`. A scene with more
-emitters raises: its picks need the JAX package's `lane_uniforms` key
-chain, which is not ported yet.
+it, so the image does not depend on `seed` or `spp`. With more, every
+diffuse hit averages the Phong term over `spp` emitter picks keyed by
+(key, depth, sample, ray id), the JAX package's `lane_uniforms` chain
+(ops/whitted_kernel.py), so a frame equals the JAX wavefront's under the
+same `jax.random.PRNGKey`.
 """
 
 from __future__ import annotations
@@ -39,12 +41,9 @@ __all__ = ["EPSILON", "SHADOW_BIAS", "check_whitted_scene", "whitted_render",
 
 
 def check_whitted_scene(scene: RTScene, max_depth: int) -> None:
-    """Raise for a scene or depth the Whitted kernel cannot render."""
-    if scene.n_emitters > 1:
-        raise NotImplementedError(
-            f"a Whitted scene with {scene.n_emitters} emitters needs the "
-            "per-sample emitter picks of the wavefront integrator, which are "
-            "not ported yet (ROADMAP queue 1 step 6b)")
+    """Raise for a depth the Whitted kernel cannot render (its per-thread
+    stack bound). The kernel has no cap on triangles, spheres or
+    emitters."""
     check_max_depth(max_depth)
 
 
@@ -53,11 +52,13 @@ def whitted_render(scene: RTScene, width: int, height: int, fovy: float,
                    shadow_bias: float = SHADOW_BIAS, with_stats: bool = False):
     """Render one Whitted frame: (H,W,3) float32 (pre-clamp) on the
     scene's device, or (image, stats) when `with_stats`. stats:
-    rays_main / rays_shadow (main rays traced, diffuse hits shaded),
-    dropped_rays = 0 and an all-False (H,W) dropped_px: the per-thread
-    DFS and the direct texel fetch lose nothing. `seed` and `spp` are
-    accepted for the JAX signature; a one-emitter frame does not read
-    them."""
+    rays_main / rays_shadow (main rays traced; diffuse hits shaded,
+    counted once per emitter-table row when spp > 1, as the JAX package
+    counts its shadow evaluations), dropped_rays = 0 and an all-False
+    (H,W) dropped_px: the per-thread DFS and the direct texel fetch lose
+    nothing. `seed` (an integer or a (2,) uint32 key) and `spp` drive the
+    emitter picks of a scene with several emitters; a one-emitter frame
+    does not read them."""
     check_whitted_scene(scene, max_depth)
     if width <= 0 or height <= 0:
         raise ValueError(f"bad frame size {width}x{height}")
@@ -65,15 +66,16 @@ def whitted_render(scene: RTScene, width: int, height: int, fovy: float,
     orig, d = camera_rays(scene.eye.cpu().numpy(), fovy, width, height, dev)
     rgb, nray = whitted_uber_trace(scene, orig.contiguous(), d.contiguous(),
                                    max_depth=max_depth,
-                                   shadow_bias=shadow_bias)
+                                   shadow_bias=shadow_bias, key=seed, spp=spp)
     img = rgb.reshape(height, width, 3)
     if not with_stats:
         return img
     sums = nray.sum(dim=1)
+    shadow_evals = scene.emitter_cr.shape[0] if spp > 1 else 1
     return img, {
         "dropped_rays": torch.zeros((), dtype=torch.int64, device=dev),
         "rays_main": sums[0],
-        "rays_shadow": sums[1],
+        "rays_shadow": sums[1] * shadow_evals,
         "dropped_px": torch.zeros((height, width), dtype=torch.bool, device=dev),
     }
 

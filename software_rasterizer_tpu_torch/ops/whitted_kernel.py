@@ -5,8 +5,8 @@
 One call walks every lane's whole Whitted tree (Scene::whittedRayTracing,
 Scene.cpp:478-617) from its (origin, direction) pair: nearest hit over
 triangles and spheres; a miss adds weight * background; a diffuse hit
-adds the Phong term toward the single emitter's centre behind a shadow
-trace; a mirror or glass hit below `max_depth` continues into its
+adds the Phong term toward an emitter's centre behind a shadow trace; a
+mirror or glass hit below `max_depth` continues into its
 reflect child and, for glass with a refraction, pushes the refract
 child onto the lane's stack; a lane with nothing to continue pops its
 stack and stops when it is empty. A specular hit at `max_depth` adds
@@ -19,6 +19,18 @@ nothing (the reference's black depth cap).
     vectorized over lanes, looping while any lane is live and over
     primitives with masks, in the kernel's operation order.
 
+Several emitters (the JAX package serves these by its wavefront,
+ops/whitted.py:214-265): a ray carries the id `rid`, the absolute pixel
+id (`lane_offset` + lane) at depth 0, 2 rid + 1 for a reflect child and
+2 rid + 2 for a refract child. At a diffuse hit of depth d, sample s
+picks emitter min(floor(u * n_e), n_e - 1) with u =
+lane_uniforms(fold_in(key, d), rid, s); the term is
+sum_o count_o * v(o) / spp in ascending o, v(o) the Phong term toward
+emitter o's centre (for spp = 1 that is v of the one pick). The host
+passes the (max_depth+1, spp) table of the picks' 32-bit seeds. The
+kernel has no cap on the number of emitters. With one emitter every pick
+lands on it and the frame reads neither the key nor spp.
+
 Unlike the TPU kernel, a textured diffuse hit fetches its texel in
 place (Kd := texel) instead of deferring it through per-lane slots, so
 nothing can overflow; the nearest hit is exact Moller-Trumbore (the CPU
@@ -30,11 +42,13 @@ from __future__ import annotations
 import ctypes
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from software_rasterizer_tpu_torch.ops.intersect import RTScene
 from software_rasterizer_tpu_torch.ops.path_kernel import _as_f32_rows, _check_table, _norm3
 from software_rasterizer_tpu_torch.ops.texture_ops import fetch_nearest
+from software_rasterizer_tpu_torch.utils.rng import _M32, fold_in, hash_uniform, key_bits
 
 EPS = 1e-5          # Scene.hpp:160
 BIG = 1e30
@@ -106,6 +120,22 @@ def whitted_scalars(scene: RTScene, shadow_bias: float) -> torch.Tensor:
                       scene.background.float(), extra])
 
 
+def pick_seed_table(key, max_depth: int, spp: int) -> np.ndarray:
+    """(max_depth+1, spp) int32: the seed of the emitter pick of sample s
+    at depth d, key_bits(fold_in(fold_in(key, d), s)): what the JAX
+    package's `lane_uniforms(fold_in(key, d), rid, s)` hashes rid with."""
+    depth_keys = fold_in(key, np.arange(max_depth + 1))              # (D,2)
+    return np.stack([key_bits(fold_in(k, np.arange(max(spp, 1))))
+                     for k in depth_keys]).view(np.int32)
+
+
+def _pick_emitter(rid: torch.Tensor, seed: int, n_e: int) -> torch.Tensor:
+    """The emitter a ray of id `rid` (int64 holding a 32-bit word) picks
+    under the 32-bit `seed`."""
+    u = hash_uniform(rid, seed)
+    return torch.clamp(torch.floor(u * float(n_e)).to(torch.int64), max=n_e - 1)
+
+
 def check_max_depth(max_depth: int) -> None:
     if not 0 <= max_depth <= MAX_DEPTH:
         raise ValueError(
@@ -130,7 +160,7 @@ def _cuda_fn():
     fn = lib.srt_whitted_uber
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp] * 10 + [ci] * 6 + [vp]
+        fn.argtypes = [vp] * 12 + [ci] * 9 + [vp]
         fn.restype = ci
     return fn
 
@@ -144,11 +174,15 @@ def launch_whitted_uber(tri: torch.Tensor, attr: torch.Tensor,
                         sph: torch.Tensor, scal: torch.Tensor,
                         atlas: torch.Tensor, tex_wh: torch.Tensor,
                         orig: torch.Tensor, d: torch.Tensor, *, n_tri: int,
-                        n_sph: int,
-                        max_depth: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                        n_sph: int, max_depth: int,
+                        ecr: torch.Tensor = None,
+                        pick_seeds: torch.Tensor = None, n_emitters: int = 1,
+                        lane_offset: int = 0
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch csrc/whitted_uber.cu on the current stream; returns rgb
-    (N,3) float32 and nray (2,N) int32. Checks every operand and raises
-    on a launch error."""
+    (N,3) float32 and nray (2,N) int32. `ecr` (O,4) and `pick_seeds`
+    (max_depth+1, spp) int32 are read only when n_emitters > 1. Checks
+    every operand and raises on a launch error."""
     global LAUNCHES
     device = tri.device
     if device.type != "cuda":
@@ -173,8 +207,19 @@ def launch_whitted_uber(tri: torch.Tensor, attr: torch.Tensor,
         raise ValueError("triangle tables disagree with n_tri")
     if not 0 <= n_sph <= sph.shape[0]:
         raise ValueError("n_sph exceeds the sphere table")
-    if n >= 2 ** 31:
+    if n >= 2 ** 31 or not 0 <= lane_offset < 2 ** 31 - n:
         raise ValueError("too many rays: lane ids must fit int32")
+    spp = 1
+    if n_emitters > 1:
+        _check_table("emitter_cr", ecr, f32, 4, device)
+        _check_table("pick_seeds", pick_seeds, torch.int32, None, device)
+        if ecr.shape[0] < n_emitters:
+            raise ValueError("emitter table has fewer rows than emitters")
+        if pick_seeds.dim() != 2 or pick_seeds.shape[0] != max_depth + 1 \
+                or pick_seeds.shape[1] < 1:
+            raise ValueError(f"pick_seeds has shape {tuple(pick_seeds.shape)}, "
+                             f"expected ({max_depth + 1}, spp)")
+        spp = pick_seeds.shape[1]
     rgb = torch.empty((n, 3), dtype=f32, device=device)
     nray = torch.empty((2, n), dtype=torch.int32, device=device)
     if n == 0:
@@ -182,9 +227,12 @@ def launch_whitted_uber(tri: torch.Tensor, attr: torch.Tensor,
     stream = torch.cuda.current_stream(device).cuda_stream
     rc = _cuda_fn()(
         tri.data_ptr(), attr.data_ptr(), sph.data_ptr(), scal.data_ptr(),
+        ecr.data_ptr() if n_emitters > 1 else None,
+        pick_seeds.data_ptr() if n_emitters > 1 else None,
         atlas.data_ptr(), tex_wh.data_ptr(), orig.data_ptr(), d.data_ptr(),
         rgb.data_ptr(), nray.data_ptr(),
-        n_tri, n_sph, n, atlas.shape[1], atlas.shape[2], max_depth, stream,
+        n_tri, n_sph, n, atlas.shape[1], atlas.shape[2], max_depth,
+        n_emitters, spp, lane_offset, stream,
     )
     if rc != 0:
         raise RuntimeError(f"whitted_uber kernel launch failed: cudaError {rc}")
@@ -193,22 +241,35 @@ def launch_whitted_uber(tri: torch.Tensor, attr: torch.Tensor,
 
 
 def whitted_uber_trace(scene: RTScene, orig: torch.Tensor, d: torch.Tensor,
-                       max_depth: int = 5, shadow_bias: float = SHADOW_BIAS
+                       max_depth: int = 5, shadow_bias: float = SHADOW_BIAS,
+                       key=0, spp: int = 1, lane_offset: int = 0
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Whitted radiance of the (N,3) rays `orig`, `d`: rgb (N,3) float32
     (textures applied) and nray (2,N) int32 = [main rays traced, diffuse
-    hits] per lane. CUDA scenes run the kernel; CPU scenes run
+    hits] per lane. `key` (an integer seed or a (2,) uint32 key), `spp`
+    and `lane_offset` (the absolute pixel id of lane 0) drive the emitter
+    picks of a scene with several emitters; a scene with one reads none
+    of them. CUDA scenes run the kernel; CPU scenes run
     `whitted_uber_trace_plain`."""
     device = scene.device
     if device.type == "cpu":
-        return whitted_uber_trace_plain(scene, orig, d, max_depth, shadow_bias)
+        return whitted_uber_trace_plain(scene, orig, d, max_depth, shadow_bias,
+                                        key, spp, lane_offset)
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
+    check_max_depth(max_depth)
     tri, attr, sph, n_tri, n_sph = pack_whitted_tables(scene)
+    picks = {}
+    if scene.n_emitters > 1:
+        picks = dict(
+            ecr=scene.emitter_cr.float().contiguous(),
+            pick_seeds=torch.as_tensor(pick_seed_table(key, max_depth, spp),
+                                       device=device),
+            n_emitters=scene.n_emitters, lane_offset=lane_offset)
     return launch_whitted_uber(
         tri, attr, sph, whitted_scalars(scene, shadow_bias),
         scene.textures.contiguous(), scene.tex_wh.contiguous(), orig, d,
-        n_tri=n_tri, n_sph=n_sph, max_depth=max_depth)
+        n_tri=n_tri, n_sph=n_sph, max_depth=max_depth, **picks)
 
 
 # --------------------------------------------------------- plain version
@@ -292,12 +353,19 @@ def _rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def whitted_uber_trace_plain(scene: RTScene, orig: torch.Tensor,
                              d: torch.Tensor, max_depth: int = 5,
-                             shadow_bias: float = SHADOW_BIAS
+                             shadow_bias: float = SHADOW_BIAS, key=0,
+                             spp: int = 1, lane_offset: int = 0
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of `whitted_uber_trace` (same signature and
     semantics), on the scene's device."""
     check_max_depth(max_depth)
     n = _check_rays(orig, d)
+    n_e = scene.n_emitters
+    if n_e > 1:
+        if spp < 1:
+            raise ValueError(f"bad spp={spp}")
+        seeds = pick_seed_table(key, max_depth, spp)
+        ecr = scene.emitter_cr.float().cpu().tolist()
     dev = scene.device
     f32 = torch.float32
     tri_t, attr_t, sph_t, n_tri, n_sph = pack_whitted_tables(scene)
@@ -314,6 +382,9 @@ def whitted_uber_trace_plain(scene: RTScene, orig: torch.Tensor,
     sp = torch.zeros_like(depth)
     stack = torch.zeros((max(max_depth, 1), 9, n), dtype=f32, device=dev)
     stack_depth = torch.zeros((max(max_depth, 1), n), dtype=torch.int64, device=dev)
+    # ray ids, 32-bit words held in int64 (children 2 rid + 1 and 2 rid + 2)
+    rid = (lane_offset + torch.arange(n, dtype=torch.int64, device=dev)) & _M32
+    stack_rid = torch.zeros_like(stack_depth)
     live = torch.ones(n, dtype=torch.bool, device=dev)
     rgb = [zero, zero, zero]
     nray = torch.zeros((2, n), dtype=torch.int32, device=dev)
@@ -364,8 +435,9 @@ def whitted_uber_trace_plain(scene: RTScene, orig: torch.Tensor,
         is_glass = is_spec & (mtype == 1)
         nray[1] += is_diff.to(torch.int32)
 
-        # ---- Phong toward the emitter centre, behind a shadow trace (:577-643)
-        if bool(is_diff.any()):
+        # ---- Phong toward an emitter's centre, behind a shadow trace (:577-643)
+        def phong_toward(ec):
+            """(term without the ray's weight, lit) toward the centre ec."""
             ll = _norm3(ec[0] - c[0], ec[1] - c[1], ec[2] - c[2])
             ndl = _dot(nrm, ll)
             side = torch.where(ndl >= 0.0, 1.0, -1.0)
@@ -397,11 +469,37 @@ def whitted_uber_trace_plain(scene: RTScene, orig: torch.Tensor,
             dist2 = _dot(dl, dl)
             in_shadow = (t_sh * t_sh - dist2).abs() > 1e-6
             amb = torch.where(in_shadow, 0.0, 1.0)
+            return tuple(amb * (ka[k] + diff * kd[k]) * em[k]
+                         + spec * ks[k] * em[k] for k in range(3)), lit
+
+        if bool(is_diff.any()) and n_e <= 1:
+            term, lit = phong_toward(ec)
             dep = is_diff & lit
             for k in range(3):
-                term = w[k] * (amb * (ka[k] + diff * kd[k]) * em[k]
-                               + spec * ks[k] * em[k])
-                rgb[k] = rgb[k] + torch.where(dep, term, 0.0)
+                rgb[k] = rgb[k] + torch.where(dep, w[k] * term[k], 0.0)
+        elif bool(is_diff.any()):
+            # mean over the spp emitter picks, regrouped by emitter; every
+            # live lane of one loop iteration need not share a depth
+            picks = [torch.zeros_like(depth) for _ in range(spp)]
+            for dep_i in range(max_depth + 1):
+                at = depth == dep_i
+                if bool((at & is_diff).any()):
+                    for s_i in range(spp):
+                        picks[s_i] = torch.where(
+                            at, _pick_emitter(rid, seeds[dep_i, s_i], n_e),
+                            picks[s_i])
+            total = [zero, zero, zero]
+            for o_i in range(n_e):
+                count = sum((pk == o_i).to(f32) for pk in picks)
+                if not bool((is_diff & (count > 0)).any()):
+                    continue
+                term, lit = phong_toward(ecr[o_i][0:3])
+                for k in range(3):
+                    total[k] = total[k] + torch.where(
+                        lit & (count > 0), count * term[k], 0.0)
+            for k in range(3):
+                rgb[k] = rgb[k] + torch.where(
+                    is_diff, w[k] * (total[k] / float(spp)), 0.0)
 
         # ---- specular: Fresnel fork, push / continue / pop (:683-799)
         cont = is_spec & (depth < max_depth)
@@ -445,11 +543,13 @@ def whitted_uber_trace_plain(scene: RTScene, orig: torch.Tensor,
                 vals = torch.stack([*qo, *rr, *(w[k] * (1.0 - kr) for k in range(3))])
                 stack[sp[idx], :, idx] = vals[:, idx].T
                 stack_depth[sp[idx], idx] = depth[idx] + 1
+                stack_rid[sp[idx], idx] = (2 * rid[idx] + 2) & _M32
                 sp = sp + push.to(torch.int64)
             o = _where3(cont, ro, o)
             dd = _where3(cont, rf, dd)
             w = _where3(cont, tuple(w[k] * refl_w for k in range(3)), w)
             depth = torch.where(cont, depth + 1, depth)
+            rid = torch.where(cont, (2 * rid + 1) & _M32, rid)
 
         idx = lanes[pop]
         if idx.numel():
@@ -462,6 +562,8 @@ def whitted_uber_trace_plain(scene: RTScene, orig: torch.Tensor,
                 w[k][idx] = top[6 + k]
             depth = depth.clone()
             depth[idx] = stack_depth[sp[idx], idx]
+            rid = rid.clone()
+            rid[idx] = stack_rid[sp[idx], idx]
         live = cont | pop
 
     return torch.stack(rgb, dim=1), nray

@@ -4,7 +4,9 @@ draw(): per scene, transform to trace space (prepare_rt_scene) and run
 the Whitted integrator over the full framebuffer (ops/whitted.py). The
 kernel walks every pixel's whole recursion tree, so no ray is dropped;
 the per-frame stats (dropped_rays, rays_main, rays_shadow) are surfaced
-on `self.last_stats` as in the JAX package.
+on `self.last_stats` as in the JAX package. The pipeline keeps a key and
+splits it for every scene it draws, as the JAX package does, so two
+draws of a scene with several emitters pick their emitters anew.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from software_rasterizer_tpu_torch.models.scene import RTGeometry, Scene
 from software_rasterizer_tpu_torch.ops.intersect import check_device, prepare_rt_scene
 from software_rasterizer_tpu_torch.ops.whitted import whitted_render_exact
 from software_rasterizer_tpu_torch.render.pipeline import Primitive, RenderingPipeline
+from software_rasterizer_tpu_torch.utils.rng import prng_key, split
 
 
 class RayTracing(RenderingPipeline):
@@ -26,6 +29,7 @@ class RayTracing(RenderingPipeline):
         self.spp = spp
         self.max_depth = max_depth
         self.seed = seed
+        self.key = prng_key(seed)
         self.device = check_device(device)
         self._geom_cache: Dict[str, RTGeometry] = {}
         #: per-scene integrator stats of the last draw() —
@@ -58,8 +62,9 @@ class RayTracing(RenderingPipeline):
                                   self.device)
             # the recursion cap is the scene's, not self.max_depth, as in
             # the JAX package's RayTracing.draw
+            self.key, sub = split(self.key)
             img, stats = whitted_render_exact(
-                rt, self.width, self.height, scene.fovy, self.seed,
+                rt, self.width, self.height, scene.fovy, sub,
                 spp=self.spp, max_depth=scene.max_depth, return_stats=True)
             self.last_stats[scene.name] = {
                 k: int(stats[k])

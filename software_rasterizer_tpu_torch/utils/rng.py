@@ -1,14 +1,23 @@
-"""Random streams of the path kernel, bit for bit.
+"""Random streams of the integrators, bit for bit.
 
-Two pieces, both reproducing what the JAX package's camera kernel
-(`ops/pallas_path.fused_path_camera_render`) feeds and computes:
+Host NumPy twins of the JAX key chain (threefry2x32 with
+`jax_threefry_partitionable=True`, JAX 0.9.0's default) on a (2,) uint32
+key, and the per-lane hash draws of the kernels on int64 tensors:
 
-  * `sample_seeds`: one 32-bit seed per sample, a NumPy twin of
-    `jax.random.bits(jax.random.fold_in(jax.random.PRNGKey(seed), s),
-    (), jnp.uint32)` (threefry2x32 with `jax_threefry_partitionable=True`,
-    JAX 0.9.0's default);
-  * `lowbias32_uniform`: the kernel's per-lane hash draw
-    (`pallas_path._RngDyn.uniform`) on int64 tensors.
+  * `prng_key`, `fold_in`, `split`, `key_bits`: `jax.random.PRNGKey`,
+    `fold_in`, `split` and `bits(key, (), uint32)`;
+  * `sample_seeds`: one 32-bit seed per sample,
+    `key_bits(fold_in(prng_key(seed), s))`, the camera kernel's operand;
+  * `lowbias32_uniform`: the camera kernel's draw
+    (`pallas_path._RngDyn.uniform`, two hash rounds);
+  * `bounce_uniform`: the bounce kernel's draw (`pallas_path._Rng.uniform`,
+    one round over lane * 0x9E3779B1 ^ (seed + ctr * 0x85EBCA6B));
+  * `lane_uniforms`: the JAX package's `utils/rng.lane_uniforms` (one
+    round over rid ^ key_bits(fold_in(key, salt))).
+
+The JAX pipelines default to `make_key`'s `rbg` key, whose bits depend
+on the backend; the port matches the JAX side run with
+`jax.random.PRNGKey` keys (`SRT_PRNG_IMPL=threefry2x32`).
 """
 
 from __future__ import annotations
@@ -43,30 +52,56 @@ def threefry2x32(key, x0: np.ndarray, x1: np.ndarray):
     return x0, x1
 
 
-def sample_seeds(seed: int, start_sample: int, n: int) -> np.ndarray:
-    """(n,) int32 per-sample seeds for samples [start_sample, start_sample+n).
+def prng_key(seed: int) -> np.ndarray:
+    """`jax.random.PRNGKey(seed)` for a seed that fits 32 bits: the
+    (2,) uint32 key (0, seed mod 2^32)."""
+    return np.array([0, int(seed) & _M32], np.uint32)
 
-    Equals, bit for bit, the `seeds` operand that the JAX package's
-    `fused_path_camera_render` builds from `jax.random.PRNGKey(seed)`
-    (ops/pallas_path.py:1261-1266) under JAX 0.9.0's defaults:
-      key  = PRNGKey(seed)                 -> (0, seed mod 2^32)
-      k_s  = fold_in(key, start_sample+s)  -> threefry(key, (0, s'))
-      bits = bits(k_s, (), uint32)         -> y0 ^ y1 of threefry(k_s, (0, 0))
-    The last line is the `jax_threefry_partitionable=True` layout (the
-    default), which XORs the two output words of counter (0, 0).
 
-    The JAX pipelines default to `make_key`'s `rbg` key, whose bits
-    depend on the backend; the port matches the JAX side run with
-    `jax.random.PRNGKey` keys (`SRT_PRNG_IMPL=threefry2x32`).
-    """
+def as_key(key) -> np.ndarray:
+    """A (2,) uint32 key from a key or an integer seed."""
+    if np.ndim(key) == 0:
+        return prng_key(int(key))
+    key = np.asarray(key)
+    if key.shape != (2,):
+        raise ValueError(f"a key is an int or a (2,) uint32 array, got {key.shape}")
+    return key.astype(np.uint32)
+
+
+def fold_in(key, data) -> np.ndarray:
+    """`jax.random.fold_in(key, data)`: threefry(key, (0, data mod 2^32)).
+    `data` may be an array; the keys then stack on the leading axes."""
+    key = as_key(key)
+    data = (np.asarray(data, np.int64) & _M32).astype(np.uint32)
+    y0, y1 = threefry2x32(key, np.zeros_like(data), data)
+    return np.stack([y0, y1], axis=-1)
+
+
+def split(key, n: int = 2) -> np.ndarray:
+    """`jax.random.split(key, n)`: (n, 2) keys, key i = threefry(key,
+    (0, i)) (the partitionable layout)."""
+    return fold_in(key, np.arange(n, dtype=np.int64))
+
+
+def key_bits(key) -> np.ndarray:
+    """`jax.random.bits(key, (), uint32)`: y0 ^ y1 of threefry(key,
+    (0, 0)) (the partitionable layout). A (..., 2) stack of keys gives
+    (...,) words."""
+    key = np.asarray(key, np.uint32)
+    zero = np.zeros(key.shape[:-1], np.uint32)
+    y0, y1 = threefry2x32((key[..., 0], key[..., 1]), zero, zero)
+    return np.asarray(y0 ^ y1, np.uint32)
+
+
+def sample_seeds(seed, start_sample: int, n: int) -> np.ndarray:
+    """(n,) int32 per-sample seeds for samples [start_sample, start_sample+n):
+    `key_bits(fold_in(key, start_sample + s))`, bit for bit the `seeds`
+    operand that the JAX package's `fused_path_camera_render` builds
+    (ops/pallas_path.py:1261-1266). `seed` is an integer or a key."""
     if n < 0:
         raise ValueError(f"n must be >= 0, got {n}")
-    key = (0, int(seed) & _M32)
-    data = (np.int64(start_sample) + np.arange(n, dtype=np.int64)) & _M32
-    zero = np.zeros(n, np.uint32)
-    sample_key = threefry2x32(key, zero, data.astype(np.uint32))
-    y0, y1 = threefry2x32(sample_key, zero, zero)
-    return (y0 ^ y1).view(np.int32)
+    data = np.int64(start_sample) + np.arange(n, dtype=np.int64)
+    return key_bits(fold_in(seed, data)).view(np.int32)
 
 
 def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
@@ -90,10 +125,36 @@ def lowbias32_uniform(seed: torch.Tensor, lane: torch.Tensor,
     c = c ^ (c >> 16)
     c = _mul32(c, 0x7FEB352D)
     c = c ^ (c >> 15)
-    x = _mul32(ln, 0x9E3779B1) ^ c
+    return _finish(_mul32(ln, 0x9E3779B1) ^ c)
+
+
+def _finish(x: torch.Tensor) -> torch.Tensor:
+    """The lowbias32 finalizer of a 32-bit word held in int64, as a
+    float32 in [0, 1) with 24 bits."""
     x = x ^ (x >> 16)
     x = _mul32(x, 0x7FEB352D)
     x = x ^ (x >> 15)
     x = _mul32(x, 0x846CA68B)
     x = x ^ (x >> 16)
     return (x >> 8).to(torch.float32) * (1.0 / (1 << 24))
+
+
+def bounce_uniform(seed: int, lane: torch.Tensor, ctr: int) -> torch.Tensor:
+    """`_Rng.uniform` (ops/pallas_path.py:62-74): draw number `ctr`
+    (counted from 1) of lane `lane` under the 32-bit `seed`."""
+    word = ((int(seed) & _M32) + ((int(ctr) * 0x85EBCA6B) & _M32)) & _M32
+    return _finish(_mul32(lane.to(torch.int64) & _M32, 0x9E3779B1) ^ word)
+
+
+def hash_uniform(rid: torch.Tensor, seed: int) -> torch.Tensor:
+    """One lowbias32 round of rid ^ seed as a float32 in [0, 1): `rid` an
+    integer tensor read as uint32 (negative and wrapped ids are fine),
+    `seed` a 32-bit word."""
+    return _finish((rid.to(torch.int64) & _M32) ^ (int(seed) & _M32))
+
+
+def lane_uniforms(key, rid: torch.Tensor, salt: int = 0) -> torch.Tensor:
+    """Per-lane uniforms in [0, 1) keyed by the ray's stable identity
+    `rid`, bit for bit the JAX package's `utils/rng.lane_uniforms`:
+    `hash_uniform` under key_bits(fold_in(key, salt))."""
+    return hash_uniform(rid, int(key_bits(fold_in(key, salt))))

@@ -7,6 +7,8 @@
   * accumulate 4 + 4 equals one 8-sample draw up to float32 summation
     order (rtol=2e-5, as tests/test_path.py's resume check);
   * checkpoints cross between the packages with the same keys and values;
+  * a scene with a textured emitter renders through the wavefront
+    integrator;
   * a CUDA request without CUDA, a missing or failing nvcc and a launch
     on CPU tensors each raise;
   * importing every module of the port imports no JAX.
@@ -93,15 +95,50 @@ def test_cuda_request_without_cuda_raises():
                              device="cuda")
 
 
-def test_textured_emitter_raises():
-    import dataclasses
+def test_textured_emitter_renders():
+    """A scene with a textured emitter, which the camera kernel cannot
+    shade exactly, goes through the wavefront integrator on the camera's
+    rays: draw() and accumulate() render it, 2 + 2 samples equal one
+    4-sample draw, and the light's own pixels show texels, not its Kd."""
+    from software_rasterizer_tpu_torch.ops.shading import ShaderType
+    from software_rasterizer_tpu_torch.utils.texture import Texture
+    from torch_scenes import textured_light_cornell
 
-    scene = build_cornell_scene()
-    scene.set_ndc_matrix(8, 8)
+    cfg = RenderConfig(width=24, height=24, spp=4, max_bounces=6, seed=1)
+    render = pipeline_from_config(cfg, "path", device="cpu")
+    scene = textured_light_cornell(build_cornell_scene, ShaderType, Texture)
+    render.add_scene(scene)
+    launches = (pk.LAUNCHES, pk.LAUNCHES_BOUNCE)
+    render.draw()
+    assert (pk.LAUNCHES, pk.LAUNCHES_BOUNCE) == launches
+    frame = render.frame.copy()
+    assert frame.shape == (24, 24, 3) and np.isfinite(frame).all()
+    render.accumulate(scene.name, 2)
+    render.accumulate(scene.name, 2)
+    assert render.samples_done(scene.name) == 4
+    np.testing.assert_allclose(render.resolve(scene.name), frame,
+                               rtol=2e-5, atol=1e-5)
+
     rt = prepare_rt_scene(scene.rt_geometry(), scene.rt_frame(), "cpu")
-    rt = dataclasses.replace(rt, tex_on_emitter=True)
-    with pytest.raises(NotImplementedError, match="queue 1 step 4"):
-        path_render(rt, 8, 8, scene.fovy, 0, spp=1)
+    assert rt.tex_on_emitter
+    with pytest.raises(ValueError, match="textured emitter"):
+        path_render(rt, 24, 24, scene.fovy, 0, spp=1, fused=True)
+    # the light's own pixels: with one bounce their radiance is the first
+    # term alone, a texel (which has a zero channel; the light's grey Kd
+    # has none)
+    from software_rasterizer_tpu_torch.ops.camera import camera_rays
+    from software_rasterizer_tpu_torch.ops.intersect import nearest_hit
+    from software_rasterizer_tpu_torch.render import PathTracing
+
+    first = PathTracing(24, 24, spp=1, max_bounces=1, device="cpu")
+    first.add_scene(scene)
+    first.draw()
+    hit = nearest_hit(rt, *camera_rays(rt.eye.numpy(), scene.fovy, 24, 24, "cpu"))
+    light = (hit.hit & (hit.emit.norm(dim=1) > 1e-5)).numpy()
+    texels = np.array([[1, 0, 0], [0, 1, 0], [0, 0, 1], [1, 1, 0]], np.float32)
+    colours = first.frame.reshape(-1, 3)[light]
+    assert light.sum() >= 4
+    assert all((np.abs(texels - px).max(1) < 1e-6).any() for px in colours)
 
 
 def test_missing_nvcc_raises(tmp_path, monkeypatch):

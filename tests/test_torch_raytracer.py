@@ -6,8 +6,8 @@
     atol=1e-5; every other pixel's camera ray on an edge shared by two
     triangles, where float32 rounding picks the wall), with the same
     last_stats keys and dropped_rays == 0;
-  * a scene with two emitters, a max_depth above the kernel's stack
-    bound, a CUDA request without CUDA, a launch on CPU tensors and a
+  * a scene with two emitters renders as the JAX pipeline's does;
+  * a max_depth above the kernel's stack bound, a CUDA request without CUDA, a launch on CPU tensors and a
     kernel build without nvcc each raise.
 """
 
@@ -65,20 +65,47 @@ def test_draw_matches_jax_raytracer():
     assert all(type(v) is int for v in st.values())
 
 
-def _two_emitter_scene():
-    scene = build_cornell_scene()
-    scene.add_graphic_obj(tmodels.SphereLight(
-        (-0.12, 0.12, 0.1), (1.0,) * 3, 0.04,
-        tmodels.Material(Kd=(1.0, 1.0, 1.0), emission=(6.0, 5.0, 4.0))),
-        "bulb")
-    return scene
+def test_two_emitters_render():
+    """A scene with two emitters renders (it raised before the emitter
+    picks were ported): Cornell plus a sphere light, against the JAX
+    pipeline under the same threefry key by the rule above."""
+    import jax
 
+    from software_rasterizer_tpu import models as jmodels
 
-def test_two_emitters_raise():
-    render = RayTracing(8, 8, device="cpu")
-    render.add_scene(_two_emitter_scene())
-    with pytest.raises(NotImplementedError, match="queue 1 step 6b"):
-        render.draw()
+    def build(models, cornell):
+        scene = cornell()
+        scene.add_graphic_obj(models.SphereLight(
+            (-0.12, 0.12, 0.1), (1.0,) * 3, 0.04,
+            models.Material(Kd=(1.0, 1.0, 1.0), emission=(6.0, 5.0, 4.0))),
+            "bulb")
+        return scene
+
+    render = RayTracing(32, 32, spp=2, seed=4, device="cpu")
+    render.add_scene(build(tmodels, build_cornell_scene))
+    render.draw()
+    got = render.frame
+    ref = JRayTracing(32, 32, spp=2, seed=4)
+    ref.key = jax.random.PRNGKey(4)
+    jscene = build(jmodels, jcornell)
+    ref.add_scene(jscene)
+    ref.draw()
+    ok = np.isclose(got, ref.frame, rtol=1e-4, atol=1e-5).all(-1)
+    rt = jprepare(jscene.rt_geometry(), jscene.rt_frame())
+    arrays = {k: np.asarray(v) for k, v in rt._asdict().items()}
+    edge = edge_tie_pixels(
+        arrays, np.asarray(jcamera_rays(arrays["eye"], jscene.fovy, 32, 32)[1])
+    ).reshape(32, 32)
+    # at 32x32 the box's diagonals run through pixel centres: the share is
+    # taken off the shared-edge rays, and every differing pixel is one
+    assert ok[~edge].mean() >= 0.995, int((~ok & ~edge).sum())
+    assert edge[~ok].all()
+    st, jst = render.last_stats["CornellBox"], ref.last_stats["CornellBox"]
+    assert st["dropped_rays"] == jst["dropped_rays"] == 0
+    assert st["rays_main"] == jst["rays_main"]
+    # a shared-edge ray shades the wall on one side and the light on the
+    # other: two emitter-table rows a diffuse hit at spp 2
+    assert abs(st["rays_shadow"] - jst["rays_shadow"]) <= 0.01 * jst["rays_shadow"]
 
 
 def test_max_depth_above_bound_raises():

@@ -42,6 +42,25 @@ def textured_cornell(build_cornell, shader_type, texture_cls,
     return scene
 
 
+def textured_light_cornell(build_cornell, shader_type, texture_cls):
+    """Cornell with the 2x2 texture bound to the LIGHT mesh (the
+    construction of tests/test_path.py): an emissive triangle carries a
+    texture, so its own pixels show the texel, not Kd."""
+    return textured_cornell(build_cornell, shader_type, texture_cls, "light")
+
+
+def two_emitter_cornell(models, build_cornell):
+    """Cornell with a second emitter (a small sphere light) and the mirror
+    and glass spheres of `mirror_glass_cornell`, so that child rays pick
+    an emitter too."""
+    scene = mirror_glass_cornell(models, build_cornell)
+    scene.add_graphic_obj(models.SphereLight(
+        (-0.12, 0.12, 0.1), (1.0,) * 3, 0.04,
+        models.Material(Kd=(1.0, 1.0, 1.0), emission=(6.0, 5.0, 4.0))),
+        "bulb")
+    return scene
+
+
 def edge_tie_pixels(arrays, dirs, rel=1e-6):
     """(N,) bool: the camera rays (from arrays["eye"] along `dirs` (N,3))
     that meet the shared edge of two triangles, found in float64: two
@@ -72,6 +91,47 @@ def edge_tie_pixels(arrays, dirs, rel=1e-6):
     t_min = np.where(np.isfinite(t_min), t_min, 0.0)   # rows with no hit
     near = hit & (np.abs(t - t_min) <= rel * np.abs(t_min))
     return near.sum(axis=1) >= 2
+
+
+def mt_knife_edge_rays(tri_table, orig, dirs, idx_a, idx_b, tol=1e-5):
+    """(N,) bool: where two nearest-triangle searches over the same
+    (F,12) `[v0|e1|e2|pad]` table picked different winners `idx_a` /
+    `idx_b` (-1: a miss) and float64 shows why: both winners are hit at t
+    within `tol` relative (a tie), or one of them sits within `tol` of an
+    acceptance threshold of the Moller-Trumbore test (u, v or u + v at 0
+    or 1, |det| at 1e-6, or t within 5e-7 of 1e-6: a ray that starts on a
+    surface meets it again at a t that is the rounding noise of
+    differences of numbers near 1), so the last bit of float32 rounding
+    decides whether it is hit at all. A differing ray that is False here
+    is a real disagreement."""
+    import numpy as np
+
+    g = np.asarray(tri_table, np.float64)
+    o = np.asarray(orig, np.float64)
+    d = np.asarray(dirs, np.float64)
+    ia, ib = np.asarray(idx_a), np.asarray(idx_b)
+
+    def evaluate(idx):
+        r = g[np.maximum(idx, 0)]
+        v0, e1, e2 = r[:, 0:3], r[:, 3:6], r[:, 6:9]
+        p = np.cross(d, e2)
+        det = (e1 * p).sum(-1)
+        inv = 1.0 / np.where(np.abs(det) < 1e-12, 1.0, det)
+        tv = o - v0
+        u = (tv * p).sum(-1) * inv
+        q = np.cross(tv, e1)
+        v = (d * q).sum(-1) * inv
+        t = (e2 * q).sum(-1) * inv
+        near = ((np.abs(u) <= tol) | (np.abs(u - 1) <= tol) | (np.abs(v) <= tol)
+                | (np.abs(u + v - 1) <= tol) | (np.abs(t - 1e-6) <= 5e-7)
+                | (np.abs(np.abs(det) - 1e-6) <= tol * 1e-6))
+        return t, near & (idx >= 0)
+
+    ta, edge_a = evaluate(ia)
+    tb, edge_b = evaluate(ib)
+    tie = ((ia >= 0) & (ib >= 0)
+           & (np.abs(ta - tb) <= tol * np.maximum(np.abs(ta), np.abs(tb))))
+    return (ia != ib) & (tie | edge_a | edge_b)
 
 
 RASTER_CORNELL_SCALE = (-0.25, 0.25, 0.25)
