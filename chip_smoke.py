@@ -6,11 +6,13 @@ Drives the port's three pipelines and its explicit-ray layer at full
 width (1024x1024) through their hand-written CUDA kernels, and holds each
 kernel against its plain PyTorch version: Cornell-box path tracing at 16
 spp, Whitted ray tracing at max_depth 5, the rasterizer on a lit,
-tessellated Cornell box of 9,216 triangles, and the wavefront path
-integrator on the frame's 1,048,576 camera rays as explicit tensors.
+tessellated Cornell box of 9,216 triangles, the wavefront path
+integrator on the frame's 1,048,576 camera rays as explicit tensors, and
+the nearest hits of those rays on the box tessellated to 9,216 and to
+147,456 triangles through the chunk-culled trace tiers.
 Phases, one line each; any failure exits non-zero:
 
-  1. device: CUDA present, card name and power limit, the five CUDA
+  1. device: CUDA present, card name and power limit, the six CUDA
      libraries built at once (one nvcc each);
   2. path: kernel vs plain on three 4096-lane windows of the full frame;
   3. path golden: 48x48 at 8 spp against tests/goldens path_mean;
@@ -52,7 +54,23 @@ Phases, one line each; any failure exits non-zero:
      Mpaths/s beside the camera kernel's, the plain versions, the bounds;
  19. Whitted with two emitters: kernel vs plain on the whole frame at
      spp 1 and 4, RayTracing.draw() through pipeline_from_config, two draws
-     differ, times beside the one-emitter frame.
+     differ, times beside the one-emitter frame;
+ 20. large scenes: the tessellated Cornell boxes and their chunk tables
+     on the card, camera rays and bounce rays from their hit points;
+ 21. the cull prepass kernel vs plain: the whole (ray block, chunk) mask
+     on both scenes and both ray sets, and the share that survives;
+ 22. the fused-cull, listed and streamed kernels: (hit, idx, t) bit for
+     bit against the unculled trace kernel over the whole table and
+     against their own plain versions, at every ray-block size (a ray that
+     differs must be a proven knife edge of the slab test, and is printed);
+ 23. large-scene main path: nearest_hit, nearest_emit_hit and classify_hit
+     with no backend named take the fused-cull kernel at 9,216 triangles
+     and the prepass + streamed kernel at 147,456 (launch counts), every
+     field equal to backend="vpu"; backend="mm2" takes the listed kernel;
+ 24. large-scene times (CUDA events, median and range): each kernel bare
+     and wrapped, the list build, the unculled kernel on the same rays,
+     nearest_hit whole, the ray-block sizes, one path_trace sample by both
+     routes, and the bounds from this run's own masks.
 
 The last lines are a JSON line of per-kernel results (time beside the
 card's bound for the same work; the Whitted kernel's `launches` is phase
@@ -111,6 +129,16 @@ WAVE_MEAN_RTOL = 0.02
 # the plain wavefront's lanes on the card (a quarter frame)
 PLAIN_WAVE_LANES = 1 << 18
 WHITTED_EMITTER_SPP = 4
+# large scenes: tessellation of each Cornell mesh (36 x 4^levels triangles:
+# 9,216 for the fused-cull tier, 147,456 for the streamed tier), and the
+# ray-block sizes held against each other (up to 256 threads of 1, 2, 4 or 8
+# rays)
+LARGE_LEVELS = (4, 6)
+BLOCK_SIZES = (32, 64, 128, 512, 1024, 2048)
+# a tier's plain version runs the whole frame up to this many (ray,
+# triangle) tests, else windows of LARGE_WINDOW rays
+PLAIN_TESTS_LIMIT = 3e10
+LARGE_WINDOW = 1 << 16
 # the card's published peaks (H100 SXM data sheet): float32 outside the
 # tensor cores, and device memory
 FP32_PEAK = 67e12
@@ -179,11 +207,12 @@ def tensor_bytes(*tensors) -> int:
 
 
 def build_kernels() -> float:
-    """Build the five CUDA libraries at once (one nvcc each); returns the
+    """Build the six CUDA libraries at once (one nvcc each); returns the
     seconds it took."""
     from software_rasterizer_tpu_torch.ops import path_kernel as pk
     from software_rasterizer_tpu_torch.ops import raster_kernel as rk
     from software_rasterizer_tpu_torch.ops import trace_kernel as tk
+    from software_rasterizer_tpu_torch.ops import trace_tiers as tt
     from software_rasterizer_tpu_torch.ops import whitted_kernel as wk
 
     t0 = time.perf_counter()
@@ -197,7 +226,7 @@ def build_kernels() -> float:
 
     threads = [threading.Thread(target=build, args=(fn,)) for fn in (
         pk.build_kernel, pk.build_bounce_kernel, tk.build_kernel,
-        wk.build_kernel, rk.build_kernel)]
+        tt.build_kernel, wk.build_kernel, rk.build_kernel)]
     for th in threads:
         th.start()
     for th in threads:
@@ -233,8 +262,8 @@ def main() -> int:
     # ---- 1. device + build (one nvcc per library, started together)
     build_s = build_kernels()
     ptxas = []
-    for name in ("path_camera", "path_bounce", "trace_nearest", "whitted_uber",
-                 "raster_tiles"):
+    for name in ("path_camera", "path_bounce", "trace_nearest", "trace_culled",
+                 "whitted_uber", "raster_tiles"):
         log = BUILD_LOGS.get(name, "")
         (OUT_DIR / f"{name}_build.log").write_text(log)
         ptxas += [f"{name}: {ln.strip()}" for ln in log.splitlines()
@@ -376,6 +405,7 @@ def main() -> int:
     cam_mean = float(torch.clamp(full.T / float(SPP), 0, 1).mean())
     wavefront = wavefront_phases(dev, card, cam_mean, paths / k_ms / 1e3)
     picks = whitted_emitter_phases(dev, card)
+    tiers = large_scene_phases(dev, card)
     whitted["launches_two_emitters"] = picks["launches"]
     whitted["max_abs_err"] = max(whitted["max_abs_err"], picks["max_abs_err"])
 
@@ -392,7 +422,7 @@ def main() -> int:
         "bound_ms": path_bound,
         "bound_by": path_by,
         "library_ms": None,
-    }, whitted, *raster, *wavefront]}))
+    }, whitted, *raster, *wavefront, *tiers]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
@@ -1233,6 +1263,365 @@ def wavefront_phases(dev, card: str, cam_mean: float, cam_mpaths: float) -> list
          "ms": med(t_bounce), "bare_ms": med(t_bounce_bare),
          "plain_ms": plain_bounce_ms[MAX_BOUNCES], "bound_ms": b_b,
          "bound_by": by_b, "library_ms": None},
+    ]
+
+
+def large_scene_phases(dev, card: str) -> list:
+    """Phases 20-24: nearest hits of explicit rays on large scenes, the
+    Cornell box tessellated to 9,216 and to 147,456 triangles. Returns
+    the entries of the four chunk-culled kernels for the JSON line."""
+    import torch
+
+    from software_rasterizer_tpu_torch.ops import intersect as ti
+    from software_rasterizer_tpu_torch.ops import path as tp
+    from software_rasterizer_tpu_torch.ops import trace_kernel as tk
+    from software_rasterizer_tpu_torch.ops import trace_tiers as tt
+    from software_rasterizer_tpu_torch.ops.camera import camera_rays
+    from software_rasterizer_tpu_torch.scenes import build_cornell_scene
+    from software_rasterizer_tpu_torch.scenes.stress import subdivide_mesh
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_scenes import slab_knife_edge_rays, stress_cornell
+
+    n = WIDTH * HEIGHT
+    block = tt.DEFAULT_BLOCK
+    med = statistics.median
+
+    def wall_ms(fn):
+        """fn() once: (its result, wall ms with the device drained)."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    # ---- 20. scenes, tables and rays
+    scenes, lines = {}, []
+    for name, levels in (("mid", LARGE_LEVELS[0]), ("large", LARGE_LEVELS[1])):
+        t0 = time.perf_counter()
+        scene = stress_cornell(build_cornell_scene, subdivide_mesh, levels)
+        scene.set_ndc_matrix(WIDTH, HEIGHT)
+        rt = ti.prepare_rt_scene(scene.rt_geometry(), scene.rt_frame(), dev)
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t0
+        f_pad = rt.v0.shape[0]
+        if rt.chunk_lo.shape != (-(-f_pad // rt.cull_chunk), 3) \
+                or rt.cull_chunk != ti._cull_granule(f_pad):
+            fail(f"{name}: chunk tables {tuple(rt.chunk_lo.shape)} at granule "
+                 f"{rt.cull_chunk} for {f_pad} rows")
+        o, d = (x.contiguous() for x in camera_rays(
+            rt.eye.cpu().numpy(), scene.fovy, WIDTH, HEIGHT, dev))
+        # bounce rays from the hit points, as phase 15 makes them
+        hit = ti.nearest_hit(rt, o, d, backend="vpu")
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED)
+        w = torch.randn((n, 3), generator=gen, device=dev)
+        w = w / torch.sqrt((w * w).sum(dim=1, keepdim=True))
+        w = torch.where(((w * hit.normal).sum(dim=1) < 0)[:, None], -w, w)
+        o2 = torch.where(hit.hit[:, None], hit.coords + 1e-6 * hit.normal, o).contiguous()
+        d2 = torch.where(hit.hit[:, None], w, d).contiguous()
+        scenes[name] = dict(scene=scene, rt=rt, rays={"camera": (o, d), "bounce": (o2, d2)},
+                            backend=ti._trace_backend(f_pad))
+        lines.append(f"{name}: {rt.n_tri} triangles ({f_pad} rows), nc {rt.chunk_lo.shape[0]} "
+                     f"at granule {rt.cull_chunk}, tier {scenes[name]['backend']}, "
+                     f"{int(hit.hit.sum())}/{n} camera rays hit, host {host_s:.2f}s")
+    if scenes["mid"]["backend"] != "mm2c" or scenes["large"]["backend"] != "mm2s":
+        fail(f"tiers by triangle count: {lines}")
+    phase(20, "stress_cornell -> prepare_rt_scene on the card, 1,048,576 camera rays "
+              "and as many bounce rays: " + "; ".join(lines))
+
+    # ---- 21. the cull prepass against its plain version
+    lines, cull_bad, cull_plain_ms, masks = [], 0, {}, {}
+    for name, sc in scenes.items():
+        rt = sc["rt"]
+        for kind, (o_, d_) in sc["rays"].items():
+            k = tt.cull_prepass(rt.chunk_lo, rt.chunk_hi, o_, d_, block)
+            torch.cuda.synchronize()
+            p_, cull_plain_ms[name, kind] = wall_ms(lambda: tt.cull_prepass_plain(
+                rt.chunk_lo, rt.chunk_hi, o_, d_, block))
+            if k.shape != (-(-n // block), rt.chunk_lo.shape[0]) or k.dtype != torch.uint8:
+                fail(f"cull mask has shape {tuple(k.shape)} and type {k.dtype}")
+            bad = int((k != p_).sum())
+            cull_bad += bad
+            masks[name, kind] = k
+            lines.append(f"{name} {kind}: {bad}/{k.numel()} mask entries differ, "
+                         f"{float(k.float().mean()):.4f} of the (block, chunk) pairs "
+                         f"survive, plain {cull_plain_ms[name, kind]:.0f} ms")
+    if cull_bad:
+        fail("cull prepass kernel disagrees with plain: " + "; ".join(lines))
+    phase(21, f"cull prepass kernel vs plain, blocks of {block} rays: " + "; ".join(lines))
+
+    # ---- 22. every tier against kernel #2 over the whole table, and
+    # against its own plain version
+    def tier_calls(rt):
+        a = (rt.tri_table, rt.chunk_lo, rt.chunk_hi)
+        kw = dict(chunk=rt.cull_chunk, block=block)
+        return {
+            "mm2c": (lambda o_, d_: tt.trace_nearest_mm2c(*a, o_, d_, **kw),
+                     lambda o_, d_: tt.trace_nearest_mm2c_plain(*a, o_, d_, **kw)),
+            "mm2": (lambda o_, d_: tt.trace_nearest_mm2(*a, o_, d_, **kw),
+                    lambda o_, d_: plain_listed(rt, o_, d_, True)),
+            "mm2 cull=False": (
+                lambda o_, d_: tt.trace_nearest_mm2(*a, o_, d_, cull=False, **kw),
+                lambda o_, d_: plain_listed(rt, o_, d_, False)),
+            "mm2s": (lambda o_, d_: tt.trace_nearest_mm2_stream(*a, o_, d_, **kw),
+                     lambda o_, d_: plain_listed(rt, o_, d_, True)),
+        }
+
+    def plain_listed(rt, o_, d_, cull):
+        """The plain version of both listed kernels."""
+        nb = -(-o_.shape[0] // block)
+        if cull:
+            counts, lists = tt.chunk_lists(tt.cull_prepass_plain(
+                rt.chunk_lo, rt.chunk_hi, o_, d_, block))
+        else:
+            counts, lists = tt._all_chunks(nb, rt.chunk_lo.shape[0], dev)
+        return tt.trace_listed_plain(rt.tri_table, counts, lists, o_, d_,
+                                     rt.cull_chunk, block)
+
+    def differing(a, b):
+        return (a[0] != b[0]) | (a[1] != b[1]) | (a[2] != b[2])
+
+    tier_err = {"mm2c": 0.0, "mm2": 0.0, "mm2s": 0.0}
+    tier_plain_ms, explained, lines = {}, {}, []
+    for name, sc in scenes.items():
+        rt = sc["rt"]
+        calls = tier_calls(rt)
+        if name == "large":
+            del calls["mm2 cull=False"]   # 1.5e11 tests in the plain version
+        for kind, (o_, d_) in sc["rays"].items():
+            ref = tk.trace_nearest_vpu(rt.tri_table, rt.n_tri, o_, d_)
+            knife = torch.zeros(n, dtype=torch.bool, device=dev)
+            for tier, (kernel, plain) in calls.items():
+                k = kernel(o_, d_)
+                torch.cuda.synchronize()
+                if k[0].shape != (n,) or k[0].dtype != torch.bool \
+                        or k[1].dtype != torch.int64 or k[2].dtype != torch.float32:
+                    fail(f"{tier} outputs have the wrong shape or type")
+                off = differing(k, ref)
+                n_off = int(off.sum())
+                if n_off:
+                    # a differing ray must be a proven knife edge of the slab
+                    # test of the box that holds kernel #2's winner
+                    r = torch.nonzero(off).flatten()
+                    proof = slab_knife_edge_rays(
+                        rt.chunk_lo.cpu().numpy(), rt.chunk_hi.cpu().numpy(),
+                        rt.cull_chunk, o_[r].cpu().numpy(), d_[r].cpu().numpy(),
+                        ref[1][r].cpu().numpy())
+                    print(f"[phase 22] {name} {kind} {tier}: {n_off} rays differ from "
+                          f"kernel #2, {int(proof.sum())} of them proven slab knife "
+                          f"edges; first rays {r[:8].tolist()}", flush=True)
+                    if not proof.all():
+                        fail(f"{tier} on {name} {kind} rays: {int((~proof).sum())} rays "
+                             f"differ from kernel #2 and are no knife edge")
+                    knife |= off
+                # the kernel against its own plain version: the whole frame,
+                # or three windows where the plain version would take minutes
+                pairs = n // block * rt.chunk_lo.shape[0] if "False" in tier \
+                    else int(masks[name, kind].sum())
+                whole = float(pairs) * rt.cull_chunk * block <= PLAIN_TESTS_LIMIT
+                starts = [0] if whole else [0, n // 2, n - LARGE_WINDOW]
+                bad, ms = 0, 0.0
+                for s0 in starts:
+                    s1 = n if whole else s0 + LARGE_WINDOW
+                    kw_ = k if whole else kernel(o_[s0:s1], d_[s0:s1])
+                    p_, ms_w = wall_ms(lambda: plain(o_[s0:s1], d_[s0:s1]))
+                    ms += ms_w
+                    bad += int(differing(kw_, p_).sum())
+                    bad += int(differing(kw_, tuple(x[s0:s1] for x in k)).sum())
+                    key = tier.split()[0]
+                    tier_err[key] = max(tier_err[key],
+                                        float((kw_[2] - p_[2]).abs().max()))
+                how = "whole frame" if whole else \
+                    f"{len(starts)} windows of {LARGE_WINDOW} rays at {starts}"
+                tier_plain_ms[name, kind, tier] = ms
+                lines.append(f"{name} {kind} {tier}: {n_off}/{n} rays differ from kernel "
+                             f"#2, {bad} from its plain version ({how}, {ms:.0f} ms)")
+                if bad:
+                    fail(f"{tier} disagrees with its plain version: {lines[-1]}")
+            explained[name, kind] = knife
+    # the ray block's size changes no result: every thread shape of the kernels
+    rt = scenes["mid"]["rt"]
+    o_, d_ = scenes["mid"]["rays"]["camera"]
+    ref = tk.trace_nearest_vpu(rt.tri_table, rt.n_tri, o_, d_)
+    a = (rt.tri_table, rt.chunk_lo, rt.chunk_hi, o_, d_)
+    for b in BLOCK_SIZES:
+        for tier, fn in (("mm2c", tt.trace_nearest_mm2c), ("mm2", tt.trace_nearest_mm2),
+                         ("mm2s", tt.trace_nearest_mm2_stream)):
+            off = differing(fn(*a, chunk=rt.cull_chunk, block=b), ref)
+            if bool((off & ~explained["mid", "camera"]).any()):
+                fail(f"{tier} at block={b}: {int(off.sum())} rays differ from kernel #2")
+    phase(22, f"tiers vs kernel #2 over the whole table and vs their plain versions, "
+              f"(hit, idx, t) bit for bit, blocks of {block} rays: " + "; ".join(lines)
+              + f"; blocks of {BLOCK_SIZES} rays give the same on the mid scene")
+
+    # ---- 23. the path: nearest_hit and its relatives pick the tier
+    want = {"mid": (3, 0, 0, 0), "large": (0, 3, 0, 3)}
+    lines = []
+    launches = [0, 0, 0, 0]
+
+    def counts():
+        return (tt.LAUNCHES_MM2C, tt.LAUNCHES_CULL, tt.LAUNCHES_MM2, tt.LAUNCHES_MM2S)
+
+    def same_fields(a, b, skip):
+        off = torch.zeros(n, dtype=torch.bool, device=dev)
+        for x, y in zip(a, b):
+            off |= ~same_lanes(x, y)
+        return int((off & ~skip).sum())
+
+    for name, sc in scenes.items():
+        rt = sc["rt"]
+        o_, d_ = sc["rays"]["camera"]
+        o2, d2 = sc["rays"]["bounce"]
+        refs = (ti.nearest_hit(rt, o_, d_, backend="vpu"),
+                ti.nearest_emit_hit(rt, o2, d2, backend="vpu"),
+                ti.classify_hit(rt, o_, d_, backend="vpu"))
+        tt.LAUNCHES_MM2C = tt.LAUNCHES_CULL = tt.LAUNCHES_MM2 = tt.LAUNCHES_MM2S = 0
+        vpu_before = tk.LAUNCHES
+        got = [ti.nearest_hit(rt, o_, d_)]
+        first = counts()
+        got += [ti.nearest_emit_hit(rt, o2, d2), ti.classify_hit(rt, o_, d_)]
+        torch.cuda.synchronize()
+        after = counts()
+        if first != tuple(c // 3 for c in want[name]) or after != want[name] \
+                or tk.LAUNCHES != vpu_before:
+            fail(f"{name}: launches (mm2c, cull, mm2, mm2s) {first} after nearest_hit, "
+                 f"{after} after all three, expected {want[name]}; kernel #2 "
+                 f"{tk.LAUNCHES - vpu_before}")
+        if name == "mid":
+            # the list-driven tier, taken by name
+            got.append(ti.nearest_hit(rt, o_, d_, backend="mm2"))
+            refs += (refs[0],)
+            after = counts()
+            if after != (3, 1, 1, 0):
+                fail(f"nearest_hit(backend='mm2') launched {after}")
+        launches = [x + y for x, y in zip(launches, after)]
+        skips = (explained[name, "camera"], explained[name, "bounce"],
+                 explained[name, "camera"], explained[name, "camera"])
+        bad = [same_fields(g, r, s) for g, r, s in zip(got, refs, skips)]
+        if got[0].hit.shape != (n,) or not bool(torch.isfinite(got[0].coords).all()):
+            fail(f"{name}: nearest_hit's record has the wrong shape or values")
+        lines.append(f"{name}: nearest_hit / nearest_emit_hit / classify_hit launch "
+                     f"(mm2c, cull, mm2, mm2s) = {want[name]}, kernel #2 0; lanes that "
+                     f"differ from backend='vpu' in any of their "
+                     f"{len(got[0]._fields)} / {len(got[1]._fields)} / "
+                     f"{len(got[2]._fields)} fields: {bad[:3]}"
+                     + (f"; backend='mm2': {bad[3]}" if name == "mid" else ""))
+        if any(bad):
+            fail(f"the tiers' records differ from backend='vpu': {lines[-1]}")
+    phase(23, "nearest_hit(rt, orig, d) with no backend on the default device: "
+              + "; ".join(lines))
+
+    # ---- 24. times
+    reps = 20
+    times, entries_ms = [], {}
+    for name, sc in scenes.items():
+        rt = sc["rt"]
+        o_, d_ = sc["rays"]["camera"]
+        a = (rt.tri_table, rt.chunk_lo, rt.chunk_hi)
+        kw = dict(chunk=rt.cull_chunk, block=block)
+        lo2, hi2 = tt.super_bounds(rt.chunk_lo, rt.chunk_hi)
+        mask = masks[name, "camera"]
+        counts_, lists_ = tt.chunk_lists(mask)
+        t = {
+            "mm2c bare": cuda_times(lambda: tt.launch_trace_fused_cull(
+                *a, lo2, hi2, o_, d_, **kw), reps),
+            "mm2c": cuda_times(lambda: tt.trace_nearest_mm2c(*a, o_, d_, **kw), reps),
+            "cull": cuda_times(lambda: tt.cull_prepass(
+                rt.chunk_lo, rt.chunk_hi, o_, d_, block), reps),
+            "lists": cuda_times(lambda: tt.chunk_lists(mask), reps),
+            "mm2 bare": cuda_times(lambda: tt.launch_trace_listed(
+                rt.tri_table, counts_, lists_, o_, d_, **kw), reps),
+            "mm2": cuda_times(lambda: tt.trace_nearest_mm2(*a, o_, d_, **kw), reps),
+            "mm2s bare": cuda_times(lambda: tt.launch_trace_listed(
+                rt.tri_table, counts_, lists_, o_, d_, stream=True, **kw), reps),
+            "mm2s": cuda_times(lambda: tt.trace_nearest_mm2_stream(*a, o_, d_, **kw), reps),
+            "nearest_hit": cuda_times(lambda: ti.nearest_hit(rt, o_, d_), reps),
+            "kernel #2": cuda_times(lambda: tk.trace_nearest_vpu(
+                rt.tri_table, rt.n_tri, o_, d_), 3),
+        }
+        if name == "mid":
+            t["mm2 cull=False"] = cuda_times(lambda: tt.trace_nearest_mm2(
+                *a, o_, d_, cull=False, **kw), 3)
+        tier = {"mid": tt.trace_nearest_mm2c, "large": tt.trace_nearest_mm2_stream}[name]
+        for b in BLOCK_SIZES:
+            t[f"{sc['backend']} block={b}"] = cuda_times(lambda: tier(
+                *a, o_, d_, chunk=rt.cull_chunk, block=b), reps)
+        entries_ms[name] = t
+        times.append(f"{name} ({rt.n_tri} triangles, chunks of {rt.cull_chunk}): "
+                     + ", ".join(f"{k} {spread(v)}" for k, v in t.items()))
+    phase(24, f"large-scene rays, {n} camera rays, blocks of {block} rays unless said, "
+              f"ms as median [min-max] of {reps} after a warm-up (kernel #2 and "
+              f"cull=False of 3) on {card}: " + "; ".join(times))
+
+    # one sample of the wavefront on the large scene, both routes
+    rt = scenes["large"]["rt"]
+    lo_ = n // 2 - PLAIN_WAVE_LANES // 2
+    po, pd = (x[lo_:lo_ + PLAIN_WAVE_LANES] for x in scenes["large"]["rays"]["camera"])
+    kw = dict(p_rr=scenes["large"]["scene"].rr, max_bounces=MAX_BOUNCES)
+    (plain_r, st), plain_ms = wall_ms(lambda: tp.path_trace(
+        rt, po, pd, SEED, fused=False, with_stats=True, **kw))
+    fused_r, fused_ms = wall_ms(lambda: tp.path_trace(rt, po, pd, SEED, fused=True, **kw))
+    pm = float(torch.clamp(plain_r, 0, 1).mean())
+    fm = float(torch.clamp(fused_r, 0, 1).mean())
+    if int(st["dropped_lanes"]) != 0 or not bool(torch.isfinite(plain_r).all()) \
+            or not bool(torch.isfinite(fused_r).all()) or abs(pm - fm) / fm > 0.05:
+        fail(f"path_trace on the large scene: dropped {int(st['dropped_lanes'])}, "
+             f"clipped means {pm} (fused=False) and {fm} (fused=True)")
+    phase(24, f"path_trace, one sample of {PLAIN_WAVE_LANES} lanes on {rt.n_tri} "
+              f"triangles (wall ms, once each): fused=False {plain_ms:.1f} (nearest_hit "
+              f"over the tiers, dropped_lanes 0, clipped mean {pm:.5f}), fused=True "
+              f"{fused_ms:.1f} (the bounce kernel sweeps every triangle, clipped mean "
+              f"{fm:.5f})")
+
+    # bounds, from this run's own masks: a listed (block, chunk) pair is
+    # chunk x block tests of ~58 float32 operations, a slab test ~21; the
+    # rays read and (hit, idx, t) written once, the table, boxes, lists
+    def tier_bound(name, listed_bytes, slab_tests):
+        rt = scenes[name]["rt"]
+        o_, d_ = scenes[name]["rays"]["camera"]
+        pairs = int(masks[name, "camera"].sum())
+        tests = float(pairs) * rt.cull_chunk * block
+        return bound(tensor_bytes(rt.tri_table, rt.chunk_lo, rt.chunk_hi, o_, d_)
+                     + 13 * n + listed_bytes, 58.0 * tests + 21.0 * slab_tests), tests
+
+    mid, large = scenes["mid"]["rt"], scenes["large"]["rt"]
+    nb = -(-n // block)
+    # the fused cull's slab tests: every super-chunk, and the chunks of
+    # those a block enters
+    lo2, hi2 = tt.super_bounds(mid.chunk_lo, mid.chunk_hi)
+    supers = int(tt.cull_prepass(lo2, hi2, *scenes["mid"]["rays"]["camera"], block).sum())
+    (b4, by4), tests4 = tier_bound(
+        "mid", 0, float(block) * (nb * lo2.shape[0] + supers * tt.MM2C_SUPER))
+    (b7, by7), _ = tier_bound("mid", 4 * nb * (1 + mid.chunk_lo.shape[0]), 0.0)
+    (b6, by6), tests6 = tier_bound("large", 4 * nb * (1 + large.chunk_lo.shape[0]), 0.0)
+    o_, d_ = scenes["large"]["rays"]["camera"]
+    b5, by5 = bound(tensor_bytes(large.chunk_lo, large.chunk_hi, o_, d_,
+                                 masks["large", "camera"]),
+                    21.0 * n * large.chunk_lo.shape[0])
+    phase(24, f"bounds: mm2c (mid) {b4:.4f} ms by {by4} ({tests4:.3g} tests), cull "
+              f"prepass (large) {b5:.4f} ms by {by5}, mm2s (large) {b6:.4f} ms by {by6} "
+              f"({tests6:.3g} tests), mm2 (mid) {b7:.4f} ms by {by7}")
+
+    src = "software_rasterizer_tpu_torch/csrc/trace_culled.cu"
+    jax_file = "software_rasterizer_tpu/ops/pallas_trace.py"
+    tm, tl = entries_ms["mid"], entries_ms["large"]
+
+    def entry(name, line, n_launches, err, ms, bare, plain_ms, b, by):
+        return {"name": name, "route": "cuda", "source": src,
+                "replaces": f"{jax_file}:{line}", "launches": n_launches,
+                "max_abs_err": err, "ms": ms, "bare_ms": bare, "plain_ms": plain_ms,
+                "bound_ms": b, "bound_by": by, "library_ms": None}
+
+    return [
+        entry("trace_fused_cull", 235, launches[0], tier_err["mm2c"], med(tm["mm2c"]),
+              med(tm["mm2c bare"]), tier_plain_ms["mid", "camera", "mm2c"], b4, by4),
+        entry("cull_prepass", 559, launches[1], float(cull_bad), med(tl["cull"]),
+              med(tl["cull"]), cull_plain_ms["large", "camera"], b5, by5),
+        entry("trace_listed_stream", 801, launches[3], tier_err["mm2s"], med(tl["mm2s"]),
+              med(tl["mm2s bare"]), tier_plain_ms["large", "camera", "mm2s"], b6, by6),
+        entry("trace_listed", 634, launches[2], tier_err["mm2"], med(tm["mm2"]),
+              med(tm["mm2 bare"]), tier_plain_ms["mid", "camera", "mm2"], b7, by7),
     ]
 
 

@@ -16,16 +16,16 @@
 // bytes; Cornell's 36 take 1.7 KB, so occupancy is not touched). No
 // (rows,128) tiling and no padding of N: the last block masks its tail.
 //
-// The expressions are those of the plain PyTorch version, in its order;
-// built with -fmad=false and without fast math, every multiply and add
-// rounds on its own, so the two agree bit for bit.
+// The test of one ray against one row is trace_common.cuh's mt_test: the
+// expressions of the plain PyTorch version, in its order; built with
+// -fmad=false and without fast math, every multiply and add rounds on
+// its own, so the two agree bit for bit.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "trace_common.cuh"
 
 namespace {
 
-constexpr float kBig = 1e30f;
+using srt::kBig;
 constexpr int kThreads = 128;
 // triangles staged in shared memory (48 KB holds 1024 rows of 12
 // floats); larger tables are read through the cache
@@ -47,32 +47,12 @@ trace_nearest_kernel(const float* __restrict__ tri, int n_tri,
   }
   const int r = blockIdx.x * kThreads + threadIdx.x;
   if (r >= n) return;
-  const float ox = orig[3 * r], oy = orig[3 * r + 1], oz = orig[3 * r + 2];
-  const float dx = dir[3 * r], dy = dir[3 * r + 1], dz = dir[3 * r + 2];
+  const srt::Ray ray = {orig[3 * r], orig[3 * r + 1], orig[3 * r + 2],
+                        dir[3 * r],  dir[3 * r + 1],  dir[3 * r + 2]};
   float best_t = kBig;
   int best_f = -1;
   for (int f = 0; f < n_tri; ++f) {
-    const float* g = table + 12 * f;
-    const float v0x = g[0], v0y = g[1], v0z = g[2];
-    const float e1x = g[3], e1y = g[4], e1z = g[5];
-    const float e2x = g[6], e2y = g[7], e2z = g[8];
-    // p = d x e2
-    const float px = dy * e2z - dz * e2y;
-    const float py = dz * e2x - dx * e2z;
-    const float pz = dx * e2y - dy * e2x;
-    const float det = e1x * px + e1y * py + e1z * pz;
-    const float inv = 1.0f / (fabsf(det) < 1e-6f ? 1.0f : det);
-    const float tx = ox - v0x, ty = oy - v0y, tz = oz - v0z;
-    const float u = (tx * px + ty * py + tz * pz) * inv;
-    // q = tvec x e1
-    const float qx = ty * e1z - tz * e1y;
-    const float qy = tz * e1x - tx * e1z;
-    const float qz = tx * e1y - ty * e1x;
-    const float v = (dx * qx + dy * qy + dz * qz) * inv;
-    const float t = (e2x * qx + e2y * qy + e2z * qz) * inv;
-    const bool ok = fabsf(det) >= 1e-6f && u >= 0.0f && u <= 1.0f &&
-                    v >= 0.0f && u + v <= 1.0f && t >= 1e-6f;
-    const float tm = ok ? t : kBig;
+    const float tm = srt::mt_test(ray, table + 12 * f);
     if (tm < best_t) {  // strict <: the lowest index wins a tie
       best_t = tm;
       best_f = f;

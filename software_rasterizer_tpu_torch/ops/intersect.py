@@ -3,31 +3,69 @@ Scene::updatePosition, Scene.cpp:882-901; Triangle.cpp:215-231).
 
 `prepare_rt_scene` transforms the host geometry (`models.scene.RTGeometry`
 + `RTFrame`) into trace space on a torch device. `RTScene` holds the
-fields the path-tracing and Whitted slices read; the JAX package's
-fields for its large-scene trace tiers (`mt_coef`, `chunk_lo/hi`,
-`tex_packed`) come with the slice that ports those tiers.
+fields the tracing layers read, the chunk boxes of the large-scene trace
+tiers among them. Of the JAX package's fields it leaves out `mt_coef`
+(the coefficients of the bilinear matmul form of Moller-Trumbore, a TPU
+form: every tier here tests the `tri_table` rows exactly) and
+`tex_packed` (no caller yet).
 
 Tracing explicit rays: `nearest_hit` finds the nearest primitive of
 every ray and joins the winner's surface properties into a `Hit`;
 `nearest_emit_hit` is the emit-only form for visibility rays;
 `classify_hit` + `surface_attrs` split the search from the join so an
-integrator can compact lanes between them. The triangle search is
-`ops/trace_kernel.trace_nearest_vpu` for every triangle count (its loop
-runs n_tri times); the winner's (u, v, t) are then recomputed with
-`_mt_uv`. The JAX package's one-hot joins, its 8-column class gather and
-its blocking over 8192 lanes work around TPU costs; here rows are read
-by index.
+integrator can compact lanes between them. The triangle search is a tier
+chosen by triangle count (`_trace_backend`): `trace_nearest_vpu` up to
+1024 triangles, the fused two-level chunk cull `trace_nearest_mm2c` up
+to 16,384, the cull prepass and the streamed listed sweep
+`trace_nearest_mm2_stream` above; `backend=` names one instead. Every
+tier returns the same winners bit for bit; the winner's (u, v, t) are
+then recomputed with `_mt_uv`. The JAX package's one-hot joins, its
+8-column class gather and its blocking over 8192 lanes work around TPU
+costs; here rows are read by index.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, NamedTuple
+from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from software_rasterizer_tpu_torch.ops import trace_kernel, trace_tiers
+from software_rasterizer_tpu_torch.ops.bvh import slab_test
+
 BIG = 1e30
+
+# The triangle search by triangle count (the padded table's rows):
+#   <= VPU_TRACE_MAX_TRIS: "vpu", every ray against every row;
+#   <= MM_TRACE_MAX_TRIS: "mm2c", chunks of MM2_CHUNK rows in BVH leaf
+#       order, culled by a two-level box vote fused into the sweep;
+#   above: "mm2s", chunks of MM2S_CHUNK rows, a cull prepass, per-block
+#       lists and the double-buffered listed sweep.
+# "mm2" (the listed sweep over chunks of the scene's granule) is taken
+# only by name.
+VPU_TRACE_MAX_TRIS = 1024
+MM_TRACE_MAX_TRIS = 16384
+MM2_CHUNK = 128
+MM2S_CHUNK = 256
+TRACE_BACKENDS = ("vpu", "mm2c", "mm2", "mm2s")
+
+
+def _cull_granule(f_pad: int) -> int:
+    """Rows of a chunk of `RTScene.chunk_lo/hi`: what `_trace_backend`
+    picks for a table of `f_pad` rows sweeps."""
+    return MM2_CHUNK if f_pad <= MM_TRACE_MAX_TRIS else MM2S_CHUNK
+
+
+def _trace_backend(f_pad: int) -> str:
+    """The tier `_trace_tris` takes for a table of `f_pad` rows, by the
+    count alone, on every device. No upper limit: the JAX package leaves
+    its kernels above 2,097,152 triangles for the size of its mask plane,
+    and the mask here is a tensor."""
+    if f_pad <= VPU_TRACE_MAX_TRIS:
+        return "vpu"
+    return "mm2c" if f_pad <= MM_TRACE_MAX_TRIS else "mm2s"
 
 
 @dataclasses.dataclass
@@ -50,6 +88,9 @@ class RTScene:
     tri_valid: torch.Tensor   # (F,) bool
     tri_table: torch.Tensor   # (F,12) [v0|e1|e2|pad], invalid rows zero
     n_tri: int                # 1 + last valid triangle index
+    chunk_lo: torch.Tensor    # (nc,3) boxes of runs of `cull_chunk` rows of
+    chunk_hi: torch.Tensor    # tri_table (BVH leaf order), for the chunk cull
+    cull_chunk: int           # rows a chunk (`_cull_granule`)
     sph_c: torch.Tensor       # (S,3) transformed centers
     sph_r: torch.Tensor       # (S,) transformed radii
     sph_mat: torch.Tensor     # (S,) i32
@@ -229,6 +270,9 @@ def prepare_rt_scene(geom, frame, device) -> RTScene:
     emitter_cr, order, n_emit = _emitter_table(geom.obj_emissive, centers, radii)
 
     tri_table = mt_tri_table(tv[:, 0], tv[:, 1], tv[:, 2], valid)
+    cull_chunk = _cull_granule(tv.shape[0])
+    chunk_lo, chunk_hi = trace_tiers.chunk_bounds(
+        tv[:, 0], tv[:, 1], tv[:, 2], valid, cull_chunk)
     mt = geom.materials
     tri_mat, tri_tex = t(geom.tri_mat, torch.int32), t(geom.tri_tex, torch.int32)
     sph_mat = t(geom.sph_mat, torch.int32)
@@ -243,6 +287,7 @@ def prepare_rt_scene(geom, frame, device) -> RTScene:
         tri_mat=tri_mat, tri_tex=tri_tex, tri_obj=tri_obj.to(torch.int32),
         tri_valid=valid,
         tri_table=tri_table, n_tri=loop_bound(geom.face_valid),
+        chunk_lo=chunk_lo, chunk_hi=chunk_hi, cull_chunk=cull_chunk,
         sph_c=sc, sph_r=sr, sph_mat=sph_mat, sph_obj=sph_obj.to(torch.int32),
         sph_valid=sph_valid, n_sph=loop_bound(geom.sph_valid),
         mat_type=t(mt.type, torch.int32), mat_ka=t(mt.ka, f32),
@@ -264,7 +309,7 @@ def rt_scene_from_numpy(arrays: Dict[str, np.ndarray], device) -> RTScene:
     """Build the port's RTScene from the JAX package's RTScene arrays
     (`{k: np.asarray(v) for k, v in rt._asdict().items()}`), so that
     both packages can be fed the identical scene. Fields the port does
-    not hold (`mt_coef`, `chunk_lo/hi`, `tex_packed`) are ignored."""
+    not hold (`mt_coef`, `tex_packed`) are ignored."""
     device = check_device(device)
 
     def t(k, dtype):
@@ -278,6 +323,8 @@ def rt_scene_from_numpy(arrays: Dict[str, np.ndarray], device) -> RTScene:
         tri_mat=t("tri_mat", torch.int32), tri_tex=t("tri_tex", torch.int32),
         tri_obj=t("tri_obj", torch.int32), tri_valid=t("tri_valid", torch.bool),
         tri_table=t("tri_table", f32), n_tri=int(arrays["n_tri"]),
+        chunk_lo=t("chunk_lo", f32), chunk_hi=t("chunk_hi", f32),
+        cull_chunk=_cull_granule(np.asarray(arrays["v0"]).shape[0]),
         sph_c=t("sph_c", f32), sph_r=t("sph_r", f32),
         sph_mat=t("sph_mat", torch.int32), sph_obj=t("sph_obj", torch.int32),
         sph_valid=t("sph_valid", torch.bool),
@@ -389,24 +436,74 @@ def _rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return table[idx]
 
 
-def _trace_tris(scene: RTScene, orig, d):
+def _trace_tris(scene: RTScene, orig, d, backend: Optional[str] = None):
     """Winner search over triangles: (tri_hit (N,) bool, idx (N,) i64 with
-    -1 on a miss, t (N,) f32 with BIG on a miss), from the trace kernel
-    (CUDA tensors) or its plain version (CPU tensors). The returned t is
-    the kernel's own; callers that need the oracle's t recompute it for
-    the winner with `_mt_uv`."""
-    from software_rasterizer_tpu_torch.ops.trace_kernel import trace_nearest_vpu
+    -1 on a miss, t (N,) f32 with BIG on a miss), from the tier
+    `_trace_backend` picks for the scene's table or the one `backend`
+    names ("vpu", "mm2c", "mm2", "mm2s"): its kernel on CUDA tensors, its
+    plain version on CPU tensors. Every tier gives the same three tensors
+    bit for bit. The returned t is the kernel's own; callers that need the
+    oracle's t recompute it for the winner with `_mt_uv`."""
+    backend = backend or _trace_backend(scene.v0.shape[0])
+    if backend == "vpu":
+        return trace_kernel.trace_nearest_vpu(scene.tri_table, scene.n_tri,
+                                              orig, d)
+    tiers = {"mm2c": trace_tiers.trace_nearest_mm2c,
+             "mm2": trace_tiers.trace_nearest_mm2,
+             "mm2s": trace_tiers.trace_nearest_mm2_stream}
+    if backend not in tiers:
+        raise ValueError(f"unknown trace backend {backend!r}; expected one of "
+                         f"{TRACE_BACKENDS}")
+    return tiers[backend](scene.tri_table, scene.chunk_lo, scene.chunk_hi,
+                          orig, d, chunk=scene.cull_chunk)
 
-    return trace_nearest_vpu(scene.tri_table, scene.n_tri, orig, d)
+
+# (ray, triangle) tests of one plane of `_intersect_tri_raw`
+_RAW_PLANE = 1 << 22
 
 
-def intersect_triangles(orig, d, v0, v1, v2, valid):
-    """Nearest triangle per ray. Returns (t, idx, u, v) each (N,);
-    idx = -1 / t = BIG on a miss."""
-    from software_rasterizer_tpu_torch.ops.trace_kernel import trace_nearest_vpu
+def _intersect_tri_raw(orig, d, v0, v1, v2, valid, chunk: int = 512,
+                       cull_chunks: bool = True):
+    """Winner search in plain tensor code (the JAX package's XLA sweep):
+    (hit (N,) bool, idx (N,) i64 with -1 on a miss, t (N,) f32 with BIG on
+    a miss). Triangles in chunks of `chunk`; with `cull_chunks` a chunk
+    whose box no ray enters (`ops/bvh.slab_test`) is skipped, which is
+    exact because the test is conservative. The rays are taken in slices
+    that keep a (rays, chunk) plane to `_RAW_PLANE` elements; a slice
+    culls for itself, so the slicing changes no result."""
+    f, n, dev = v0.shape[0], orig.shape[0], orig.device
+    chunk = max(1, min(chunk, f))
+    n_chunks = -(-f // chunk)
+    cull = cull_chunks and n_chunks > 1
+    if cull:
+        chunk_lo, chunk_hi = trace_tiers.chunk_bounds(v0, v1, v2, valid, chunk)
+    table = mt_tri_table(v0, v1, v2, valid)     # an invalid row is zero: det = 0
+    bt = torch.full((n,), BIG, dtype=torch.float32, device=dev)
+    bi = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    step = max(1, _RAW_PLANE // chunk)
+    for r0 in range(0, n, step):
+        o_, d_ = orig[r0:r0 + step], d[r0:r0 + step]
+        st, si = bt[r0:r0 + step], bi[r0:r0 + step]      # views: updated in place
+        for ci in range(n_chunks):
+            s = ci * chunk
+            if cull and not bool(slab_test(o_, d_, chunk_lo[ci:ci + 1],
+                                           chunk_hi[ci:ci + 1]).any()):
+                continue
+            ct, ca = trace_kernel.plane_winner(
+                trace_kernel.mt_plane(o_, d_, table[s:s + chunk]))
+            better = ct < st
+            si.copy_(torch.where(better, ca + s, si))
+            st.copy_(torch.where(better, ct, st))
+    hit = bt < BIG
+    return hit, torch.where(hit, bi, -1), bt
 
-    hit, i, _ = trace_nearest_vpu(mt_tri_table(v0, v1, v2, valid),
-                                  loop_bound(valid.cpu().numpy()), orig, d)
+
+def intersect_triangles(orig, d, v0, v1, v2, valid, chunk: int = 512,
+                        cull_chunks: bool = True):
+    """Nearest triangle per ray by the chunked sweep `_intersect_tri_raw`.
+    Returns (t, idx, u, v) each (N,); idx = -1 / t = BIG on a miss."""
+    hit, i, _ = _intersect_tri_raw(orig, d, v0, v1, v2, valid, chunk,
+                                   cull_chunks)
     c = torch.clamp(i, min=0)
     u, v, t = _mt_uv(orig, d, _rows(v0, c), _rows(v1, c), _rows(v2, c))
     return torch.where(hit, t, BIG), i, u, v
@@ -442,12 +539,14 @@ def intersect_spheres(orig, d, centers, radii, valid, t_min: float = 0.0):
     return bt, torch.where(bt < BIG, first, -1)
 
 
-def nearest_emit_hit(scene: RTScene, orig, d) -> ShadowHit:
+def nearest_emit_hit(scene: RTScene, orig, d,
+                     backend: Optional[str] = None) -> ShadowHit:
     """Nearest hit with the minimal epilogue: the winner's exact t
     (`_mt_uv`) and its emission from `prim_shadow` ([v0|v1|v2|emit]
-    rows). Shadow rays need no normals, uv, materials or textures."""
+    rows). Shadow rays need no normals, uv, materials or textures.
+    `backend`: see `_trace_tris`."""
     f_pad = scene.v0.shape[0]
-    tri_hit, ti, _ = _trace_tris(scene, orig, d)
+    tri_hit, ti, _ = _trace_tris(scene, orig, d, backend)
     a = _rows(scene.prim_shadow[:f_pad], torch.clamp(ti, min=0))
     _, _, t_tri = _mt_uv(orig, d, a[:, 0:3], a[:, 3:6], a[:, 6:9])
     tt = torch.where(tri_hit, t_tri, BIG)
@@ -520,7 +619,8 @@ def _surface(scene: RTScene, orig, d, hit, use_s, tidx, sidx, st, lite: bool,
 
 
 def nearest_hit(scene: RTScene, orig, d, sphere_t_min: float = 0.0,
-                lite: bool = False, defer_color: bool = False) -> Hit:
+                lite: bool = False, defer_color: bool = False,
+                backend: Optional[str] = None) -> Hit:
     """Scene::traceScene (Scene.cpp:349-396): nearest over all primitives,
     then the surface properties of the winner (barycentric normal/uv and
     diffuse colour for triangles, analytic normal and zero colour for
@@ -528,24 +628,27 @@ def nearest_hit(scene: RTScene, orig, d, sphere_t_min: float = 0.0,
 
     `lite=True` skips the uv and colour path: visibility rays need only
     (hit, t, coords, normal, emit). `defer_color=True` skips only the
-    texel fetch (color = Kd) and returns the winner's (tex, tuv)."""
-    tri_hit, ti, _ = _trace_tris(scene, orig, d)
+    texel fetch (color = Kd) and returns the winner's (tex, tuv).
+    `backend` names the triangle search ("vpu", "mm2c", "mm2", "mm2s")
+    in place of the one the triangle count picks; the result is the same."""
+    tri_hit, ti, _ = _trace_tris(scene, orig, d, backend)
     st, si = intersect_spheres(orig, d, scene.sph_c, scene.sph_r,
                                scene.sph_valid, sphere_t_min)
     return _surface(scene, orig, d, tri_hit, None, torch.clamp(ti, min=0),
                     torch.clamp(si, min=0), st, lite, defer_color, True)
 
 
-def classify_hit(scene: RTScene, orig, d) -> LiteHit:
+def classify_hit(scene: RTScene, orig, d,
+                 backend: Optional[str] = None) -> LiteHit:
     """Nearest-winner search and material class WITHOUT surface
     attributes. The triangle-against-sphere pick compares the trace
     kernel's triangle t with the exact sphere t, where `nearest_hit`
     compares the `_mt_uv` recompute; the two t agree to rounding, so only
     a triangle and a sphere that coincide within an ulp can pick the other
     primitive, and the values stay exact (`surface_attrs` recomputes
-    them)."""
+    them). `backend`: see `_trace_tris`."""
     f_pad = scene.v0.shape[0]
-    tri_hit, ti, tk = _trace_tris(scene, orig, d)
+    tri_hit, ti, tk = _trace_tris(scene, orig, d, backend)
     tt = torch.where(tri_hit, tk, BIG)
     st, si = intersect_spheres(orig, d, scene.sph_c, scene.sph_r,
                                scene.sph_valid, 0.0)

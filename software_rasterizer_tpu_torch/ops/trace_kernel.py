@@ -14,9 +14,10 @@ rejected by det = 0; NaN comparisons are false, so a NaN ray misses.
     vectorized over rays, looping over triangles, in the kernel's
     operation order.
 
-The JAX package takes this kernel for scenes of up to 1024 triangles and
-MXU tiers above; the port takes it for every triangle count (the loop
-runs n_tri times) until those tiers are ported.
+`nearest_hit` takes this kernel for scenes of up to 1024 triangles and
+the chunk-culled tiers of `ops/trace_tiers.py` above; the kernel itself
+takes any triangle count (the loop runs n_tri times) and is what those
+tiers are held against.
 """
 
 from __future__ import annotations
@@ -153,3 +154,37 @@ def trace_nearest_vpu_plain(tri_table: torch.Tensor, n_tri: int,
         best_f = torch.where(better, f, best_f)
     hit = best_t < BIG
     return hit, torch.where(hit, best_f, -1), best_t
+
+
+def mt_plane(orig: torch.Tensor, d: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """(N, C) t of the rays `orig`, `d` (N,3) against the table rows
+    `rows` (C,12), BIG where rejected: the test of
+    `trace_nearest_vpu_plain`, expression for expression, on whole planes.
+    What the chunked plain sweeps share."""
+    ox, oy, oz = orig[:, 0:1], orig[:, 1:2], orig[:, 2:3]
+    dx, dy, dz = d[:, 0:1], d[:, 1:2], d[:, 2:3]
+    v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = (rows[None, :, k] for k in range(9))
+    px = dy * e2z - dz * e2y
+    py = dz * e2x - dx * e2z
+    pz = dx * e2y - dy * e2x
+    det = e1x * px + e1y * py + e1z * pz
+    inv = 1.0 / torch.where(det.abs() < 1e-6, 1.0, det)
+    tx, ty, tz = ox - v0x, oy - v0y, oz - v0z
+    u = (tx * px + ty * py + tz * pz) * inv
+    qx = ty * e1z - tz * e1y
+    qy = tz * e1x - tx * e1z
+    qz = tx * e1y - ty * e1x
+    v = (dx * qx + dy * qy + dz * qz) * inv
+    t = (e2x * qx + e2y * qy + e2z * qz) * inv
+    ok = ((det.abs() >= 1e-6) & (u >= 0.0) & (u <= 1.0) & (v >= 0.0)
+          & (u + v <= 1.0) & (t >= 1e-6))
+    return torch.where(ok, t, BIG)
+
+
+def plane_winner(tm: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Of an (N, C) plane of t: each ray's smallest t (N,) and the lowest
+    column that holds it (N,) int64."""
+    ct = tm.amin(dim=1)
+    cols = torch.arange(tm.shape[1], device=tm.device)[None]
+    never = torch.iinfo(torch.int64).max
+    return ct, torch.where(tm == ct[:, None], cols, never).amin(dim=1)

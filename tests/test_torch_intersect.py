@@ -22,6 +22,15 @@ corner edges fall on the image diagonals: at 32x32 about 0.9% of the
 camera rays meet an edge shared by two triangles), and every other ray
 is a proven knife edge (`torch_scenes.mt_knife_edge_rays`) or has a
 sphere among its two winners at t within 1e-5 relative.
+
+The trace tiers (`_trace_backend`, `backend=`): on the Cornell box
+tessellated by `torch_scenes.stress_cornell`, every `backend` gives the
+same record in all fields bit for bit (the tiers run the same
+Moller-Trumbore expressions under a conservative cull; a ray proven to
+meet its winner's chunk box on a knife edge,
+`torch_scenes.slab_knife_edge_rays`, would be excused, and none is
+needed at these sizes), and at 147,456 triangles the culled tiers and the
+BVH traversal equal the unculled sweep.
 """
 
 import functools
@@ -37,13 +46,21 @@ from software_rasterizer_tpu.ops import intersect as ji
 from software_rasterizer_tpu.ops.camera import camera_rays as jcamera_rays
 from software_rasterizer_tpu.ops.shading import ShaderType
 from software_rasterizer_tpu.scenes import build_cornell_scene as jcornell
+from software_rasterizer_tpu.scenes.stress import subdivide_mesh as jsubdivide
 from software_rasterizer_tpu.utils.texture import Texture
 from software_rasterizer_tpu_torch.ops import intersect as ti
 from software_rasterizer_tpu_torch.ops import trace_kernel as tk
+from software_rasterizer_tpu_torch.ops import bvh as tbvh
+from software_rasterizer_tpu_torch.ops import trace_tiers as tt
+from software_rasterizer_tpu_torch.ops.camera import camera_rays as tcamera_rays
+from software_rasterizer_tpu_torch.scenes import build_cornell_scene as tcornell
+from software_rasterizer_tpu_torch.scenes.stress import subdivide_mesh as tsubdivide
 from torch_scenes import (
     mirror_glass_cornell,
     mt_knife_edge_rays,
+    slab_knife_edge_rays,
     spheres,
+    stress_cornell,
     textured_cornell,
 )
 
@@ -262,3 +279,153 @@ def test_rt_scene_carries_the_new_fields():
         g = getattr(got, f).numpy()
         assert g.shape == want[f].shape and g.dtype == np.float32, f
         np.testing.assert_allclose(g, want[f], rtol=1e-5, atol=1e-6, err_msg=f)
+
+
+# ------------------------------------------------------- the trace tiers
+
+
+@pytest.mark.parametrize("f_pad,want", [
+    (128, "vpu"), (1024, "vpu"), (1025, "mm2c"), (9216, "mm2c"), (16384, "mm2c"),
+    (16385, "mm2s"), (147456, "mm2s"), (4_000_000, "mm2s")])
+def test_trace_backend_by_triangle_count(f_pad, want, monkeypatch):
+    monkeypatch.setenv("SRT_MM_TRACE", "1")      # read by the JAX package only
+    assert ti._trace_backend(f_pad) == want
+    assert ti._cull_granule(f_pad) == (128 if f_pad <= 16384 else 256)
+    assert want in ti.TRACE_BACKENDS
+
+
+@functools.lru_cache(maxsize=None)
+def _stress(levels, w=24):
+    """(port scene on the CPU, camera rays, bounce rays) of the tessellated
+    Cornell box at `levels`."""
+    scene = stress_cornell(tcornell, tsubdivide, levels)
+    scene.set_ndc_matrix(w, w)
+    rt = ti.prepare_rt_scene(scene.rt_geometry(), scene.rt_frame(), "cpu")
+    o, d = (x.contiguous() for x in tcamera_rays(rt.eye.numpy(), scene.fovy, w, w, "cpu"))
+    h = ti.nearest_hit(rt, o, d, backend="mm2")
+    g = np.random.default_rng(3)
+    bd = g.normal(size=(int(h.hit.sum()), 3)).astype(np.float32)
+    bd /= np.linalg.norm(bd, axis=1, keepdims=True)
+    bo = (h.coords + 1e-4 * h.normal)[h.hit].contiguous()
+    return rt, (o, d), (bo, torch.from_numpy(bd))
+
+
+def _excused(rt, o, d, ref_idx):
+    return torch.from_numpy(slab_knife_edge_rays(
+        rt.chunk_lo.numpy(), rt.chunk_hi.numpy(), rt.cull_chunk, o.numpy(),
+        d.numpy(), ref_idx.numpy()))
+
+
+@pytest.mark.parametrize("kind", ["camera", "bounce"])
+@pytest.mark.parametrize("levels,default", [(2, "vpu"), (3, "mm2c")])
+def test_every_backend_gives_the_same_hit(levels, default, kind):
+    rt, cam, bounce = _stress(levels)
+    o, d = cam if kind == "camera" else bounce
+    assert rt.n_tri == 36 * 4 ** levels
+    assert ti._trace_backend(rt.v0.shape[0]) == default
+    assert rt.chunk_lo.shape == (-(-rt.v0.shape[0] // 128), 3) and rt.cull_chunk == 128
+    ref = ti.nearest_hit(rt, o, d, backend="vpu")
+    assert ref.hit.float().mean() > 0.5
+    skip = _excused(rt, o, d, torch.where(ref.hit & ~ref.is_sphere, ref.prim, -1))
+    for backend in (None, "mm2c", "mm2", "mm2s"):
+        got = ti.nearest_hit(rt, o, d, backend=backend)
+        assert len(got) == 17
+        for f, a, b in zip(got._fields, got, ref):
+            same = (a == b) | ((a != a) & (b != b)) if a.is_floating_point() else a == b
+            same = same.reshape(same.shape[0], -1).all(dim=1)
+            assert bool((same | skip).all()), (backend, f, int((~same).sum()))
+        e = ti.nearest_emit_hit(rt, o, d, backend=backend)
+        assert torch.equal(e.t, got.t) and torch.equal(e.hit, got.hit)
+        lh = ti.classify_hit(rt, o, d, backend=backend)
+        assert torch.equal(lh.hit, got.hit)
+        assert torch.equal(lh.tri[got.hit], got.prim[got.hit])
+    with pytest.raises(ValueError, match="unknown trace backend"):
+        ti.nearest_hit(rt, o, d, backend="mm")
+
+
+def test_stress_scene_chunk_tables_match_jax():
+    """`chunk_lo/hi` of the port's `prepare_rt_scene` against the JAX
+    package's on the tessellated box (2,304 triangles, 18 chunks), and
+    carried over by `rt_scene_from_numpy` unchanged."""
+    scene = stress_cornell(jcornell, jsubdivide, 3)
+    scene.set_ndc_matrix(24, 24)
+    jrt = ji.prepare_rt_scene(scene.rt_geometry(), scene.rt_frame())
+    arrays = {k: np.asarray(v) for k, v in jrt._asdict().items()}
+    carried = ti.rt_scene_from_numpy(arrays, "cpu")
+    assert np.array_equal(carried.chunk_lo.numpy(), arrays["chunk_lo"])
+    assert np.array_equal(carried.chunk_hi.numpy(), arrays["chunk_hi"])
+    assert carried.cull_chunk == ji._cull_granule(arrays["v0"].shape[0]) == 128
+    rt = _stress(3)[0]
+    assert rt.chunk_lo.shape == arrays["chunk_lo"].shape == (18, 3)
+    np.testing.assert_allclose(rt.chunk_lo.numpy(), arrays["chunk_lo"],
+                               rtol=1e-6, atol=1e-7)
+    np.testing.assert_allclose(rt.chunk_hi.numpy(), arrays["chunk_hi"],
+                               rtol=1e-6, atol=1e-7)
+    assert np.array_equal(rt.tri_valid.numpy(), arrays["tri_valid"])
+
+
+@pytest.mark.parametrize("cull_chunks", [True, False])
+def test_intersect_tri_raw_matches_jax(cull_chunks):
+    """The plain chunked sweep against the JAX package's, with and without
+    the per-chunk box skip, at a chunk of 64 on 2,304 triangles."""
+    rt, (o, d), _ = _stress(3)
+    hit, idx, t = ti._intersect_tri_raw(o, d, rt.v0, rt.v1, rt.v2, rt.tri_valid,
+                                        chunk=64, cull_chunks=cull_chunks)
+    j = [jnp.asarray(x.numpy()) for x in (o, d, rt.v0, rt.v1, rt.v2, rt.tri_valid)]
+    w_hit, w_idx, w_t = (np.asarray(x) for x in ji._intersect_tri_raw(
+        *j, 64, cull_chunks=cull_chunks))
+    same = idx.numpy() == w_idx
+    # the tessellation's edges lie on a regular grid, and so do the pixel
+    # centres: 1-2% of the camera rays meet an edge shared by two triangles
+    assert same.mean() >= 0.97
+    assert mt_knife_edge_rays(rt.tri_table.numpy(), o.numpy(), d.numpy(),
+                              idx.numpy(), w_idx)[~same].all()
+    assert np.array_equal(hit.numpy()[same], w_hit[same])
+    np.testing.assert_allclose(t.numpy()[same], w_t[same], rtol=RTOL, atol=1e-6)
+    # and the port's own kernel #2 (plain), bit for bit
+    ref = tk.trace_nearest_vpu_plain(rt.tri_table, rt.n_tri, o, d)
+    assert torch.equal(idx, ref[1]) and torch.equal(t, ref[2])
+    t4, i4, u4, v4 = ti.intersect_triangles(o, d, rt.v0, rt.v1, rt.v2, rt.tri_valid,
+                                            chunk=64, cull_chunks=cull_chunks)
+    assert torch.equal(i4, idx) and ((u4 >= 0) & (v4 >= 0))[hit].all()
+
+
+def test_culled_tiers_and_bvh_match_the_unculled_sweep_at_100k():
+    """At 147,456 triangles (the Cornell box tessellated six times, made
+    from the meshes in the repository): the culled plain tiers, the plain
+    chunked sweep with its box skip, and the per-ray BVH traversal all
+    return the unculled sweep's winners on 256 camera rays."""
+    rt, (o, d), _ = _stress(6, w=16)
+    assert rt.n_tri == 147456 >= 100_000 and bool(rt.tri_valid.all())
+    assert ti._trace_backend(rt.v0.shape[0]) == "mm2s" and rt.cull_chunk == 256
+    assert rt.chunk_lo.shape == (576, 3)
+    a = (rt.tri_table, rt.chunk_lo, rt.chunk_hi, o, d)
+    brute = tt.trace_nearest_mm2(*a, chunk=256, cull=False)       # every chunk
+    assert 0.5 < brute[0].float().mean() < 1.0
+    skip = _excused(rt, o, d, brute[1])
+    mask = tt.cull_prepass(rt.chunk_lo, rt.chunk_hi, o, d)
+    assert mask.float().mean() < 0.6                              # the cull is real
+    for got in (tt.trace_nearest_mm2_stream(*a, chunk=256),
+                tt.trace_nearest_mm2(*a, chunk=256),
+                tt.trace_nearest_mm2c(*a, chunk=256),
+                ti._trace_tris(rt, o, d),
+                ti._intersect_tri_raw(o, d, rt.v0, rt.v1, rt.v2, rt.tri_valid,
+                                      chunk=512, cull_chunks=True)):
+        for x, y in zip(got, brute):
+            assert bool(((x == y) | skip).all())
+    # the per-ray traversal over a tree of the same triangles
+    v = [x.numpy() for x in (rt.v0, rt.v1, rt.v2)]
+    lo, hi = tbvh.primitive_bounds(*v)
+    tree = tbvh.build_bvh(lo, hi, tbvh.triangle_areas(*v)).to("cpu")
+    t, p = tbvh.bvh_nearest_hit(tree, rt.v0, rt.v1, rt.v2, o, d)
+    # the traversal meets the triangles in tree order and sums its dot
+    # products in another order than the sweep: a ray through an edge
+    # shared by two triangles (the tessellation's grid under the pixel
+    # grid) may take the other one. Every such ray is proven a tie or a
+    # knife edge; the rest is equal
+    same = (p == brute[1]).numpy()
+    assert same.mean() >= 0.95, int((~same).sum())
+    assert mt_knife_edge_rays(rt.tri_table.numpy(), o.numpy(), d.numpy(), p.numpy(),
+                              brute[1].numpy())[~same].all()
+    assert np.array_equal((p >= 0).numpy()[same], brute[0].numpy()[same])
+    np.testing.assert_allclose(t.numpy()[same], brute[2].numpy()[same], rtol=1e-5)

@@ -61,6 +61,17 @@ def two_emitter_cornell(models, build_cornell):
     return scene
 
 
+def stress_cornell(build_cornell, subdivide, levels):
+    """The Cornell box with every mesh tessellated by `subdivide(data,
+    levels)`: 36 x 4^levels triangles on the surfaces of the box (levels=4:
+    9,216; levels=6: 147,456), the default framing, the light kept. A
+    large scene made from the meshes the repository holds."""
+    scene = build_cornell()
+    for _, obj in scene.meshes():
+        obj.data = subdivide(obj.data, levels)
+    return scene
+
+
 def edge_tie_pixels(arrays, dirs, rel=1e-6):
     """(N,) bool: the camera rays (from arrays["eye"] along `dirs` (N,3))
     that meet the shared edge of two triangles, found in float64: two
@@ -132,6 +143,35 @@ def mt_knife_edge_rays(tri_table, orig, dirs, idx_a, idx_b, tol=1e-5):
     tie = ((ia >= 0) & (ib >= 0)
            & (np.abs(ta - tb) <= tol * np.maximum(np.abs(ta), np.abs(tb))))
     return (ia != ib) & (tie | edge_a | edge_b)
+
+
+def slab_knife_edge_rays(chunk_lo, chunk_hi, chunk, orig, dirs, idx, tol=1e-5):
+    """(N,) bool: the rays whose winning triangle `idx` (-1: a miss) lies
+    in a chunk whose box (`chunk_lo/hi` (nc,3), `chunk` rows a chunk) the
+    ray meets on a knife edge, found in float64: the exit of one axis'
+    slab lies within `tol` (relative to the exit distance, absolute below
+    1) of the entry of another axis' slab, or of t = 0. The hit point
+    then lies on the box's rim (a triangle edge that is also a face of the
+    box), and the last bit of float32 rounding decides whether a chunk
+    cull visits the chunk, while an unculled sweep tests the triangle in
+    any case. (The two slabs of one axis are left out: a flat box has
+    them equal bit for bit, which no rounding flips.)"""
+    import numpy as np
+
+    lo = np.asarray(chunk_lo, np.float64)
+    hi = np.asarray(chunk_hi, np.float64)
+    o = np.asarray(orig, np.float64)
+    d = np.asarray(dirs, np.float64)
+    idx = np.asarray(idx)
+    c = np.maximum(idx, 0) // chunk
+    inv = 1.0 / np.where(d == 0.0, 1e-30, d)
+    t0, t1 = (lo[c] - o) * inv, (hi[c] - o) * inv
+    near = np.concatenate([np.minimum(t0, t1), np.zeros((o.shape[0], 1))], axis=1)
+    far = np.maximum(t0, t1)
+    gap = np.abs(far[:, :, None] - near[:, None, :])        # (N,3,4)
+    gap[:, np.arange(3), np.arange(3)] = np.inf
+    scale = np.maximum(np.abs(far.min(axis=1)), 1.0)
+    return (idx >= 0) & (gap.min(axis=(1, 2)) <= tol * scale)
 
 
 RASTER_CORNELL_SCALE = (-0.25, 0.25, 0.25)
