@@ -76,12 +76,15 @@ Phases, one line each; any failure exits non-zero:
      against kernel #2 and its plain version on 1M camera rays at 36 and
      9,216 triangles and three ray-block sizes; nearest_hit(backend="mm")
      by launch count, every field equal to backend="vpu"; times, bound;
- 26. large-scene path tracing, the camera kernel: the culled walk against
+ 26. large-scene path tracing, the camera kernel: the culled walk (the
+     warp walk: each (ray, chunk) pair tested by the whole warp) against
      the full sweep lane for lane at 1 spp (the whole frame at 9,216
      triangles, 65,536 lanes at 147,456), both against their plain
-     versions on 4,096 lanes, the walk's tally against the plain
-     version's counts; the 16-spp frame's times and its bound from the
-     tally;
+     versions on 4,096 lanes, the walk's tally of row tests, slab tests and
+     row-test slots against the plain version's counts and the warp walk's
+     model; the walk's SIMT efficiency (row tests / slots) beside the
+     per-thread walk's (the model's count of that schedule); the 16-spp
+     frame's times and its bound from the tally;
  27. the same for the bounce kernel (16 bounces), and path_trace's routes
      (fused=None: the culled bounce kernel; fused=False: the plain
      wavefront over the trace tiers) and the camera kernel against one
@@ -96,8 +99,9 @@ Phases, one line each; any failure exits non-zero:
 
 The last lines are a JSON line of per-kernel results (time beside the
 card's bound for the same work; the Whitted kernel's `launches` is phase
-8's main path and `launches_two_emitters` phase 19's; the bounce and
-Whitted kernels' culled instances under "culled"), the card's
+8's main path and `launches_two_emitters` phase 19's, its culled instance
+under "culled"; the culled camera and bounce kernels with their SIMT
+efficiency), the card's
 `nvidia-smi` name and power limit, and `{"ok": true, "device": ...}`.
 Images go to chiprun_out/ under the repository root.
 """
@@ -438,7 +442,6 @@ def main() -> int:
     whitted["launches_two_emitters"] = picks["launches"]
     whitted["max_abs_err"] = max(whitted["max_abs_err"], picks["max_abs_err"])
     whitted["culled"] = culled["whitted"]
-    wavefront[1]["culled"] = culled["bounce"]
 
     print(json.dumps({"kernels": [{
         "name": "path_camera",
@@ -1638,10 +1641,11 @@ def large_scene_phases(dev, card: str):
 
 def culled_phases(dev, card: str, scenes: dict) -> dict:
     """Phases 25-29: kernel #8 (the unculled chunked sweep) and large-scene
-    path tracing and Whitted through the per-ray chunk walk of the camera,
-    bounce and Whitted kernels, on phase 20's `scenes`. Returns the JSON
-    entries of kernel #8 and of the culled camera kernel, and the culled
-    numbers of the bounce and Whitted kernels."""
+    path tracing and Whitted through the chunk-culled walks of the camera
+    and bounce kernels (the warp walk) and of the Whitted kernel (the
+    per-ray walk), on phase 20's `scenes`. Returns the JSON
+    entries of kernel #8 and of the culled camera and bounce kernels, and
+    the culled numbers of the Whitted kernel."""
     import numpy as np
     import torch
 
@@ -1681,8 +1685,19 @@ def culled_phases(dev, card: str, scenes: dict) -> dict:
     def tests_bound(table_bytes, tally):
         """Bound from a kernel's tally: ~58 float32 operations a (ray, row)
         test, ~21 a slab test."""
-        rows, slabs = (int(x) for x in tally.tolist())
+        rows, slabs = (int(x) for x in tally[:2].tolist())
         return bound(table_bytes, 58.0 * rows + 21.0 * slabs), rows, slabs
+
+    def walk_check(what, tally, st):
+        """A culled path kernel's (3,) tally on the plain lanes against the
+        plain version's counts: the (ray, row) and slab tests, and the
+        row-test slots against the warp walk's model (trace_tiers.warp_slots);
+        returns (the walk's SIMT efficiency, the per-thread walk's)."""
+        walk = tuple(int(x) for x in tally.tolist())
+        want = (st["row_tests"], st["slab_tests"], st["slots"])
+        if walk != want:
+            fail(f"{what}: tally (row tests, slab tests, slots) {walk}, plain {want}")
+        return walk[0] / walk[2], st["row_tests"] / st["slots_thread"]
 
     def window(name):
         """The lane range of a kernel against kernel comparison: the whole
@@ -1762,7 +1777,9 @@ def culled_phases(dev, card: str, scenes: dict) -> dict:
             r = torch.nonzero((a != b).any(dim=0)).flatten()
             print(f"[phase 26] {name}: lanes {(r[:8] + off).tolist()} differ", flush=True)
             fail(f"culled camera kernel on {name}: {n_off}/{nl} lanes differ from the full sweep")
-        plain, bad = {}, {}
+        # (the walk's SIMT efficiency, the per-thread walk's) on the plain
+        # lanes; not read where a lane differs from plain (its counts differ)
+        plain, bad, eff = {}, {}, (float("nan"), float("nan"))
         for cull in (True, False):
             k = pk.path_camera_render(*args, 1, lane_offset=plain_off,
                                       n_lanes=PLAIN_PATH_LANES, cull=cull, **kw)
@@ -1777,7 +1794,7 @@ def culled_phases(dev, card: str, scenes: dict) -> dict:
                 fail(f"camera kernel (cull={cull}) on {name} disagrees with plain on "
                      f"{bad[cull]}/{PLAIN_PATH_LANES} lanes")
             if cull:
-                tally = torch.zeros(2, dtype=torch.int64, device=dev)
+                tally = torch.zeros(3, dtype=torch.int64, device=dev)
                 attr_t, sph_t, n_sph = pk.pack_scene_tables(rt)
                 pk.launch_path_camera(
                     rt.tri_table.float().contiguous(), attr_t, sph_t,
@@ -1788,12 +1805,10 @@ def culled_phases(dev, card: str, scenes: dict) -> dict:
                     n_lanes=PLAIN_PATH_LANES, width=WIDTH, height=HEIGHT,
                     cull_tables=pk.pack_cull_tables(rt), tally=tally, **kw)
                 torch.cuda.synchronize()
-                walk = (int(tally[0]), int(tally[1]))
-                if bad[cull] == 0 and walk != (st["row_tests"], st["slab_tests"]):
-                    fail(f"camera kernel walk on {name}: tally {walk}, plain "
-                         f"({st['row_tests']}, {st['slab_tests']})")
+                if bad[cull] == 0:
+                    eff = walk_check(f"camera kernel walk on {name}", tally, st)
         # the frame at SPP: the kernel whole and bare, and its tally
-        reps = 3 if name == "mid" else 2
+        reps = 5 if name == "mid" else 3
         attr_t, sph_t, n_sph = pk.pack_scene_tables(rt)
         ct = pk.pack_cull_tables(rt)
         ops = (rt.tri_table.float().contiguous(), attr_t, sph_t,
@@ -1806,23 +1821,29 @@ def culled_phases(dev, card: str, scenes: dict) -> dict:
         frame = pk.path_camera_render(*args, SPP, **kw)
         t_k = cuda_times(lambda: pk.path_camera_render(*args, SPP, **kw), reps)
         t_b = cuda_times(lambda: pk.launch_path_camera(*ops, **launch_kw), reps)
-        tally = torch.zeros(2, dtype=torch.int64, device=dev)
+        tally = torch.zeros(3, dtype=torch.int64, device=dev)
         pk.launch_path_camera(*ops, tally=tally, **launch_kw)
         torch.cuda.synchronize()
         (b_c, by_c), rows, slabs = tests_bound(
             tensor_bytes(*ops[:4], ct.lo, ct.hi, ct.lo2, ct.hi2, frame), tally)
+        simt = rows / int(tally[2])
         cam[name] = dict(frame=frame, t=t_k, bare=t_b, bound=(b_c, by_c), plain=plain,
-                         full_mpaths=nl / full_ms / 1e3, full_ms=full_ms)
+                         full_mpaths=nl / full_ms / 1e3, full_ms=full_ms, simt=simt,
+                         simt_thread=eff[1])
         lines.append(
             f"{name} ({rt.n_tri} triangles): culled == full sweep on all {nl} lanes of "
             f"[{off}, {off + nl}) at 1 spp (full sweep {full_ms:.0f} ms wall = "
             f"{nl / full_ms / 1e3:.3f} Mpaths/s); vs plain on {PLAIN_PATH_LANES} lanes at 1 spp: "
             f"culled {bad[True]}, full {bad[False]} lanes differ (plain {plain[True]:.0f} / "
-            f"{plain[False]:.0f} ms), walk tally = plain counts; {SPP} spp whole frame: "
-            f"kernel {spread(t_k)} ms = {n * SPP / med(t_k) / 1e3:.2f} Mpaths/s, bare "
-            f"{spread(t_b)}; {rows:.4g} row tests, {slabs:.4g} slab tests = "
+            f"{plain[False]:.0f} ms), walk tally (row tests, slab tests, slots) = plain counts "
+            f"and the warp walk's model; SIMT efficiency of the walk (row tests / slots) "
+            f"{eff[0]:.4f} there against {eff[1]:.4f} for the per-thread walk "
+            f"(trace_tiers.warp_slots' model of its schedule on the same lanes); {SPP} spp "
+            f"whole frame: kernel {spread(t_k)} ms = {n * SPP / med(t_k) / 1e3:.2f} Mpaths/s, "
+            f"bare {spread(t_b)}; {rows:.4g} row tests, {slabs:.4g} slab tests = "
             f"{rows / (2.0 * n * SPP):.0f} rows a lane-sample and ray of the "
-            f"{rt.tri_table.shape[0]}; bound {b_c:.4f} ms by {by_c}")
+            f"{rt.tri_table.shape[0]}, {int(tally[2]):.4g} slots (efficiency {simt:.4f}); "
+            f"bound {b_c:.4f} ms by {by_c} ({med(t_k) / b_c:.1f}x)")
     phase(26, f"camera kernel, culled walk vs full sweep, {MAX_BOUNCES} bounces, on {card}: "
               + "; ".join(lines) + f"; max_abs_err vs plain {cam_err:.3g}")
 
@@ -1847,7 +1868,7 @@ def culled_phases(dev, card: str, scenes: dict) -> dict:
                         for x, y in zip(a, b)).gt(0).sum())
         if n_off:
             fail(f"culled bounce kernel on {name}: {n_off}/{nl} lanes differ from the full sweep")
-        bad, plain = {}, {}
+        bad, plain, eff = {}, {}, (float("nan"), float("nan"))
         for cull in (True, False):
             ps, pl = part(plain_off, PLAIN_PATH_LANES)
             ka, _, kl = pk.fused_bounce_group(rt, ps, pl, seed, MAX_BOUNCES, cull=cull, **rr)
@@ -1861,6 +1882,15 @@ def culled_phases(dev, card: str, scenes: dict) -> dict:
             if bad[cull] > (1.0 - LANE_SHARE) * PLAIN_PATH_LANES + 1:
                 fail(f"bounce kernel (cull={cull}) on {name} disagrees with plain on "
                      f"{bad[cull]}/{PLAIN_PATH_LANES} lanes")
+            if cull and bad[cull] == 0:
+                tally = torch.zeros(3, dtype=torch.int64, device=dev)
+                pk.launch_path_bounce(
+                    rt.tri_table.float().contiguous(), *pk.pack_scene_tables(rt)[:2],
+                    rt.emitter_cr.float().contiguous(), ps, pl, n_tri=rt.n_tri,
+                    n_sph=rt.n_sph, n_emitters=rt.n_emitters, seed=seed, n_bounces=MAX_BOUNCES,
+                    p_rr=kw["p_rr"], cull_tables=pk.pack_cull_tables(rt), tally=tally)
+                torch.cuda.synchronize()
+                eff = walk_check(f"bounce kernel walk on {name}", tally, st)
         attr_t, sph_t, n_sph = pk.pack_scene_tables(rt)
         ct = pk.pack_cull_tables(rt)
         ops = (rt.tri_table.float().contiguous(), attr_t, sph_t,
@@ -1868,14 +1898,15 @@ def culled_phases(dev, card: str, scenes: dict) -> dict:
         launch_kw = dict(n_tri=rt.n_tri, n_sph=n_sph, n_emitters=rt.n_emitters,
                          seed=seed, n_bounces=MAX_BOUNCES, p_rr=kw["p_rr"], cull_tables=ct)
         t_k = cuda_times(lambda: pk.fused_bounce_group(rt, state, live, seed, MAX_BOUNCES,
-                                                       **rr), 5)
-        t_b = cuda_times(lambda: pk.launch_path_bounce(*ops, **launch_kw), 5)
-        tally = torch.zeros(2, dtype=torch.int64, device=dev)
+                                                       **rr), 10)
+        t_b = cuda_times(lambda: pk.launch_path_bounce(*ops, **launch_kw), 10)
+        tally = torch.zeros(3, dtype=torch.int64, device=dev)
         pk.launch_path_bounce(*ops, tally=tally, **launch_kw)
         torch.cuda.synchronize()
         (b_b, by_b), rows, slabs = tests_bound(
             tensor_bytes(*ops[:4], ct.lo, ct.hi, ct.lo2, ct.hi2) + 2 * tensor_bytes(state, live)
             + 12 * n, tally)
+        simt = rows / int(tally[2])
         # path_trace's routes on one sample of the centre lanes: the bounce
         # kernel (fused=None) and the plain wavefront over the trace tiers
         po, pd = (x[n // 2 - PLAIN_WAVE_LANES // 2:][:PLAIN_WAVE_LANES] for x in (o_, d_))
@@ -1901,13 +1932,16 @@ def culled_phases(dev, card: str, scenes: dict) -> dict:
         _, wave1_ms = wall_ms(lambda: tp.path_trace(rt, o_, d_, SEED, **pkw))
         bnc[name] = dict(t=t_k, bare=t_b, bound=(b_b, by_b), plain=plain, launches=launches[1],
                          fused_ms=fused_ms, plain_route_ms=plain_ms, cam1_ms=cam1_ms,
-                         wave1_ms=wave1_ms)
+                         wave1_ms=wave1_ms, simt=simt, simt_thread=eff[1])
         lines.append(
             f"{name} ({rt.n_tri} triangles): culled == full sweep on all {nl} lanes "
             f"(full sweep {full_ms:.0f} ms wall); vs plain on {PLAIN_PATH_LANES} lanes: culled "
             f"{bad[True]}, full {bad[False]} lanes differ (plain {plain[True]:.0f} / "
-            f"{plain[False]:.0f} ms); {n} lanes: kernel {spread(t_k)} ms, bare {spread(t_b)}, "
-            f"{rows:.4g} row tests, {slabs:.4g} slab tests, bound {b_b:.4f} ms by {by_b}; "
+            f"{plain[False]:.0f} ms), walk tally = plain counts and the model's slots; SIMT "
+            f"efficiency of the walk {eff[0]:.4f} there against {eff[1]:.4f} for the "
+            f"per-thread walk; {n} lanes: kernel {spread(t_k)} ms, bare {spread(t_b)}, "
+            f"{rows:.4g} row tests, {slabs:.4g} slab tests, {int(tally[2]):.4g} slots "
+            f"(efficiency {simt:.4f}), bound {b_b:.4f} ms by {by_b} ({med(t_k) / b_b:.1f}x); "
             f"path_trace one sample of {PLAIN_WAVE_LANES} lanes (wall, once): fused=None "
             f"{fused_ms:.1f} ms (culled bounce kernel, launches {launches[1]}, clipped mean "
             f"{fm:.5f}), fused=False {plain_ms:.1f} ms (clipped mean {pm:.5f}, dropped 0); "
@@ -2061,15 +2095,31 @@ def culled_phases(dev, card: str, scenes: dict) -> dict:
              "plain_ms": cam[mid]["plain"][True], "plain_lanes": PLAIN_PATH_LANES,
              "plain_spp": 1, "bound_ms": cam[mid]["bound"][0],
              "bound_by": cam[mid]["bound"][1], "library_ms": None,
+             "ms_range": [cam[mid]["t"][0], cam[mid]["t"][-1]],
+             "simt_efficiency": cam[mid]["simt"],
+             "simt_efficiency_per_thread_walk": cam[mid]["simt_thread"],
              "ms_147456": med(cam["large"]["t"]),
-             "bound_ms_147456": cam["large"]["bound"][0]},
+             "ms_range_147456": [cam["large"]["t"][0], cam["large"]["t"][-1]],
+             "bound_ms_147456": cam["large"]["bound"][0],
+             "simt_efficiency_147456": cam["large"]["simt"],
+             "simt_efficiency_per_thread_walk_147456": cam["large"]["simt_thread"]},
+            {"name": "path_bounce_culled", "route": "cuda",
+             "source": "software_rasterizer_tpu_torch/csrc/path_bounce.cu",
+             "replaces": "software_rasterizer_tpu/ops/pallas_path.py:635",
+             "launches": bnc[mid]["launches"] + bnc["large"]["launches"],
+             "max_abs_err": bnc_err, "ms": med(bnc[mid]["t"]),
+             "bare_ms": med(bnc[mid]["bare"]), "plain_ms": bnc[mid]["plain"][True],
+             "plain_lanes": PLAIN_PATH_LANES, "bound_ms": bnc[mid]["bound"][0],
+             "bound_by": bnc[mid]["bound"][1], "library_ms": None,
+             "ms_range": [bnc[mid]["t"][0], bnc[mid]["t"][-1]],
+             "simt_efficiency": bnc[mid]["simt"],
+             "simt_efficiency_per_thread_walk": bnc[mid]["simt_thread"],
+             "ms_147456": med(bnc["large"]["t"]),
+             "ms_range_147456": [bnc["large"]["t"][0], bnc["large"]["t"][-1]],
+             "bound_ms_147456": bnc["large"]["bound"][0],
+             "simt_efficiency_147456": bnc["large"]["simt"],
+             "simt_efficiency_per_thread_walk_147456": bnc["large"]["simt_thread"]},
         ],
-        "bounce": {"launches": bnc[mid]["launches"] + bnc["large"]["launches"],
-                   "ms_9216": med(bnc[mid]["t"]), "ms_147456": med(bnc["large"]["t"]),
-                   "bare_ms_9216": med(bnc[mid]["bare"]),
-                   "bound_ms_9216": bnc[mid]["bound"][0],
-                   "bound_ms_147456": bnc["large"]["bound"][0],
-                   "plain_ms_9216": bnc[mid]["plain"][True], "max_abs_err": bnc_err},
         "whitted": {"launches": draw_launches["whitted"], "ms_9216": med(wht[mid]["t"]),
                     "ms_147456": med(wht["large"]["t"]),
                     "bare_ms_9216": med(wht[mid]["bare"]),

@@ -9,24 +9,28 @@
 // and the bounce ray through one loop over triangles then spheres,
 // evaluates the NEE term and moves the lane to the bounce ray's hit.
 // Two instances, as in path_camera.cu: path_bounce_kernel<false> traces
-// both rays through every triangle, path_bounce_kernel<true> walks the
-// chunk boxes for each ray on its own (path_common.cuh
-// dual_trace_culled); the two agree lane for lane.
+// both rays through every triangle, path_bounce_kernel<true> culls each
+// ray by the chunk boxes on its own and lets the warp test each (ray,
+// chunk) pair together (path_common.cuh dual_trace_culled); the two agree
+// lane for lane. The culled loop runs while any lane of the warp is
+// live; a dead lane (or one past n) stays in it, inactive, for the
+// warp's votes, and keeps its state.
 //
 // In: state (18,N) [pos|nrm|kd|emit|color|throughput], component-major,
 // and live (N,). Out: acc (3,N), the radiance the lane gathered; the new
 // state and live. A lane that is dead at the start of a bounce keeps its
-// state as it is (the thread leaves the loop); a lane that dies in a
-// bounce still takes that bounce's state update. acc and live are defined
-// on every lane.
+// state as it is (the thread leaves the loop, or skips the update); a lane
+// that dies in a bounce still takes that bounce's state update. acc and
+// live are defined on every lane.
 //
 // Bound: on a launch of few bounces the 2 x 18 x 4 bytes of state a lane
 // (150 MB a million lanes); from a few bounces on FP32 ALU work, two
 // Moller-Trumbore tests a triangle and bounce. Design: one thread per
 // lane, 128 threads a block; component-major state makes every load and
 // store of a warp one coalesced 128-byte line; the path state lives in
-// registers between bounces; the tables are read as broadcasts. No
-// (rows,128) tiling and no padding of N.
+// registers between bounces; the full sweep reads the tables as
+// broadcasts, the culled walk stages its chunks' rows in shared memory.
+// No (rows,128) tiling and no padding of N.
 //
 // Draws are the JAX kernel's `_Rng`: one lowbias32 round of
 // lane * 0x9E3779B1 ^ (seed + ctr * 0x85EBCA6B), twelve draws a bounce in
@@ -79,7 +83,10 @@ struct BounceParams {
   uint8_t* out_live;        // (N,)
   float* acc;               // (3,N)
   CullTables cull;          // read by the culled instance only
-  unsigned long long* tally;  // (2,) [row tests, slab tests] added, or null
+  // (n_tally,) [row tests, slab tests, row-test slots of the culled walk's
+  // warps] added, or null
+  unsigned long long* tally;
+  int n_tally;
   int n_tri, n_sph, n_emitters, n, n_bounces;
   uint32_t seed;
   float p_rr;
@@ -88,25 +95,32 @@ struct BounceParams {
 template <bool kCull>
 __global__ void __launch_bounds__(kThreads)
 path_bounce_kernel(const BounceParams p) {
+  extern __shared__ srt::WarpStage s_stage[];  // culled: one a warp
   const int lane = blockIdx.x * kThreads + threadIdx.x;
-  if (lane >= p.n) return;
+  const bool valid = lane < p.n;
+  if (!kCull && !valid) return;
   const uint32_t lane_u = (uint32_t)lane;
   const size_t n = (size_t)p.n;
-  const float* st = p.state + lane;
+  // a thread past n reads lane 0's state and is never live
+  const float* st = p.state + (valid ? lane : 0);
   V3 pos = {st[0], st[n], st[2 * n]};
   V3 nrm = {st[3 * n], st[4 * n], st[5 * n]};
   V3 kd = {st[6 * n], st[7 * n], st[8 * n]};
   V3 emit = {st[9 * n], st[10 * n], st[11 * n]};
   V3 col = {st[12 * n], st[13 * n], st[14 * n]};
   V3 tp = {st[15 * n], st[16 * n], st[17 * n]};
-  bool live = p.live[lane] != 0;
+  bool live = valid && p.live[valid ? lane : 0] != 0;
   const int n_e = p.n_emitters;
   const bool any_e = n_e > 0;
   const float n_e_f = (float)max(n_e, 1);
   float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
   srt::Tally tl;
+  unsigned long long slots = 0;
 
-  for (int b = 0; b < p.n_bounces && live; ++b) {
+  for (int b = 0; b < p.n_bounces; ++b) {
+    if (kCull ? !__any_sync(srt::kFullMask, live) : !live) break;
+    // the lanes live at the start of this bounce take its result
+    const bool active = kCull ? live : true;
     const uint32_t c0 = (uint32_t)(12 * b);
     const V3 nn = norm3(nrm.x, nrm.y, nrm.z, 0.0f);
 
@@ -151,7 +165,7 @@ path_bounce_kernel(const BounceParams p) {
     Hit A, B;
     if (kCull)
       dual_trace_culled(p.tri, p.attr, p.sph, p.n_tri, p.n_sph, p.cull, o, ll,
-                        w, &A, &B, tl);
+                        w, active, s_stage[threadIdx.x >> 5], &A, &B, tl, slots);
     else
       dual_trace(p.tri, p.attr, p.sph, p.n_tri, p.n_sph, o, ll, w, &A, &B, tl);
 
@@ -177,7 +191,7 @@ path_bounce_kernel(const BounceParams p) {
     const float nee_g = A.emit.y * (fr_gate ? kd.y * kInvPi : 0.0f) * scale;
     const float nee_b = A.emit.z * (fr_gate ? kd.z * kInvPi : 0.0f) * scale;
     const bool cur_emissive = len3(emit) > kEps;
-    // the lane is live here: dead lanes have left the loop
+    if (!active) continue;
     acc_r = acc_r + tp.x * (cur_emissive ? col.x : nee_r);
     acc_g = acc_g + tp.y * (cur_emissive ? col.y : nee_g);
     acc_b = acc_b + tp.z * (cur_emissive ? col.z : nee_b);
@@ -197,6 +211,7 @@ path_bounce_kernel(const BounceParams p) {
     col = B.is_sphere ? V3{0.f, 0.f, 0.f} : B.kd;
   }
 
+  if (!valid) return;
   float* so = p.out_state + lane;
   so[0] = pos.x, so[n] = pos.y, so[2 * n] = pos.z;
   so[3 * n] = nrm.x, so[4 * n] = nrm.y, so[5 * n] = nrm.z;
@@ -209,6 +224,8 @@ path_bounce_kernel(const BounceParams p) {
   p.acc[n + lane] = acc_g;
   p.acc[2 * n + lane] = acc_b;
   tl.flush(p.tally);
+  if (kCull && p.tally != nullptr && p.n_tally > 2 && slots != 0)
+    atomicAdd(p.tally + 2, slots);
 }
 
 }  // namespace
@@ -224,7 +241,7 @@ extern "C" int srt_path_bounce(const float* tri, const float* attr,
                                const float* lo, const float* hi,
                                const float* lo2, const float* hi2, int nc,
                                int chunk, unsigned long long* tally,
-                               void* stream) {
+                               int n_tally, void* stream) {
   const CullTables ct{lo, hi, lo2, hi2, nc, (nc + srt::kSuper - 1) / srt::kSuper,
                       chunk};
   if (lo != nullptr && !srt::cull_tables_ok(ct, n_tri))
@@ -232,12 +249,14 @@ extern "C" int srt_path_bounce(const float* tri, const float* attr,
   if (n <= 0) return 0;
   BounceParams p{tri,   attr,  sph,        ecr, state,     live,
                  out_state, out_live, acc,
-                 ct,        tally,
+                 ct,        tally,    n_tally,
                  n_tri, n_sph, n_emitters,
                  n,     n_bounces, (uint32_t)seed, p_rr};
   const int blocks = (n + kThreads - 1) / kThreads;
   if (lo != nullptr)
-    path_bounce_kernel<true><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(p);
+    path_bounce_kernel<true><<<blocks, kThreads,
+                               (kThreads / 32) * srt::kWarpStageBytes,
+                               (cudaStream_t)stream>>>(p);
   else
     path_bounce_kernel<false><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();

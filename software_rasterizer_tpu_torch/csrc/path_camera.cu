@@ -10,22 +10,27 @@
 //
 // Two instances. path_camera_kernel<false> (the mm=False tier, scenes of
 // up to 512 triangles) traces both rays through every triangle.
-// path_camera_kernel<true> (the mm=True tier, chunk-culled) walks the
-// chunk boxes of the table for each ray on its own (path_common.cuh
-// dual_trace_culled) and tests only the rows of the chunks the ray
-// enters, with the same expressions: the two instances agree lane for
-// lane. The JAX tier's bilinear MXU form and one-hot attribute join are
-// TPU form and have no counterpart.
+// path_camera_kernel<true> (the mm=True tier, chunk-culled) culls each
+// ray by the chunk boxes of the table on its own and tests only the rows
+// of the chunks the ray enters, with the same expressions: the two
+// instances agree lane for lane. The JAX tier's bilinear MXU form and
+// one-hot attribute join are TPU form and have no counterpart.
 //
 // Bound: FP32 ALU work. Each loop iteration intersects two rays with
 // every triangle (culled: with the rows of the chunks each ray enters,
 // plus ~21 operations a slab test), about 60 flops per triangle per ray.
 // The tables are read through L1/L2: a few KB for the Cornell box, 16 MB
 // at 147,456 triangles, which still sits in the 50 MB L2. Design: one
-// thread per pixel lane (128 threads a block) runs its own loop and its
-// own walk; all path state lives in registers, and device memory is
-// touched only to read the tables and to write the (3, n) sum once at the
-// end. Threads of a warp whose rays enter different chunks diverge.
+// thread per pixel lane (128 threads a block) runs its own loop; all path
+// state lives in registers, and device memory is touched only to read the
+// tables and to write the (3, n) sum once at the end. The full sweep's
+// threads read the same row at once (a broadcast). In the culled walk the
+// rays of a warp enter different chunks, so the warp tests each (ray,
+// chunk) pair together (path_common.cuh dual_trace_culled, trace_common.cuh
+// warp_walk_chunks): a ballot a chunk, the rows staged in shared memory
+// with cp.async, 32 threads on one ray's rows. Its loop runs while any
+// thread of the warp is active, and a thread whose lane is done (or lies
+// past n_lanes) stays in it, inactive, for the warp's votes.
 //
 // Semantics are the JAX kernel's, lane for lane: the same lowbias32
 // draws keyed by (sample seed, absolute lane, depth*8 + slot), the same
@@ -71,20 +76,27 @@ struct Params {
   const float* cam;    // (8,) [eye|scale|aspect|background]
   float* acc;          // (3, n_lanes) radiance sum
   CullTables cull;     // read by the culled instance only
-  unsigned long long* tally;  // (2,) [row tests, slab tests] added, or null
+  // (n_tally,) [row tests, slab tests, row-test slots of the culled walk's
+  // warps] added, or null
+  unsigned long long* tally;
+  int n_tally;
   int n_tri, n_sph, n_emitters, spp, lane_offset, n_lanes, width, height,
       max_bounces;
   float p_rr;
 };
 
+constexpr int kThreads = 128;
+
 template <bool kCull>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(kThreads)
 path_camera_kernel(const Params p) {
+  extern __shared__ srt::WarpStage s_stage[];  // culled: one a warp
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= p.n_lanes) return;
-  const int lane = p.lane_offset + idx;
+  const bool valid = idx < p.n_lanes;
+  if (!kCull && !valid) return;
+  const int lane = p.lane_offset + (valid ? idx : 0);
   const uint32_t lane_u = (uint32_t)lane;
-  const bool inb = lane < p.width * p.height;
+  const bool inb = valid && lane < p.width * p.height;
   const int n_e = p.n_emitters;
   const bool any_e = n_e > 0;
   const float n_e_f = (float)max(n_e, 1);
@@ -109,8 +121,13 @@ path_camera_kernel(const Params p) {
   V3 tp = pos;
   float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
   srt::Tally tl;
+  unsigned long long slots = 0;
 
-  while (live || next_s < p.spp) {
+  while (true) {
+    // an inactive thread of the culled walk draws and traces with the
+    // rest but gets no result: live and restart stay false
+    const bool active = live || next_s < p.spp;
+    if (kCull ? !__any_sync(srt::kFullMask, active) : !active) break;
     const bool restart = !live && next_s < p.spp;
     // the current sample of a live lane is next_s - 1; a restarting lane
     // draws with the previous sample's seed and discards the draws
@@ -159,7 +176,8 @@ path_camera_kernel(const Params p) {
     Hit A, B;
     if (kCull)
       dual_trace_culled(p.tri, p.attr, p.sph, p.n_tri, p.n_sph, p.cull, o, ll,
-                        bd, &A, &B, tl);
+                        bd, active, s_stage[threadIdx.x >> 5], &A, &B, tl,
+                        slots);
     else
       dual_trace(p.tri, p.attr, p.sph, p.n_tri, p.n_sph, o, ll, bd, &A, &B, tl);
 
@@ -223,10 +241,13 @@ path_camera_kernel(const Params p) {
     next_s = restart ? next_s + 1 : next_s;
     depth = restart ? 0 : depth_n;
   }
+  if (!valid) return;
   p.acc[idx] = acc_r;
   p.acc[p.n_lanes + idx] = acc_g;
   p.acc[2 * p.n_lanes + idx] = acc_b;
   tl.flush(p.tally);
+  if (kCull && p.tally != nullptr && p.n_tally > 2 && slots != 0)
+    atomicAdd(p.tally + 2, slots);
 }
 
 }  // namespace
@@ -239,21 +260,22 @@ extern "C" int srt_path_camera_render(
     int n_emitters, int spp, int lane_offset, int n_lanes, int width,
     int height, int max_bounces, float p_rr, const float* lo, const float* hi,
     const float* lo2, const float* hi2, int nc, int chunk,
-    unsigned long long* tally, void* stream) {
+    unsigned long long* tally, int n_tally, void* stream) {
   const CullTables ct{lo, hi, lo2, hi2, nc, (nc + srt::kSuper - 1) / srt::kSuper,
                       chunk};
   if (lo != nullptr && !srt::cull_tables_ok(ct, n_tri))
     return (int)cudaErrorInvalidValue;
   if (n_lanes <= 0) return 0;
   Params p{tri,   attr,  sph,         ecr,        seeds,   cam,
-           acc,   ct,  tally,
+           acc,   ct,  tally, n_tally,
            n_tri, n_sph, n_emitters,  spp,        lane_offset,
            n_lanes, width, height,    max_bounces, p_rr};
-  const int threads = 128;
-  const int blocks = (n_lanes + threads - 1) / threads;
+  const int blocks = (n_lanes + kThreads - 1) / kThreads;
   if (lo != nullptr)
-    path_camera_kernel<true><<<blocks, threads, 0, (cudaStream_t)stream>>>(p);
+    path_camera_kernel<true><<<blocks, kThreads,
+                               (kThreads / 32) * srt::kWarpStageBytes,
+                               (cudaStream_t)stream>>>(p);
   else
-    path_camera_kernel<false><<<blocks, threads, 0, (cudaStream_t)stream>>>(p);
+    path_camera_kernel<false><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }

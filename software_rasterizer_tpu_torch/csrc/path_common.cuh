@@ -2,9 +2,10 @@
 // constants, the 3-vector, _norm3, Tools::toWorld, Moller-Trumbore, the
 // sphere quadratic and the dual trace of a shadow ray and a bounce ray:
 // `dual_trace` through one loop over the primitive tables, or
-// `dual_trace_culled`, each ray walking the chunk boxes of the table on
-// its own. Every expression is written in the order of the plain PyTorch
-// versions; build with -fmad=false and without fast math.
+// `dual_trace_culled`, each ray culling by the chunk boxes of the table on
+// its own and the warp testing each (ray, chunk) pair together. Every
+// expression is written in the order of the plain PyTorch versions; build
+// with -fmad=false and without fast math.
 
 #pragma once
 
@@ -96,31 +97,43 @@ __device__ __forceinline__ V3 interp_nrm(const float* at, float u, float v) {
           w * at[2] + u * at[5] + v * at[8]};
 }
 
-// Fold triangle f's hit of ray (o, d) into h: the shadow ray keeps the
-// normal and emission, the bounce ray (kBounce) also Kd and the sphere
-// flag. A strict `<`: over ascending f the lowest index wins a tie.
-template <bool kBounce>
-__device__ __forceinline__ void tri_step(const float* __restrict__ tri,
-                                         const float* __restrict__ attr, int f,
-                                         V3 o, V3 d, Hit* h) {
-  const float* g = tri + 12 * f;
+// t (kBig on a miss) and (u, v) of ray (o, d) against the [v0|e1|e2|pad]
+// row `g`.
+__device__ __forceinline__ float tri_t(const float* g, V3 o, V3 d, float* u,
+                                       float* v) {
   const V3 e1 = {g[3], g[4], g[5]};
   const V3 e2 = {g[6], g[7], g[8]};
   const V3 tv = {o.x - g[0], o.y - g[1], o.z - g[2]};
   const V3 q = {tv.y * e1.z - tv.z * e1.y, tv.z * e1.x - tv.x * e1.z,
                 tv.x * e1.y - tv.y * e1.x};
-  float u, v;
-  const float tm = mt(d, tv, q, e1, e2, &u, &v);
-  if (tm < h->t) {
-    const float* at = attr + 16 * f;
-    h->t = tm;
-    h->nrm = interp_nrm(at, u, v);
-    if (kBounce) {
-      h->kd = {at[9], at[10], at[11]};
-      h->is_sphere = false;
-    }
-    h->emit = {at[12], at[13], at[14]};
+  return mt(d, tv, q, e1, e2, u, v);
+}
+
+// Row f's attributes into h, hit at tm and (u, v): the shadow ray keeps
+// the normal and emission, the bounce ray (kBounce) also Kd and the
+// sphere flag.
+template <bool kBounce>
+__device__ __forceinline__ void take_row(const float* __restrict__ attr, int f,
+                                         float tm, float u, float v, Hit* h) {
+  const float* at = attr + 16 * f;
+  h->t = tm;
+  h->nrm = interp_nrm(at, u, v);
+  if (kBounce) {
+    h->kd = {at[9], at[10], at[11]};
+    h->is_sphere = false;
   }
+  h->emit = {at[12], at[13], at[14]};
+}
+
+// Fold triangle f's hit of ray (o, d) into h. A strict `<`: over
+// ascending f the lowest index wins a tie.
+template <bool kBounce>
+__device__ __forceinline__ void tri_step(const float* __restrict__ tri,
+                                         const float* __restrict__ attr, int f,
+                                         V3 o, V3 d, Hit* h) {
+  float u, v;
+  const float tm = tri_t(tri + 12 * f, o, d, &u, &v);
+  if (tm < h->t) take_row<kBounce>(attr, f, tm, u, v, h);
 }
 
 // The sphere loop after the triangles (_sph_dual_merge): strict `<`, so
@@ -179,30 +192,46 @@ __device__ __forceinline__ void dual_trace(
 
 using srt::CullTables;
 
-// Nearest triangle of one ray over the chunks whose boxes it enters
-// (trace_common.cuh walk_chunks), rows tested as in dual_trace.
+// Nearest triangle of one ray over the chunks whose boxes it enters, for
+// the whole warp at once (trace_common.cuh warp_walk_chunks), each row
+// tested with dual_trace's expressions; the winner's (u, v) are
+// recomputed from its row with the same expression and its attributes
+// read once, as tri_step's last improvement reads them.
 template <bool kBounce>
-__device__ __forceinline__ void walk_ray(const float* __restrict__ tri,
-                                         const float* __restrict__ attr,
-                                         int n_tri, const CullTables& ct, V3 o,
-                                         V3 d, Hit* h, srt::Tally& tl) {
+__device__ __forceinline__ void warp_walk_ray(
+    const float* __restrict__ tri, const float* __restrict__ attr, int n_tri,
+    const CullTables& ct, V3 o, V3 d, bool active, srt::WarpStage& stage,
+    Hit* h, srt::Tally& tl, unsigned long long& slots) {
   const srt::Ray r = {o.x, o.y, o.z, d.x, d.y, d.z};
-  srt::walk_chunks(
-      r, ct, n_tri, [&](int f) { tri_step<kBounce>(tri, attr, f, o, d, h); },
-      tl);
+  const srt::RowHit best = srt::warp_walk_chunks(
+      r, active, ct, tri, n_tri, stage,
+      [](const float* g, const srt::Ray& rl) {
+        float u, v;
+        return tri_t(g, V3{rl.ox, rl.oy, rl.oz}, V3{rl.dx, rl.dy, rl.dz}, &u, &v);
+      },
+      tl, slots);
+  if (best.row >= 0) {
+    float u, v;
+    tri_t(tri + 12 * best.row, o, d, &u, &v);
+    take_row<kBounce>(attr, best.row, best.t, u, v, h);
+  }
 }
 
 // dual_trace with each ray culling for itself (the mm=True tier of the
 // JAX kernel, ops/pallas_path.py:354-365: the shadow rays converge on the
 // light while the bounce rays scatter, so one cull for both would keep
-// the union). Equal to dual_trace lane for lane.
+// the union): the shadow rays of the warp walk together, then its bounce
+// rays. Equal to dual_trace lane for lane. The whole warp calls it; an
+// inactive thread (not `active`) tests nothing and gets misses from the
+// triangles.
 __device__ __forceinline__ void dual_trace_culled(
     const float* __restrict__ tri, const float* __restrict__ attr,
     const float* __restrict__ sph, int n_tri, int n_sph, const CullTables& ct,
-    V3 o, V3 la, V3 lb, Hit* A, Hit* B, srt::Tally& tl) {
+    V3 o, V3 la, V3 lb, bool active, srt::WarpStage& stage, Hit* A, Hit* B,
+    srt::Tally& tl, unsigned long long& slots) {
   no_hit(A, B);
-  walk_ray<false>(tri, attr, n_tri, ct, o, la, A, tl);
-  walk_ray<true>(tri, attr, n_tri, ct, o, lb, B, tl);
+  warp_walk_ray<false>(tri, attr, n_tri, ct, o, la, active, stage, A, tl, slots);
+  warp_walk_ray<true>(tri, attr, n_tri, ct, o, lb, active, stage, B, tl, slots);
   merge_spheres(sph, n_sph, o, la, lb, A, B);
 }
 

@@ -155,7 +155,7 @@ def _cuda_fn():
     fn = lib.srt_path_camera_render
     if fn.argtypes is None:
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [vp] * 7 + [ci] * 9 + [cf] + [vp] * 4 + [ci] * 2 + [vp, vp]
+        fn.argtypes = [vp] * 7 + [ci] * 9 + [cf] + [vp] * 4 + [ci] * 2 + [vp, ci, vp]
         fn.restype = ci
     return fn
 
@@ -195,13 +195,16 @@ def _check_cull(ct: Optional[CullTables], n_rows: int, device) -> tuple:
             ct.hi2.data_ptr(), nc, ct.chunk)
 
 
-def _check_tally(tally: Optional[torch.Tensor], device):
-    """The kernels' optional (2,) int64 [row tests, slab tests] total."""
+def _check_tally(tally: Optional[torch.Tensor], device, slots: bool = False):
+    """The kernels' optional (2,) int64 [row tests, slab tests] total; with
+    `slots` also (3,), the third entry getting the row-test slots the
+    culled walk's warps issue (32 a row-step)."""
     if tally is None:
         return None
     _check_table("tally", tally, torch.int64, None, device)
-    if tally.shape != (2,):
-        raise ValueError(f"tally has shape {tuple(tally.shape)}, expected (2,)")
+    if tally.shape != (2,) and not (slots and tally.shape == (3,)):
+        raise ValueError(f"tally has shape {tuple(tally.shape)}, expected (2,)"
+                         + (" or (3,)" if slots else ""))
     return tally.data_ptr()
 
 
@@ -217,8 +220,10 @@ def launch_path_camera(tri: torch.Tensor, attr: torch.Tensor,
     """Launch csrc/path_camera.cu on the current stream; returns the
     (3, n_lanes) sum. With `cull_tables` the culled instance runs, else
     the full sweep. A `tally` (2,) int64 tensor gets the launch's (ray,
-    row) tests and slab tests added. Checks every operand and raises on a
-    launch error."""
+    row) tests and slab tests added; a (3,) one also, from the culled
+    instance, the row-test slots its warps issue (32 a row-step of the
+    warp walk: the SIMT efficiency is row tests / slots). Checks every
+    operand and raises on a launch error."""
     global LAUNCHES, LAUNCHES_CULLED
     device = tri.device
     if device.type != "cuda":
@@ -239,16 +244,18 @@ def launch_path_camera(tri: torch.Tensor, attr: torch.Tensor,
     if ecr.shape[0] < max(n_emitters, 1):
         raise ValueError("emitter table has fewer rows than emitters")
     cull_args = _check_cull(cull_tables, n_tri, device)
-    tally_ptr = _check_tally(tally, device)
+    tally_ptr = _check_tally(tally, device, slots=True)
     out = torch.empty((3, n_lanes), dtype=f32, device=device)
     if n_lanes == 0:
         return out
+    tri = trace_tiers._aligned(tri)
     stream = torch.cuda.current_stream(device).cuda_stream
     rc = _cuda_fn()(
         tri.data_ptr(), attr.data_ptr(), sph.data_ptr(), ecr.data_ptr(),
         seeds.data_ptr(), cam.data_ptr(), out.data_ptr(),
         n_tri, n_sph, n_emitters, seeds.shape[0], lane_offset, n_lanes,
-        width, height, max_bounces, float(p_rr), *cull_args, tally_ptr, stream,
+        width, height, max_bounces, float(p_rr), *cull_args, tally_ptr,
+        0 if tally is None else tally.shape[0], stream,
     )
     if rc != 0:
         raise RuntimeError(f"path_camera kernel launch failed: cudaError {rc}")
@@ -445,7 +452,10 @@ def path_camera_render_plain(scene: RTScene, seed: int, width: int,
     "lane_iterations": the loop iterations summed over lanes, each a
     restart or a bounce with its two traces (the kernel's unit of work),
     and "row_tests" / "slab_tests": the (ray, row) and slab tests of those
-    iterations, the counts the kernel's `tally` adds up."""
+    iterations, the counts the kernel's `tally` adds up; with the culled
+    walk also "slots" / "slots_thread": the row-test slots the kernel's
+    warps issue (its `tally`'s third entry) and those the per-thread walk
+    would (`trace_tiers.warp_slots`)."""
     n = _lane_count(width, height, lane_offset, n_lanes, spp, max_bounces)
     dev = scene.device
     f32 = torch.float32
@@ -589,7 +599,7 @@ def path_camera_render_plain(scene: RTScene, seed: int, width: int,
 
 
 def _add_tally(stats: dict, tally: dict) -> None:
-    for k in ("row_tests", "slab_tests"):
+    for k in ("row_tests", "slab_tests", "slots", "slots_thread"):
         stats[k] = stats.get(k, 0) + tally.get(k, 0)
 
 
@@ -633,7 +643,7 @@ def _bounce_fn():
     fn = lib.srt_path_bounce
     if fn.argtypes is None:
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [vp] * 9 + [ci] * 6 + [cf] + [vp] * 4 + [ci] * 2 + [vp, vp]
+        fn.argtypes = [vp] * 9 + [ci] * 6 + [cf] + [vp] * 4 + [ci] * 2 + [vp, ci, vp]
         fn.restype = ci
     return fn
 
@@ -674,13 +684,14 @@ def launch_path_bounce(tri: torch.Tensor, attr: torch.Tensor,
     if n_bounces < 0:
         raise ValueError(f"bad n_bounces={n_bounces}")
     cull_args = _check_cull(cull_tables, n_tri, device)
-    tally_ptr = _check_tally(tally, device)
+    tally_ptr = _check_tally(tally, device, slots=True)
     out_state = torch.empty_like(state)
     out_live = torch.empty_like(live)
     acc = torch.empty((3, n), dtype=f32, device=device)
     if n == 0:
         return acc, out_state, out_live
     seed = int(seed) & 0xFFFFFFFF
+    tri = trace_tiers._aligned(tri)
     stream = torch.cuda.current_stream(device).cuda_stream
     rc = _bounce_fn()(
         tri.data_ptr(), attr.data_ptr(), sph.data_ptr(), ecr.data_ptr(),
@@ -688,7 +699,7 @@ def launch_path_bounce(tri: torch.Tensor, attr: torch.Tensor,
         out_live.data_ptr(), acc.data_ptr(),
         n_tri, n_sph, n_emitters, n, n_bounces,
         seed - (1 << 32) if seed >= 1 << 31 else seed, float(p_rr), *cull_args,
-        tally_ptr, stream,
+        tally_ptr, 0 if tally is None else tally.shape[0], stream,
     )
     if rc != 0:
         raise RuntimeError(f"path_bounce kernel launch failed: cudaError {rc}")

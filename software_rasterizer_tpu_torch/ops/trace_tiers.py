@@ -29,6 +29,8 @@ t. `block` and `chunk` change the work, never a result.
 `walk_nearest_plain` is the per-ray form of the cull: each ray tests the
 rows of the chunks whose boxes it enters itself, as the culled instances
 of the path and Whitted kernels do (`CullTables`, `cull_tables`).
+`warp_walk_plain` models how the path kernels' warps schedule those tests
+(csrc/trace_common.cuh warp_walk_chunks) and counts the slots they issue.
 
 On CUDA tensors each entry point launches its hand-written kernel
 (csrc/trace_culled.cu) and counts the launch; on CPU tensors it runs its
@@ -71,6 +73,10 @@ MM_BLOCK = 1024
 DEFAULT_BLOCK = 64
 # (ray, row) tests of one step of the plain sweep (bounds its memory)
 _PLAIN_STEP = 1 << 22
+# the path kernels' warp walk: threads a warp, and rows of a staged slice
+# of a chunk (csrc/trace_common.cuh kSlice)
+WARP = 32
+WALK_SLICE = 128
 
 # kernel launches (the plain versions are not counted); a caller may
 # reset them to 0 to count one run
@@ -575,7 +581,8 @@ def _walk_spans(cull: Optional[CullTables], n_rows: int, orig, d, active,
     of its own box; without, every row for every lane, in spans that keep
     a (lanes, rows) plane near `_PLAIN_STEP`. Only the `active` lanes
     ((N,) bool; None: all, and lanes None) are walked; `tally` gets their
-    (ray, row) and slab tests, as the kernels count them."""
+    (ray, row) and slab tests, as the kernels count them, and with `cull`
+    the row-test slots of both warp schedules (`warp_slots`)."""
     n = orig.shape[0]
     n_act = n if active is None else int(active.sum())
     if cull is None:
@@ -606,6 +613,9 @@ def _walk_spans(cull: Optional[CullTables], n_rows: int, orig, d, active,
                 if tally is not None:
                     tally["row_tests"] = (tally.get("row_tests", 0)
                                           + lanes.numel() * (r1 - r0))
+                    warp, thread = warp_slots(lanes, r0, r1)
+                    tally["slots"] = tally.get("slots", 0) + warp
+                    tally["slots_thread"] = tally.get("slots_thread", 0) + thread
                 yield lanes, r0, r1
 
 
@@ -636,4 +646,72 @@ def walk_nearest_plain(tri_table, n_rows: int, orig, d,
         best_f[sel] = torch.where(better, cf + r0, best_f[sel])
         best_u[sel] = torch.where(better, u.gather(1, cf[:, None])[:, 0], best_u[sel])
         best_v[sel] = torch.where(better, v.gather(1, cf[:, None])[:, 0], best_v[sel])
+    return best_t, best_f, best_u, best_v
+
+
+# ------------------------------------------- the warp walk's schedule
+
+
+def warp_slots(lanes: torch.Tensor, r0: int, r1: int) -> Tuple[int, int]:
+    """Row-test slots a chunk's rows [r0, r1) cost the warps of the lanes
+    `lanes` ((k,) lane ids; a warp is `WARP` lanes in launch order) that
+    enter it, under two schedules, `WARP` slots a row-step of a warp:
+    the warp walk's (`warp_walk_plain`: each (lane, chunk) pair, its rows
+    in slices of `WALK_SLICE` spread over the warp's threads, so
+    ceil(slice / WARP) steps a slice) and the per-thread walk's (every
+    thread walks its own chunks, so a warp in which any lane enters the
+    chunk steps through all its rows, one row a step)."""
+    steps = sum(-(-min(WALK_SLICE, r1 - s) // WARP) for s in range(r0, r1, WALK_SLICE))
+    n_warps = torch.unique(torch.div(lanes, WARP, rounding_mode="floor")).numel()
+    return WARP * steps * lanes.numel(), WARP * (r1 - r0) * n_warps
+
+
+def warp_walk_plain(tri_table, n_rows: int, orig, d, cull: CullTables,
+                    active=None, tally: Optional[dict] = None):
+    """A CPU model of the culled path kernels' warp walk
+    (csrc/trace_common.cuh warp_walk_chunks): what `walk_nearest_plain`
+    returns with `cull`, (t, row, u, v), found in the order the kernels'
+    warps find it. Lanes form warps of `WARP` in launch order; a chunk's
+    ballot in a warp is the set of its lanes that enter the chunk's box
+    (and its super box); for each (lane, chunk) pair of a ballot the
+    chunk's rows go in slices of `WALK_SLICE`, row i of a slice to slot
+    i % WARP; a slot keeps its least t under a strict `<` over ascending
+    rows, the warp takes the lexicographic minimum of (t, row) over its
+    slots, and the lane merges it with a strict `<`, slices and chunks
+    ascending. (u, v) are the winning slot's. `tally` gets what
+    `walk_nearest_plain`'s gets, the slots of both schedules included
+    (`warp_slots`). A model that shows the ordering and the tie rule of
+    the schedule, not a second reference."""
+    n, dev = orig.shape[0], orig.device
+    big = torch.tensor(BIG, dtype=torch.float32, device=dev)
+    no_row = torch.iinfo(torch.int64).max
+    best_t = torch.full((n,), BIG, dtype=torch.float32, device=dev)
+    best_f = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    best_u = torch.zeros((n,), dtype=torch.float32, device=dev)
+    best_v = torch.zeros_like(best_u)
+    slot = torch.arange(WARP, device=dev)
+    for lanes, r0, r1 in _walk_spans(cull, n_rows, orig, d, active, tally):
+        # the pairs of the chunk's ballots, warp by warp in launch order
+        # (the order of `lanes`); each lane's chunks and slices ascend
+        for s0 in range(r0, r1, WALK_SLICE):
+            cnt = min(WALK_SLICE, r1 - s0)
+            steps = -(-cnt // WARP)
+            tm, u, v = (torch.nn.functional.pad(x, (0, steps * WARP - cnt), value=float(BIG))
+                        for x in mt_plane(orig[lanes], d[lanes], tri_table[s0:s0 + cnt], uv=True))
+            # (pairs, steps, WARP): slot j holds rows j, j + WARP, ...
+            tm, u, v = (x.reshape(-1, steps, WARP) for x in (tm, u, v))
+            slot_t, slot_q = plane_winner(tm.transpose(1, 2).reshape(-1, steps))
+            slot_t, slot_q = slot_t.reshape(-1, WARP), slot_q.reshape(-1, WARP)
+            slot_row = torch.where(slot_t < big, s0 + slot_q * WARP + slot, no_row)
+            # the warp's reduction: least t, then least row among its holders
+            wt = slot_t.amin(dim=1)
+            wrow = torch.where(slot_t == wt[:, None], slot_row, no_row).amin(dim=1)
+            better = wt < best_t[lanes]
+            col = torch.where(better, wrow - s0, 0)[:, None]
+            best_t[lanes] = torch.where(better, wt, best_t[lanes])
+            best_f[lanes] = torch.where(better, wrow, best_f[lanes])
+            best_u[lanes] = torch.where(better, u.reshape(-1, steps * WARP).gather(1, col)[:, 0],
+                                        best_u[lanes])
+            best_v[lanes] = torch.where(better, v.reshape(-1, steps * WARP).gather(1, col)[:, 0],
+                                        best_v[lanes])
     return best_t, best_f, best_u, best_v
