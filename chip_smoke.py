@@ -19,7 +19,11 @@ Phases, one line each; any failure exits non-zero:
   3. path golden: 48x48 at 8 spp against tests/goldens path_mean;
   4. path main path: pipeline_from_config -> PathTracing.draw() -> save(),
      accumulate 8 + 8 == draw, and the kernel launch count;
-  5. path times of the kernel and the plain version (CUDA events);
+  5. path times of the kernel and the plain version (CUDA events, median
+     and range of 10), the bound, the loop's SIMT efficiency from the
+     kernel's own tally against the static schedule's model on the plain
+     version's per-lane iteration counts, and the issue floor from the
+     SASS of the kernel's triangle loop (utils/sass.py);
   6. Whitted: kernel vs plain on Cornell, Cornell with a mirror and a
      glass sphere, and Cornell with a textured back wall;
   7. Whitted golden: 64x64 at max_depth 4 against tests/goldens whitted;
@@ -43,7 +47,8 @@ Phases, one line each; any failure exits non-zero:
      identical), and `nearest_hit` over the kernel against `nearest_hit`
      over the plain version, field by field;
  16. bounce: the fused bounce kernel vs plain on the whole frame's state
-     at 1 bounce and at 16 (acc, live and state lane for lane);
+     at 1 bounce and at 16 (acc, live and state lane for lane), and the
+     model of its bounce-major schedule (bounce_major_plain) vs plain;
  17. wavefront main path: camera rays -> path_render_accumulate on the
      default device, 16 samples (16 + 16 launches), against the camera
      kernel's frame of phase 4 and the golden; PathTracing.draw() of
@@ -53,6 +58,9 @@ Phases, one line each; any failure exits non-zero:
  18. wavefront times (CUDA events, median and range): both kernels bare
      and wrapped, nearest_hit and path_trace whole, the host's share,
      Mpaths/s beside the camera kernel's, the plain versions, the bounds;
+     the bounce kernel's loop efficiency (tally against the models of the
+     per-lane loop and of the bounce-major schedule), its issue floor and
+     its device clock bounce by bounce;
  19. Whitted with two emitters: kernel vs plain on the whole frame at
      spp 1 and 4, RayTracing.draw() through pipeline_from_config, two draws
      differ, times beside the one-emitter frame;
@@ -84,8 +92,10 @@ Phases, one line each; any failure exits non-zero:
      row-test slots against the plain version's counts and the warp walk's
      model; the walk's SIMT efficiency (row tests / slots) beside the
      per-thread walk's (the model's count of that schedule); the 16-spp
-     frame's times and its bound from the tally;
- 27. the same for the bounce kernel (16 bounces), and path_trace's routes
+     frame's times and its bound from the tally, beside an earlier
+     reading;
+ 27. the same for the bounce kernel (16 bounces; the full sweep is the
+     bounce-major launch), and path_trace's routes
      (fused=None: the culled bounce kernel; fused=False: the plain
      wavefront over the trace tiers) and the camera kernel against one
      wavefront sample of the frame, by time;
@@ -100,8 +110,9 @@ Phases, one line each; any failure exits non-zero:
 The last lines are a JSON line of per-kernel results (time beside the
 card's bound for the same work; the Whitted kernel's `launches` is phase
 8's main path and `launches_two_emitters` phase 19's, its culled instance
-under "culled"; the culled camera and bounce kernels with their SIMT
-efficiency), the card's
+under "culled"; the camera and bounce kernels, full sweep and culled, with
+their SIMT efficiency, the full sweeps also with their issue floor), the
+card's
 `nvidia-smi` name and power limit, and `{"ok": true, "device": ...}`.
 Images go to chiprun_out/ under the repository root.
 """
@@ -175,6 +186,16 @@ DEEP_DEPTH = 12
 # tensor cores, and device memory
 FP32_PEAK = 67e12
 HBM_RATE = 3.35e12
+# warp schedulers of an SM (Hopper), each issuing one instruction a cycle
+SCHEDULERS_PER_SM = 4
+# repeats of a timed kernel in phases 5 and 18
+TIME_REPS = 10
+# earlier readings of the culled path kernels on an NVIDIA H100 80GB HBM3 at
+# 700 W (the kernel table of PERF.md, section 6), printed beside this run's:
+# the 16-spp frame of the camera kernel and 16 bounces of the frame's primary
+# hits, ms at 9,216 / 147,456 triangles
+EARLIER_CULLED_MS = {"camera": {"mid": 191.745, "large": 486.851},
+                     "bounce": {"mid": 13.388, "large": 30.862}}
 
 
 def phase(n: int, msg: str) -> None:
@@ -236,6 +257,46 @@ def bound(n_bytes: float, n_ops: float):
 
 def tensor_bytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def max_sm_clock_hz() -> float:
+    """The card's highest SM clock (nvidia-smi clocks.max.sm)."""
+    proc = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60)
+    if proc.returncode != 0:
+        fail(f"nvidia-smi failed: {proc.stderr.strip()}")
+    return float(proc.stdout.strip().splitlines()[0]) * 1e6
+
+
+def issue_floor(library: str, kernel: str, n_rows: int, lane_iterations: int):
+    """The issue floor of a path kernel's full sweep: the SASS instructions
+    of its triangle loop a row (utils/sass.py; one row against two rays)
+    x rows x the lane-iterations that sweep them, over every scheduler of
+    the card issuing one warp-instruction (32 lanes) each cycle at the
+    highest SM clock. Returns (ms, the loop's count from utils/sass.py)."""
+    import torch
+
+    from software_rasterizer_tpu_torch.utils import sass
+    from software_rasterizer_tpu_torch.utils.cuda_build import library_path
+
+    loop = sass.row_loop(sass.kernel_sass(library_path(library), kernel))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rate = sms * SCHEDULERS_PER_SM * 32 * max_sm_clock_hz()
+    return loop["per_row"] * n_rows * lane_iterations / rate * 1e3, loop
+
+
+def loop_line(name: str, tally, want_active: int, model: dict) -> tuple:
+    """The loop of a full-sweep kernel from its (5,) tally: (its SIMT
+    efficiency, a line with the active lane-iterations against the plain
+    version's, and the efficiency beside the models' of each schedule
+    computed from the plain version's per-lane counts)."""
+    active, slots = (int(x) for x in tally[3:5].tolist())
+    eff = active / slots
+    models = ", ".join(f"{k} {want_active / v:.4f} ({v} slots)" for k, v in model.items())
+    return eff, (f"{name} loop: {active} active lane-iterations (plain {want_active}), "
+                 f"{slots} lane-slots issued, SIMT efficiency {eff:.4f} (tally) against "
+                 f"the model of {models}")
 
 
 def build_kernels() -> float:
@@ -390,7 +451,8 @@ def main() -> int:
              f"{int((~same).sum())} pixels differ from phase 2")
 
     # ---- 5. times
-    k_ms = cuda_ms(lambda: pk.path_camera_render(*args, **kw))
+    t_k = cuda_times(lambda: pk.path_camera_render(*args, **kw), TIME_REPS)
+    k_ms = statistics.median(t_k)
     t0 = time.perf_counter()
     work = {}
     pk.path_camera_render_plain(*args, stats=work, **kw)
@@ -414,11 +476,12 @@ def main() -> int:
                 rt.emitter_cr.float().contiguous(),
                 torch.as_tensor(sample_seeds(SEED, 0, SPP)).to(dev),
                 pk._camera_table(rt, scene.fovy, WIDTH, HEIGHT))
-    bare_ms = cuda_ms(lambda: pk.launch_path_camera(
-        *operands, n_tri=rt.n_tri, n_sph=n_sph, n_emitters=rt.n_emitters,
-        lane_offset=0, n_lanes=n, width=WIDTH, height=HEIGHT, **kw))
-    phase(5, f"kernel {k_ms:.3f} ms ({paths / k_ms / 1e3:.2f} Mpaths/s; bare "
-             f"launch {bare_ms:.3f} ms), "
+    launch_kw = dict(n_tri=rt.n_tri, n_sph=n_sph, n_emitters=rt.n_emitters,
+                     lane_offset=0, n_lanes=n, width=WIDTH, height=HEIGHT, **kw)
+    t_bare = cuda_times(lambda: pk.launch_path_camera(*operands, **launch_kw), TIME_REPS)
+    bare_ms = statistics.median(t_bare)
+    phase(5, f"kernel {spread(t_k)} ms ({paths / k_ms / 1e3:.2f} Mpaths/s; bare "
+             f"launch {spread(t_bare)} ms; median [min-max] of {TIME_REPS}), "
              f"plain {p_ms:.1f} ms ({paths / p_ms / 1e3:.3f} Mpaths/s; {how}) "
              f"at {WIDTH}x{HEIGHT} {SPP} spp on {card}")
 
@@ -429,8 +492,24 @@ def main() -> int:
     path_bound, path_by = bound(
         tensor_bytes(rt.tri_table, attr_t, sph_t, rt.emitter_cr, full) + 4 * SPP + 32,
         work["lane_iterations"] * (80 * rt.n_tri + 40 * n_sph + 300))
+    # the loop from the kernel's own tally, against the static schedule's
+    # model on the plain version's per-lane iteration counts
+    tally = torch.zeros(len(pk.TALLY_ENTRIES), dtype=torch.int64, device=dev)
+    pk.launch_path_camera(*operands, tally=tally, **launch_kw)
+    torch.cuda.synchronize()
+    cam_simt, cam_loop = loop_line(
+        "camera", tally, work["lane_iterations"],
+        {"static schedule": pk.loop_slots(work["per_lane"])[0]})
+    cam_floor, cam_sass = issue_floor("path_camera", "path_camera_kernelILb0E", rt.n_tri,
+                                      int(tally[3]))
     print(f"[phase 5] bound {path_bound:.4f} ms by {path_by} "
-          f"({work['lane_iterations']} lane-iterations of this frame)", flush=True)
+          f"({work['lane_iterations']} lane-iterations of this frame); {cam_loop}; "
+          f"issue floor {cam_floor:.4f} ms ({cam_sass['per_row']:g} SASS instructions a "
+          f"row and two rays, {cam_sass['unroll']} rows a loop iteration: "
+          + ", ".join(f"{o} {c:g}" for o, c in cam_sass["mix"].items())
+          + f"; x {rt.n_tri} rows x the tally's active lane-iterations); "
+          f"bare launch {bare_ms / path_bound:.2f}x the bound, "
+          f"{bare_ms / cam_floor:.2f}x the issue floor", flush=True)
 
     whitted = whitted_phases(dev, card)
     raster = raster_phases(dev, card)
@@ -456,6 +535,11 @@ def main() -> int:
         "bound_ms": path_bound,
         "bound_by": path_by,
         "library_ms": None,
+        "ms_range": [t_k[0], t_k[-1]],
+        "bare_ms_range": [t_bare[0], t_bare[-1]],
+        "simt_efficiency": cam_simt,
+        "issue_floor_ms": cam_floor,
+        "sass_per_row": cam_sass["per_row"],
     }, whitted, *raster, *wavefront, *tiers, *culled["entries"]]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -1073,7 +1157,7 @@ def wavefront_phases(dev, card: str, cam_mean: float, cam_mpaths: float) -> list
     live = hit.hit.contiguous()
     seed = int(key_bits(fold_in(fold_in(SEED, 0), 0)))   # sample 0, block 0
     bounce_err, lines = 0.0, []
-    lane_bounces, plain_bounce_ms = {}, {}
+    lane_bounces, plain_bounce_ms, per_lane = {}, {}, {}
     for nb in (1, MAX_BOUNCES):
         ka, ks, kl = pk.fused_bounce_group(rt, state, live, seed, nb, p_rr=scene.rr)
         torch.cuda.synchronize()
@@ -1084,6 +1168,7 @@ def wavefront_phases(dev, card: str, cam_mean: float, cam_mpaths: float) -> list
         torch.cuda.synchronize()
         plain_bounce_ms[nb] = (time.perf_counter() - t0) * 1e3
         lane_bounces[nb] = work["lane_bounces"]
+        per_lane[nb] = work["per_lane"]
         if ka.shape != (3, n) or ks.shape != (18, n) or kl.shape != (n,) \
                 or not bool(torch.isfinite(ka).all()):
             fail(f"bounce kernel outputs have the wrong shape or non-finite values")
@@ -1103,9 +1188,21 @@ def wavefront_phases(dev, card: str, cam_mean: float, cam_mpaths: float) -> list
                      f"{plain_bounce_ms[nb]:.0f} ms")
         if max(acc_bad, live_bad, state_bad) > allowed:
             fail(f"bounce kernel disagrees with plain: {lines[-1]}")
+    # the kernel's schedule, modelled: the live lists bounce by bounce in a
+    # shuffled order, the staged sweep; bit for bit the plain version
+    major = {}
+    ma, ms_, ml = pk.bounce_major_plain(rt, state, live, seed, MAX_BOUNCES, p_rr=scene.rr,
+                                        order_seed=SEED, stats=major)
+    model_off = int((~same_lanes(torch.cat([ma, ms_, ml[None].float()]).T,
+                                 torch.cat([pa, ps, pl[None].float()]).T)).sum())
+    if model_off or major["slots"] != pk.loop_slots(per_lane[MAX_BOUNCES])[1]:
+        fail(f"bounce_major_plain differs from the plain version on {model_off} lanes, or "
+             f"its slots {major['slots']} from loop_slots'")
     phase(16, f"bounce kernel vs plain on {n} lanes (rtol={LANE_RTOL} "
               f"atol={LANE_ATOL}): " + "; ".join(lines)
-              + f"; max_abs_err {bounce_err:.3g}")
+              + f"; max_abs_err {bounce_err:.3g}; the bounce-major model "
+              f"(bounce_major_plain, shuffled lists, staged sweep) == plain on all {n} "
+              f"lanes at {MAX_BOUNCES} bounces, {major['slots']} lane-slots")
 
     # ---- 17. main path: explicit rays through path_render_accumulate
     kw = dict(p_rr=scene.rr, max_bounces=MAX_BOUNCES)
@@ -1239,6 +1336,7 @@ def wavefront_phases(dev, card: str, cam_mean: float, cam_mpaths: float) -> list
     t_state = cuda_times(lambda: tp.primary_state(hit), reps)
     t_bounce_bare = cuda_times(lambda: bare_bounce(MAX_BOUNCES), reps)
     t_bounce_bare1 = cuda_times(lambda: bare_bounce(1), reps)
+    t_bounce_bare0 = cuda_times(lambda: bare_bounce(0), reps)
     t_bounce = cuda_times(lambda: pk.fused_bounce_group(
         rt, state, live, seed, MAX_BOUNCES, p_rr=scene.rr), reps)
     t_pt = cuda_times(lambda: tp.path_trace(rt, o, d, SEED, **kw), reps)
@@ -1261,8 +1359,10 @@ def wavefront_phases(dev, card: str, cam_mean: float, cam_mpaths: float) -> list
               f"bare {spread(t_trace_bare)}, wrapper {spread(t_trace)} on camera rays "
               f"and {spread(t_trace2)} on bounce rays; nearest_hit whole "
               f"{spread(t_nh)}; state stack {spread(t_state)}; bounce kernel bare "
-              f"{spread(t_bounce_bare)} at {MAX_BOUNCES} bounces and "
-              f"{spread(t_bounce_bare1)} at 1, wrapper {spread(t_bounce)}; path_trace "
+              f"{spread(t_bounce_bare)} at {MAX_BOUNCES} bounces, "
+              f"{spread(t_bounce_bare1)} at 1 and {spread(t_bounce_bare0)} at 0 (the "
+              f"launch, the list of live lanes, the dead lanes' copy), wrapper "
+              f"{spread(t_bounce)}; path_trace "
               f"whole {spread(t_pt)}, of which the host queues for {spread(queue)} "
               f"(wall, 5); path_render_accumulate {SPP} samples {spread(t_acc)} (3) = "
               f"{wave_mpaths:.2f} Mpaths/s beside the camera kernel's "
@@ -1274,14 +1374,55 @@ def wavefront_phases(dev, card: str, cam_mean: float, cam_mpaths: float) -> list
     # and the rays read once, (hit, idx, t) written once. Bounce: a live
     # lane-bounce meets every primitive with two rays (~80 operations a
     # triangle, ~40 a sphere) and spends ~300 on sampling and shading;
-    # the state read and written once, live and the (3,N) sum beside it
+    # the state read and written once, live and the (3,N) sum beside it.
+    # Beside it the same with the bounce-major workspace's bytes, which the
+    # function does not need but this design moves: a live lane's column
+    # written to the first list and read back, each lane-bounce after the
+    # first of a lane its 21 floats and column written by the bounce before
+    # and read, and every lane's done row written and read back
     b_t, by_t = bound(tensor_bytes(rt.tri_table, o, d) + 13 * n,
                       58.0 * n * rt.n_tri)
-    b_b, by_b = bound(
-        tensor_bytes(tri, attr, sph, ecr, live) + 2 * tensor_bytes(state) + 13 * n,
-        lane_bounces[MAX_BOUNCES] * (80.0 * rt.n_tri + 40.0 * n_sph + 300.0))
+    n_live0 = int(live.sum())
+    work_bytes = (2 * 4 * n_live0 + 2 * 4 * (pk.BOUNCE_SCRATCH_ROWS + 1) * (
+        lane_bounces[MAX_BOUNCES] - n_live0) + 2 * 4 * pk.BOUNCE_DONE_ROWS * n)
+    io_bytes = tensor_bytes(tri, attr, sph, ecr, live) + 2 * tensor_bytes(state) + 13 * n
+    b_ops = lane_bounces[MAX_BOUNCES] * (80.0 * rt.n_tri + 40.0 * n_sph + 300.0)
+    b_b, by_b = bound(io_bytes, b_ops)
+    b_bw, by_bw = bound(io_bytes + work_bytes, b_ops)
+    # the bounce kernel's loop from its own tally, against the models of
+    # the per-lane loop it replaces and of its bounce-major schedule
+    tally = torch.zeros(len(pk.TALLY_ENTRIES), dtype=torch.int64, device=dev)
+    pk.launch_path_bounce(tri, attr, sph, ecr, state, live, n_tri=rt.n_tri, n_sph=n_sph,
+                          n_emitters=rt.n_emitters, seed=seed, n_bounces=MAX_BOUNCES,
+                          p_rr=scene.rr, tally=tally)
+    torch.cuda.synchronize()
+    static, major_slots = pk.loop_slots(per_lane[MAX_BOUNCES])
+    b_simt, b_loop = loop_line("bounce", tally, lane_bounces[MAX_BOUNCES],
+                               {"static per-lane loop": static, "bounce-major": major_slots})
+    b_floor, b_sass = issue_floor("path_bounce", "path_bounce_major", rt.n_tri, int(tally[3]))
+    # where the launch's time goes: its device clock after the first list
+    # and after each bounce, beside the lanes each bounce ran
+    clock = torch.zeros(MAX_BOUNCES + 3, dtype=torch.int64, device=dev)
+    pk.launch_path_bounce(tri, attr, sph, ecr, state, live, n_tri=rt.n_tri, n_sph=n_sph,
+                          n_emitters=rt.n_emitters, seed=seed, n_bounces=MAX_BOUNCES,
+                          p_rr=scene.rr, timeline=clock)
+    torch.cuda.synchronize()
+    clock = clock.tolist()
+    alive = [int((per_lane[MAX_BOUNCES] > b).sum()) for b in range(MAX_BOUNCES)]
+    last = max(k for k in range(MAX_BOUNCES + 2) if clock[k] > 0)
+    steps = ([f"first list {(clock[1] - clock[0]) / 1e3:.1f}"] + [
+        f"b{b} {(clock[b + 2] - clock[b + 1]) / 1e3:.1f} ({alive[b]})"
+        for b in range(MAX_BOUNCES) if clock[b + 2] > 0]
+        + [f"copy-out {(clock[-1] - clock[last]) / 1e3:.1f}"])
     phase(18, f"bounds: trace {b_t:.4f} ms by {by_t}, bounce {b_b:.4f} ms by {by_b} "
-              f"({lane_bounces[MAX_BOUNCES]} lane-bounces of this frame)")
+              f"({lane_bounces[MAX_BOUNCES]} lane-bounces of this frame; with the "
+              f"workspace's {work_bytes / 1e6:.1f} MB {b_bw:.4f} ms by {by_bw}); {b_loop}; bounce "
+              f"issue floor {b_floor:.4f} ms ({b_sass['per_row']:g} SASS instructions a row "
+              f"and two rays, {b_sass['unroll']} rows a loop iteration: "
+              + ", ".join(f"{o} {c:g}" for o, c in b_sass["mix"].items())
+              + f"); bare launch {med(t_bounce_bare) / b_b:.2f}x the bound, "
+              f"{med(t_bounce_bare) / b_floor:.2f}x the issue floor; the launch's device "
+              f"clock, us (lanes of the bounce): " + ", ".join(steps))
     return [
         {"name": "trace_nearest", "route": "cuda",
          "source": "software_rasterizer_tpu_torch/csrc/trace_nearest.cu",
@@ -1296,7 +1437,12 @@ def wavefront_phases(dev, card: str, cam_mean: float, cam_mpaths: float) -> list
          "launches": launches[1], "max_abs_err": bounce_err,
          "ms": med(t_bounce), "bare_ms": med(t_bounce_bare),
          "plain_ms": plain_bounce_ms[MAX_BOUNCES], "bound_ms": b_b,
-         "bound_by": by_b, "library_ms": None},
+         "bound_by": by_b, "library_ms": None,
+         "ms_range": [t_bounce[0], t_bounce[-1]],
+         "bare_ms_range": [t_bounce_bare[0], t_bounce_bare[-1]],
+         "bare_ms_1": med(t_bounce_bare1), "bound_ms_with_workspace": b_bw,
+         "simt_efficiency": b_simt,
+         "issue_floor_ms": b_floor, "sass_per_row": b_sass["per_row"]},
     ]
 
 
@@ -1839,7 +1985,9 @@ def culled_phases(dev, card: str, scenes: dict) -> dict:
             f"and the warp walk's model; SIMT efficiency of the walk (row tests / slots) "
             f"{eff[0]:.4f} there against {eff[1]:.4f} for the per-thread walk "
             f"(trace_tiers.warp_slots' model of its schedule on the same lanes); {SPP} spp "
-            f"whole frame: kernel {spread(t_k)} ms = {n * SPP / med(t_k) / 1e3:.2f} Mpaths/s, "
+            f"whole frame: kernel {spread(t_k)} ms = {n * SPP / med(t_k) / 1e3:.2f} Mpaths/s "
+            f"(earlier reading {EARLIER_CULLED_MS['camera'][name]} ms: "
+            f"{med(t_k) / EARLIER_CULLED_MS['camera'][name]:.3f}x), "
             f"bare {spread(t_b)}; {rows:.4g} row tests, {slabs:.4g} slab tests = "
             f"{rows / (2.0 * n * SPP):.0f} rows a lane-sample and ray of the "
             f"{rt.tri_table.shape[0]}, {int(tally[2]):.4g} slots (efficiency {simt:.4f}); "
@@ -1939,7 +2087,9 @@ def culled_phases(dev, card: str, scenes: dict) -> dict:
             f"{bad[True]}, full {bad[False]} lanes differ (plain {plain[True]:.0f} / "
             f"{plain[False]:.0f} ms), walk tally = plain counts and the model's slots; SIMT "
             f"efficiency of the walk {eff[0]:.4f} there against {eff[1]:.4f} for the "
-            f"per-thread walk; {n} lanes: kernel {spread(t_k)} ms, bare {spread(t_b)}, "
+            f"per-thread walk; {n} lanes: kernel {spread(t_k)} ms (earlier reading "
+            f"{EARLIER_CULLED_MS['bounce'][name]} ms: "
+            f"{med(t_k) / EARLIER_CULLED_MS['bounce'][name]:.3f}x), bare {spread(t_b)}, "
             f"{rows:.4g} row tests, {slabs:.4g} slab tests, {int(tally[2]):.4g} slots "
             f"(efficiency {simt:.4f}), bound {b_b:.4f} ms by {by_b} ({med(t_k) / b_b:.1f}x); "
             f"path_trace one sample of {PLAIN_WAVE_LANES} lanes (wall, once): fused=None "

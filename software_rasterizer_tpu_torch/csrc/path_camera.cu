@@ -23,15 +23,24 @@
 // at 147,456 triangles, which still sits in the 50 MB L2. Design: one
 // thread per pixel lane (128 threads a block) runs its own loop; all path
 // state lives in registers, and device memory is touched only to read the
-// tables and to write the (3, n) sum once at the end. The full sweep's
-// threads read the same row at once (a broadcast). In the culled walk the
-// rays of a warp enter different chunks, so the warp tests each (ray,
-// chunk) pair together (path_common.cuh dual_trace_culled, trace_common.cuh
-// warp_walk_chunks): a ballot a chunk, the rows staged in shared memory
-// with cp.async, 32 threads on one ray's rows. Its loop runs while any
-// thread of the warp is active, and a thread whose lane is done (or lies
-// past n_lanes) stays in it, inactive, for the warp's votes.
-//
+// tables and to write the (3, n) sum once at the end. The full sweep
+// stages the triangle table in shared memory (once, for a table of up to
+// kStageRows rows; else slice by slice, path_common.cuh dual_trace_block),
+// computes o - v0 and (o - v0) x e1 once a row for both rays, keeps each
+// ray's (t, row, u, v) and reads the winner's attributes once after the
+// sweep; its loop runs while any thread of the warp is active, or, when
+// the table is staged slice by slice, of the block (__syncthreads_or: the
+// staging's barriers need the whole block). In the
+// culled walk the rays of a warp enter different chunks, so the warp tests
+// each (ray, chunk) pair together (path_common.cuh dual_trace_culled,
+// trace_common.cuh warp_walk_chunks): a ballot a chunk, the rows staged in
+// shared memory with cp.async, 32 threads on one ray's rows. Its loop runs
+// while any thread of the warp is active. In both, a thread whose lane is
+// done (or lies past n_lanes) stays in the loop, inactive, for the votes
+// and barriers. The loop cannot refill a finished lane with another
+// pixel's sample without splitting that pixel's sum, whose order fixes
+// its bits.
+
 // Semantics are the JAX kernel's, lane for lane: the same lowbias32
 // draws keyed by (sample seed, absolute lane, depth*8 + slot), the same
 // thresholds and tie rules, the same quirks. Build with -fmad=false and
@@ -77,7 +86,8 @@ struct Params {
   float* acc;          // (3, n_lanes) radiance sum
   CullTables cull;     // read by the culled instance only
   // (n_tally,) [row tests, slab tests, row-test slots of the culled walk's
-  // warps] added, or null
+  // warps, the full sweep's active lane-iterations and issued lane-slots]
+  // added, or null
   unsigned long long* tally;
   int n_tally;
   int n_tri, n_sph, n_emitters, spp, lane_offset, n_lanes, width, height,
@@ -87,13 +97,23 @@ struct Params {
 
 constexpr int kThreads = 128;
 
+// blocks an SM the full sweep asks of the compiler: 6 cap a thread at 80
+// registers (it takes 104 unasked, 5 blocks), which took less time on an
+// H100 with the warp-uniform loop than 5 or 8 (64 registers)
+constexpr int kMinBlocksFull = 6;
+
 template <bool kCull>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kCull ? 1 : kMinBlocksFull)
 path_camera_kernel(const Params p) {
-  extern __shared__ srt::WarpStage s_stage[];  // culled: one a warp
+  // culled: a WarpStage a warp; full sweep: the staged table rows
+  extern __shared__ float4 s_dyn[];
+  srt::WarpStage* s_stage = reinterpret_cast<srt::WarpStage*>(s_dyn);
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   const bool valid = idx < p.n_lanes;
-  if (!kCull && !valid) return;
+  if (!kCull && stage_resident(p.n_tri)) {
+    block_stage_rows(s_dyn, p.tri, 0, p.n_tri);
+    __syncthreads();
+  }
   const int lane = p.lane_offset + (valid ? idx : 0);
   const uint32_t lane_u = (uint32_t)lane;
   const bool inb = valid && lane < p.width * p.height;
@@ -122,12 +142,18 @@ path_camera_kernel(const Params p) {
   float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
   srt::Tally tl;
   unsigned long long slots = 0;
+  LoopTally lt;
 
   while (true) {
-    // an inactive thread of the culled walk draws and traces with the
-    // rest but gets no result: live and restart stay false
+    // an inactive thread draws and traces with the rest but gets no
+    // result: live and restart stay false
     const bool active = live || next_s < p.spp;
-    if (kCull ? !__any_sync(srt::kFullMask, active) : !active) break;
+    // the warp runs while any of its threads is active; the sliced
+    // sweep's barriers need the block, which runs while any thread of it is
+    if ((kCull || stage_resident(p.n_tri)) ? !__any_sync(srt::kFullMask, active)
+                                           : !__syncthreads_or(active))
+      break;
+    if (!kCull) lt.step(active);
     const bool restart = !live && next_s < p.spp;
     // the current sample of a live lane is next_s - 1; a restarting lane
     // draws with the previous sample's seed and discards the draws
@@ -179,7 +205,8 @@ path_camera_kernel(const Params p) {
                         bd, active, s_stage[threadIdx.x >> 5], &A, &B, tl,
                         slots);
     else
-      dual_trace(p.tri, p.attr, p.sph, p.n_tri, p.n_sph, o, ll, bd, &A, &B, tl);
+      dual_trace_block(p.tri, p.attr, p.sph, p.n_tri, p.n_sph, s_dyn, o, ll, bd,
+                       active, &A, &B, tl);
 
     // ---- NEE evaluation for live lanes (Scene.cpp:671-717)
     const bool hit_a = A.t < kBig;
@@ -248,6 +275,7 @@ path_camera_kernel(const Params p) {
   tl.flush(p.tally);
   if (kCull && p.tally != nullptr && p.n_tally > 2 && slots != 0)
     atomicAdd(p.tally + 2, slots);
+  lt.flush(p.tally, p.n_tally);
 }
 
 }  // namespace
@@ -276,6 +304,7 @@ extern "C" int srt_path_camera_render(
                                (kThreads / 32) * srt::kWarpStageBytes,
                                (cudaStream_t)stream>>>(p);
   else
-    path_camera_kernel<false><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(p);
+    path_camera_kernel<false><<<blocks, kThreads, stage_bytes(n_tri),
+                                (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }

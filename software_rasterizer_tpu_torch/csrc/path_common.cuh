@@ -1,7 +1,8 @@
 // What the path-tracing kernels share (path_camera.cu, path_bounce.cu):
 // constants, the 3-vector, _norm3, Tools::toWorld, Moller-Trumbore, the
 // sphere quadratic and the dual trace of a shadow ray and a bounce ray:
-// `dual_trace` through one loop over the primitive tables, or
+// `dual_trace_block`, the block sweeping the triangle table staged in
+// shared memory with one attribute read a ray after the sweep, or
 // `dual_trace_culled`, each ray culling by the chunk boxes of the table on
 // its own and the warp testing each (ray, chunk) pair together. Every
 // expression is written in the order of the plain PyTorch versions; build
@@ -55,7 +56,33 @@ struct Hit {
   bool is_sphere;
 };
 
-// Moller-Trumbore with the reference thresholds; kBig on a miss.
+// Moller-Trumbore's end for the ray direction d against one row, from the
+// row's tv = o - v0 and the dot products dq = d . q and e2q = e2 . q of
+// q = tv x e1; the reference thresholds; kBig on a miss.
+__device__ __forceinline__ float mt_tail(V3 d, V3 tv, float dq, float e2q, V3 e1,
+                                         V3 e2, float* u_out, float* v_out) {
+  float px = d.y * e2.z - d.z * e2.y;
+  float py = d.z * e2.x - d.x * e2.z;
+  float pz = d.x * e2.y - d.y * e2.x;
+  float det = e1.x * px + e1.y * py + e1.z * pz;
+  float inv = 1.0f / (fabsf(det) < 1e-6f ? 1.0f : det);
+  float u = (tv.x * px + tv.y * py + tv.z * pz) * inv;
+  float v = dq * inv;
+  float t = e2q * inv;
+  bool ok = fabsf(det) >= 1e-6f && u >= 0.0f && u <= 1.0f && v >= 0.0f &&
+            u + v <= 1.0f && t >= 1e-6f;
+  *u_out = u;
+  *v_out = v;
+  return ok ? t : kBig;
+}
+
+__device__ __forceinline__ float dot3(V3 a, V3 b) {
+  return a.x * b.x + a.y * b.y + a.z * b.z;
+}
+
+// Moller-Trumbore with the reference thresholds; kBig on a miss: mt_tail's
+// expressions in the order of one ray (the culled walks test one ray a
+// row; taking d . q and e2 . q first there costs their kernels registers).
 __device__ __forceinline__ float mt(V3 d, V3 tv, V3 q, V3 e1, V3 e2,
                                     float* u_out, float* v_out) {
   float px = d.y * e2.z - d.z * e2.y;
@@ -125,17 +152,6 @@ __device__ __forceinline__ void take_row(const float* __restrict__ attr, int f,
   h->emit = {at[12], at[13], at[14]};
 }
 
-// Fold triangle f's hit of ray (o, d) into h. A strict `<`: over
-// ascending f the lowest index wins a tie.
-template <bool kBounce>
-__device__ __forceinline__ void tri_step(const float* __restrict__ tri,
-                                         const float* __restrict__ attr, int f,
-                                         V3 o, V3 d, Hit* h) {
-  float u, v;
-  const float tm = tri_t(tri + 12 * f, o, d, &u, &v);
-  if (tm < h->t) take_row<kBounce>(attr, f, tm, u, v, h);
-}
-
 // The sphere loop after the triangles (_sph_dual_merge): strict `<`, so
 // a triangle beats a sphere on a tie.
 __device__ __forceinline__ void merge_spheres(const float* __restrict__ sph,
@@ -175,18 +191,107 @@ __device__ __forceinline__ void no_hit(Hit* A, Hit* B) {
   *B = *A;
 }
 
-// _dual_trace: nearest hits of the shadow ray A (o, la) and the bounce
-// ray B (o, lb) in one pass over every triangle, then spheres.
-__device__ __forceinline__ void dual_trace(
-    const float* __restrict__ tri, const float* __restrict__ attr,
-    const float* __restrict__ sph, int n_tri, int n_sph, V3 o, V3 la, V3 lb,
-    Hit* A, Hit* B, srt::Tally& tl) {
-  no_hit(A, B);
-  tl.rows += 2 * (uint32_t)n_tri;
-  for (int f = 0; f < n_tri; ++f) {
-    tri_step<false>(tri, attr, f, o, la, A);
-    tri_step<true>(tri, attr, f, o, lb, B);
+// ---- the full sweep: the block stages the table, each thread sweeps it
+//
+// Rows of the [v0|e1|e2|pad] table go to shared memory as 3 float4 (48
+// bytes) a row, kStageRows at a time, copied with cp.async by every thread
+// of the block; every thread then reads the same row at once (a broadcast,
+// no bank conflict). A table of at most kStageRows rows (the Cornell box:
+// 36) is staged once, when the kernel starts, and never again; a larger one
+// is staged slice by slice inside each sweep, which then needs the whole
+// block at every slice's two barriers. A tuning value that changes no
+// result.
+constexpr int kStageRows = 256;
+
+// Bytes of dynamic shared memory the staged sweep of n_tri rows needs.
+inline int stage_bytes(int n_tri) {
+  const int rows = n_tri < 0 ? 0 : (n_tri < kStageRows ? n_tri : kStageRows);
+  return rows * 3 * (int)sizeof(float4);
+}
+
+// Copy rows [f0, f0 + cnt) of the (16-byte aligned) table into `dst` with
+// the whole block; returns when this thread's copies have landed (the
+// caller's __syncthreads() then makes all of them visible).
+__device__ __forceinline__ void block_stage_rows(float4* __restrict__ dst,
+                                                 const float* __restrict__ tri,
+                                                 int f0, int cnt) {
+  const float4* src = reinterpret_cast<const float4*>(tri + (size_t)f0 * 12);
+  for (int k = threadIdx.x; k < cnt * 3; k += blockDim.x)
+    __pipeline_memcpy_async(dst + k, src + k, sizeof(float4));
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+}
+
+// A table small enough to stay staged for the whole launch: the kernel
+// stages it once, before its loop, with block_stage_rows, and the sweep
+// has no barrier, so its callers need not keep the block together.
+__device__ __forceinline__ bool stage_resident(int n_tri) {
+  return n_tri <= kStageRows;
+}
+
+// A ray's nearest row so far: t (kBig on a miss), row (-1) and the
+// winner's (u, v).
+struct RowBest {
+  float t;
+  int row;
+  float u, v;
+};
+
+// Fold the staged rows [0, cnt) (table rows f0 + i) into the nearest rows
+// of the shadow ray (o, la) and the bounce ray (o, lb). Both rays leave
+// from o, so tv = o - v0, q = tv x e1 and e2 . q are computed once a row;
+// each ray keeps (t, row, u, v) under a strict `<` over ascending rows, so
+// the lowest row wins a tie, as in _dual_trace. Two rows an iteration: 4
+// did not take less time on an H100, 1 took more.
+__device__ __forceinline__ void sweep_rows(const float4* __restrict__ rows,
+                                           int f0, int cnt, V3 o, V3 la, V3 lb,
+                                           RowBest& a, RowBest& b) {
+#pragma unroll 2
+  for (int i = 0; i < cnt; ++i) {
+    const float4 r0 = rows[3 * i], r1 = rows[3 * i + 1], r2 = rows[3 * i + 2];
+    const V3 e1 = {r0.w, r1.x, r1.y};
+    const V3 e2 = {r1.z, r1.w, r2.x};
+    const V3 tv = {o.x - r0.x, o.y - r0.y, o.z - r0.z};
+    const V3 q = {tv.y * e1.z - tv.z * e1.y, tv.z * e1.x - tv.x * e1.z,
+                  tv.x * e1.y - tv.y * e1.x};
+    // q's three uses at once, so that it is never recomputed
+    const float e2q = dot3(e2, q), aq = dot3(la, q), bq = dot3(lb, q);
+    float u, v;
+    float tm = mt_tail(la, tv, aq, e2q, e1, e2, &u, &v);
+    if (tm < a.t) a = {tm, f0 + i, u, v};
+    tm = mt_tail(lb, tv, bq, e2q, e1, e2, &u, &v);
+    if (tm < b.t) b = {tm, f0 + i, u, v};
   }
+}
+
+// _dual_trace: nearest hits of the shadow ray A (o, la) and the bounce
+// ray B (o, lb) over every triangle of the table staged in `stage`, then
+// spheres. The winner's attributes are read once after the sweep, with
+// take_row's expressions: what the last improvement of a per-row fold
+// would have read. The whole block calls it together (the sliced sweep
+// has barriers); an inactive thread (not `active`) helps stage, tests
+// nothing and gets misses.
+__device__ __forceinline__ void dual_trace_block(
+    const float* __restrict__ tri, const float* __restrict__ attr,
+    const float* __restrict__ sph, int n_tri, int n_sph, float4* stage, V3 o,
+    V3 la, V3 lb, bool active, Hit* A, Hit* B, srt::Tally& tl) {
+  RowBest a = {kBig, -1, 0.0f, 0.0f}, b = a;
+  if (stage_resident(n_tri)) {
+    if (active) sweep_rows(stage, 0, n_tri, o, la, lb, a, b);
+  } else {
+    for (int f0 = 0; f0 < n_tri; f0 += kStageRows) {
+      const int cnt = min(kStageRows, n_tri - f0);
+      __syncthreads();  // every thread is done with the previous slice
+      block_stage_rows(stage, tri, f0, cnt);
+      __syncthreads();
+      if (active) sweep_rows(stage, f0, cnt, o, la, lb, a, b);
+    }
+  }
+  no_hit(A, B);
+  if (!active) return;
+  tl.rows += 2 * (uint32_t)n_tri;
+  if (a.row >= 0) take_row<false>(attr, a.row, a.t, a.u, a.v, A);
+  if (b.row >= 0) take_row<true>(attr, b.row, b.t, b.u, b.v, B);
   merge_spheres(sph, n_sph, o, la, lb, A, B);
 }
 
@@ -194,9 +299,9 @@ using srt::CullTables;
 
 // Nearest triangle of one ray over the chunks whose boxes it enters, for
 // the whole warp at once (trace_common.cuh warp_walk_chunks), each row
-// tested with dual_trace's expressions; the winner's (u, v) are
+// tested with the full sweep's expressions; the winner's (u, v) are
 // recomputed from its row with the same expression and its attributes
-// read once, as tri_step's last improvement reads them.
+// read once, as dual_trace_block reads them.
 template <bool kBounce>
 __device__ __forceinline__ void warp_walk_ray(
     const float* __restrict__ tri, const float* __restrict__ attr, int n_tri,
@@ -217,11 +322,11 @@ __device__ __forceinline__ void warp_walk_ray(
   }
 }
 
-// dual_trace with each ray culling for itself (the mm=True tier of the
+// dual_trace_block with each ray culling for itself (the mm=True tier of the
 // JAX kernel, ops/pallas_path.py:354-365: the shadow rays converge on the
 // light while the bounce rays scatter, so one cull for both would keep
 // the union): the shadow rays of the warp walk together, then its bounce
-// rays. Equal to dual_trace lane for lane. The whole warp calls it; an
+// rays. Equal to dual_trace_block lane for lane. The whole warp calls it; an
 // inactive thread (not `active`) tests nothing and gets misses from the
 // triangles.
 __device__ __forceinline__ void dual_trace_culled(
@@ -234,6 +339,26 @@ __device__ __forceinline__ void dual_trace_culled(
   warp_walk_ray<true>(tri, attr, n_tri, ct, o, lb, active, stage, B, tl, slots);
   merge_spheres(sph, n_sph, o, la, lb, A, B);
 }
+
+// The loop count of the full sweeps' SIMT efficiency: the iterations
+// (lane-iterations, lane-bounces) in which this thread's lane was active,
+// and, on lane 0 of each warp, 32 for every iteration in which any lane of
+// the warp was: the lane-slots the warp issued. Every thread of the warp
+// calls step() together. Tally entries 3 and 4.
+struct LoopTally {
+  unsigned long long active = 0, slots = 0;
+  __device__ __forceinline__ void step(bool act) {
+    active += act ? 1u : 0u;
+    const bool any = __any_sync(srt::kFullMask, act);
+    if ((threadIdx.x & 31) == 0 && any) slots += 32u;
+  }
+  __device__ __forceinline__ void flush(unsigned long long* total,
+                                        int n_tally) const {
+    if (total == nullptr || n_tally < 5) return;
+    if (active != 0) atomicAdd(total + 3, active);
+    if (slots != 0) atomicAdd(total + 4, slots);
+  }
+};
 
 __device__ __forceinline__ float len3(V3 v) {
   return sqrtf(v.x * v.x + v.y * v.y + v.z * v.z);

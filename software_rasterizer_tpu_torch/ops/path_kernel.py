@@ -49,7 +49,8 @@ import torch
 from software_rasterizer_tpu_torch.ops.camera import camera_scale
 from software_rasterizer_tpu_torch.ops.intersect import RTScene, _rows
 from software_rasterizer_tpu_torch.ops import trace_tiers
-from software_rasterizer_tpu_torch.ops.trace_tiers import CullTables, walk_nearest_plain
+from software_rasterizer_tpu_torch.ops.trace_kernel import mt_plane
+from software_rasterizer_tpu_torch.ops.trace_tiers import WARP, CullTables, walk_nearest_plain
 from software_rasterizer_tpu_torch.utils.rng import (
     bounce_uniform,
     lowbias32_uniform,
@@ -65,6 +66,10 @@ BIG = 1e30
 # above this many triangle rows the kernels take the culled walk unless
 # the caller names a tier (the JAX gate, ops/pallas_path.py:1249)
 CULL_MIN_TRIS = 512
+
+# rows of the triangle table the full sweeps stage in shared memory at a
+# time (csrc/path_common.cuh kStageRows)
+STAGE_ROWS = 256
 
 # kernel launches made by path_camera_render and by fused_bounce_group,
 # full sweep and culled walk (the plain versions are not counted); a
@@ -195,16 +200,24 @@ def _check_cull(ct: Optional[CullTables], n_rows: int, device) -> tuple:
             ct.hi2.data_ptr(), nc, ct.chunk)
 
 
+# the entries of a path kernel's tally: (ray, row) tests, slab tests, the
+# row-test slots the culled walk's warps issue (32 a row-step), and the
+# full sweep's loop: the iterations its lanes were active in
+# (lane-iterations, lane-bounces) and the lane-slots its warps issued (32
+# an iteration of a warp with any lane active)
+TALLY_ENTRIES = ("row_tests", "slab_tests", "walk_slots", "loop_active", "loop_slots")
+
+
 def _check_tally(tally: Optional[torch.Tensor], device, slots: bool = False):
     """The kernels' optional (2,) int64 [row tests, slab tests] total; with
-    `slots` also (3,), the third entry getting the row-test slots the
-    culled walk's warps issue (32 a row-step)."""
+    `slots` also (3,) or (5,), the later entries those of
+    `TALLY_ENTRIES`."""
     if tally is None:
         return None
     _check_table("tally", tally, torch.int64, None, device)
-    if tally.shape != (2,) and not (slots and tally.shape == (3,)):
+    if tally.shape != (2,) and not (slots and tally.shape in ((3,), (5,))):
         raise ValueError(f"tally has shape {tuple(tally.shape)}, expected (2,)"
-                         + (" or (3,)" if slots else ""))
+                         + (", (3,) or (5,)" if slots else ""))
     return tally.data_ptr()
 
 
@@ -222,8 +235,10 @@ def launch_path_camera(tri: torch.Tensor, attr: torch.Tensor,
     the full sweep. A `tally` (2,) int64 tensor gets the launch's (ray,
     row) tests and slab tests added; a (3,) one also, from the culled
     instance, the row-test slots its warps issue (32 a row-step of the
-    warp walk: the SIMT efficiency is row tests / slots). Checks every
-    operand and raises on a launch error."""
+    warp walk: the SIMT efficiency is row tests / slots); a (5,) one also,
+    from the full sweep, its loop's active lane-iterations and issued
+    lane-slots (`TALLY_ENTRIES`; the loop's SIMT efficiency is their
+    ratio). Checks every operand and raises on a launch error."""
     global LAUNCHES, LAUNCHES_CULLED
     device = tri.device
     if device.type != "cuda":
@@ -364,19 +379,50 @@ def _plain_tables(scene: RTScene, cull: Optional[bool]) -> _Tables:
                    pack_cull_tables(scene) if use_cull(scene, cull) else None)
 
 
-def _dual_trace(tabs: _Tables, o, la, lb, active=None, tally=None):
+def staged_sweep_plain(tri_table, n_rows: int, orig, d, slice_rows: int = STAGE_ROWS):
+    """A CPU model of the full sweeps' triangle search
+    (csrc/path_common.cuh dual_trace_block): the first `n_rows` rows of
+    `tri_table` in staged slices of `slice_rows`, and each ray folding
+    them one row at a time into its (t, row, u, v) under a strict `<`.
+    Returns what `walk_nearest_plain` returns without a cull: (t (N,) with
+    BIG on a miss, row (N,) int64 with -1, u, v of the winner, 0 on a
+    miss), lane for lane."""
+    n, dev = orig.shape[0], orig.device
+    t = torch.full((n,), BIG, dtype=torch.float32, device=dev)
+    row = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    u = torch.zeros((n,), dtype=torch.float32, device=dev)
+    v = torch.zeros_like(u)
+    for f0 in range(0, n_rows, slice_rows):
+        cnt = min(slice_rows, n_rows - f0)
+        tm, um, vm = mt_plane(orig, d, tri_table[f0:f0 + cnt], uv=True)
+        for i in range(cnt):
+            better = tm[:, i] < t
+            t = torch.where(better, tm[:, i], t)
+            row = torch.where(better, f0 + i, row)
+            u = torch.where(better, um[:, i], u)
+            v = torch.where(better, vm[:, i], v)
+    return t, row, u, v
+
+
+def _dual_trace(tabs: _Tables, o, la, lb, active=None, tally=None,
+                slice_rows: Optional[int] = None):
     """Nearest hits of the shadow ray A (o, la) and the bounce ray B
     (o, lb): triangles (`walk_nearest_plain`: every row, or the culled
-    walk of each ray on its own), then spheres, strict `<` merges (lowest
-    index wins a tie; triangles before spheres). `tally` gets the (ray,
-    row) and slab tests of the `active` lanes."""
+    walk of each ray on its own; with `slice_rows`, the full sweep's
+    staged form `staged_sweep_plain`), then spheres, strict `<` merges
+    (lowest index wins a tie; triangles before spheres). `tally` gets the
+    (ray, row) and slab tests of the `active` lanes."""
     ox, oy, oz = o
     orig = torch.stack(o, dim=1)
 
     def tri_hit(d, bounce):
-        t, f, u, v = walk_nearest_plain(tabs.tri, tabs.n_tri, orig,
-                                        torch.stack(d, dim=1), tabs.cull,
-                                        active, tally)
+        if slice_rows is None:
+            t, f, u, v = walk_nearest_plain(tabs.tri, tabs.n_tri, orig,
+                                            torch.stack(d, dim=1), tabs.cull,
+                                            active, tally)
+        else:
+            t, f, u, v = staged_sweep_plain(tabs.tri, tabs.n_tri, orig,
+                                            torch.stack(d, dim=1), slice_rows)
         hit = f >= 0
         at = _rows(tabs.attr, torch.clamp(f, min=0)).T
         w = 1.0 - u - v
@@ -451,7 +497,8 @@ def path_camera_render_plain(scene: RTScene, seed: int, width: int,
     semantics), on the scene's device. A `stats` dict gets
     "lane_iterations": the loop iterations summed over lanes, each a
     restart or a bounce with its two traces (the kernel's unit of work),
-    and "row_tests" / "slab_tests": the (ray, row) and slab tests of those
+    "per_lane": those iterations lane by lane ((n,) int64, the input of
+    `loop_slots`), and "row_tests" / "slab_tests": the (ray, row) and slab tests of those
     iterations, the counts the kernel's `tally` adds up; with the culled
     walk also "slots" / "slots_thread": the row-test slots the kernel's
     warps issue (its `tally`'s third entry) and those the per-thread walk
@@ -487,12 +534,11 @@ def path_camera_render_plain(scene: RTScene, seed: int, width: int,
     pos = nrm = kd = emit = col = tp = (zero, zero, zero)
     acc = [zero, zero, zero]
 
-    lane_iterations = 0
+    per_lane = torch.zeros(n, dtype=torch.int64, device=dev)
     tally = {} if stats is not None else None
     while bool((live | (next_s < spp)).any()):
         active = live | (next_s < spp)
-        if stats is not None:
-            lane_iterations += int(active.sum())
+        per_lane += active.long()
         restart = ~live & (next_s < spp)
         local_s = torch.clamp(next_s - 1, min=0)
         sseed = seeds[torch.clamp(local_s, max=max(spp - 1, 0))]
@@ -593,7 +639,8 @@ def path_camera_render_plain(scene: RTScene, seed: int, width: int,
         depth = torch.where(restart, 0, depth_n)
 
     if stats is not None:
-        stats["lane_iterations"] = stats.get("lane_iterations", 0) + lane_iterations
+        stats["lane_iterations"] = stats.get("lane_iterations", 0) + int(per_lane.sum())
+        stats["per_lane"] = stats.get("per_lane", 0) + per_lane
         _add_tally(stats, tally)
     return torch.stack(acc)
 
@@ -620,6 +667,11 @@ def _add_tally(stats: dict, tally: dict) -> None:
 # defined on every lane.
 
 STATE_ROWS = 18  # [pos | nrm | kd | emit | color | throughput]
+# a live lane between two bounces of the bounce-major kernel: its state
+# rows and its three sums (csrc/path_bounce.cu kScratchRows); a done lane:
+# those, live and padding (kDoneRows)
+BOUNCE_SCRATCH_ROWS = STATE_ROWS + 3
+BOUNCE_DONE_ROWS = 24
 
 
 def _check_state(state: torch.Tensor, live: torch.Tensor, device) -> int:
@@ -643,7 +695,8 @@ def _bounce_fn():
     fn = lib.srt_path_bounce
     if fn.argtypes is None:
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [vp] * 9 + [ci] * 6 + [cf] + [vp] * 4 + [ci] * 2 + [vp, ci, vp]
+        fn.argtypes = ([vp] * 9 + [ci] * 6 + [cf] + [vp] * 4 + [ci] * 2 + [vp] * 4
+                       + [vp, ci, vp, vp])
         fn.restype = ci
     return fn
 
@@ -659,12 +712,21 @@ def launch_path_bounce(tri: torch.Tensor, attr: torch.Tensor,
                        n_tri: int, n_sph: int, n_emitters: int, seed: int,
                        n_bounces: int, p_rr: float,
                        cull_tables: Optional[CullTables] = None,
-                       tally: Optional[torch.Tensor] = None
+                       tally: Optional[torch.Tensor] = None,
+                       timeline: Optional[torch.Tensor] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch csrc/path_bounce.cu on the current stream; returns (acc
     (3,N), state (18,N), live (N,)). `cull_tables` and `tally` as in
-    `launch_path_camera`. Checks every operand and raises on a launch
-    error."""
+    `launch_path_camera` (a (5,) tally's loop entries count lane-bounces).
+    The full sweep is one cooperative launch that runs bounce-major over
+    lists of the live lanes, in a workspace allocated here (two planes of
+    `BOUNCE_SCRATCH_ROWS` floats, `BOUNCE_DONE_ROWS` floats and two ints a
+    lane, 272 bytes); a `timeline` (n_bounces + 3,) int64 tensor gets its
+    device clock in ns at its start, after it built the first list, after
+    each bounce (the entries after the bounce in which the last live lane
+    died are not written) and at its end. Checks
+    every operand and raises on a launch error;
+    nothing falls back to another schedule."""
     global LAUNCHES_BOUNCE, LAUNCHES_BOUNCE_CULLED
     device = state.device
     if device.type != "cuda":
@@ -685,6 +747,11 @@ def launch_path_bounce(tri: torch.Tensor, attr: torch.Tensor,
         raise ValueError(f"bad n_bounces={n_bounces}")
     cull_args = _check_cull(cull_tables, n_tri, device)
     tally_ptr = _check_tally(tally, device, slots=True)
+    if timeline is not None:
+        _check_table("timeline", timeline, torch.int64, None, device)
+        if cull_tables is not None or timeline.shape != (n_bounces + 3,):
+            raise ValueError(f"timeline has shape {tuple(timeline.shape)}, expected "
+                             f"({n_bounces + 3},), and the full sweep")
     out_state = torch.empty_like(state)
     out_live = torch.empty_like(live)
     acc = torch.empty((3, n), dtype=f32, device=device)
@@ -692,6 +759,16 @@ def launch_path_bounce(tri: torch.Tensor, attr: torch.Tensor,
         return acc, out_state, out_live
     seed = int(seed) & 0xFFFFFFFF
     tri = trace_tiers._aligned(tri)
+    if cull_tables is None:
+        # three list lengths (zero), two lists of columns, two scratch
+        # planes, a done row a column
+        work = (torch.zeros(3, dtype=torch.int32, device=device),
+                torch.empty((2, n), dtype=torch.int32, device=device),
+                torch.empty((2, BOUNCE_SCRATCH_ROWS, n), dtype=f32, device=device),
+                torch.empty((n, BOUNCE_DONE_ROWS), dtype=f32, device=device))
+        work_ptrs = tuple(t.data_ptr() for t in work)
+    else:
+        work_ptrs = (None,) * 4
     stream = torch.cuda.current_stream(device).cuda_stream
     rc = _bounce_fn()(
         tri.data_ptr(), attr.data_ptr(), sph.data_ptr(), ecr.data_ptr(),
@@ -699,7 +776,8 @@ def launch_path_bounce(tri: torch.Tensor, attr: torch.Tensor,
         out_live.data_ptr(), acc.data_ptr(),
         n_tri, n_sph, n_emitters, n, n_bounces,
         seed - (1 << 32) if seed >= 1 << 31 else seed, float(p_rr), *cull_args,
-        tally_ptr, 0 if tally is None else tally.shape[0], stream,
+        *work_ptrs, tally_ptr, 0 if tally is None else tally.shape[0],
+        None if timeline is None else timeline.data_ptr(), stream,
     )
     if rc != 0:
         raise RuntimeError(f"path_bounce kernel launch failed: cudaError {rc}")
@@ -734,33 +812,19 @@ def fused_bounce_group(scene: RTScene, state: torch.Tensor,
         cull_tables=pack_cull_tables(scene) if use_cull(scene, cull) else None)
 
 
-def fused_bounce_group_plain(scene: RTScene, state: torch.Tensor,
-                             live: torch.Tensor, seed: int, n_bounces: int,
-                             p_rr: float = 0.8, stats: Optional[dict] = None,
-                             cull: Optional[bool] = None
-                             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of `fused_bounce_group` (same signature and
-    semantics), on the scene's device. A `stats` dict gets
-    "lane_bounces": the bounces summed over the lanes live at their start
-    (the kernel's unit of work), and "row_tests" / "slab_tests" as in
-    `path_camera_render_plain`."""
-    dev = scene.device
-    state, live = state.contiguous(), live.contiguous()
-    n = _check_state(state, live, dev)
-    tabs = _plain_tables(scene, cull)
-    ecr = scene.emitter_cr.float()
-    n_e = scene.n_emitters
+def _bounce_plain(tabs: _Tables, ecr: torch.Tensor, n_e: int, p_rr: float,
+                  seed: int, lane: torch.Tensor, b: int, st: tuple, active,
+                  tally: Optional[dict], slice_rows: Optional[int] = None):
+    """Bounce b of the lanes `lane` ((M,) columns: the draws' keys) in
+    state `st` ((pos, nrm, kd, emit, col, tp), each three (M,) rows):
+    sampleLight, roulette, the hemisphere, both traces (`_dual_trace` with
+    `active`, `tally` and `slice_rows`), the NEE term. Returns the term a
+    live lane adds to its sum (three (M,) rows), its state after the
+    bounce and whether it lives on, for every lane: the caller keeps what
+    the lanes that were live take."""
+    pos, nrm, kd, emit, col, tp = st
     any_e = n_e > 0
     n_e_f = float(max(n_e, 1))
-    p_rr = float(torch.tensor(p_rr, dtype=torch.float32))
-    lane = torch.arange(n, dtype=torch.int64, device=dev)
-
-    rows = [state[i] for i in range(STATE_ROWS)]
-    pos, nrm, kd, emit, col, tp = (tuple(rows[3 * g:3 * g + 3]) for g in range(6))
-    zero = torch.zeros(n, dtype=torch.float32, device=dev)
-    acc = [zero, zero, zero]
-    lane_bounces = 0
-    tally = {} if stats is not None else None
 
     def gauss3(c):
         u1, u2, u3, u4 = (bounce_uniform(seed, lane, c + k) for k in range(4))
@@ -769,91 +833,192 @@ def fused_bounce_group_plain(scene: RTScene, state: torch.Tensor,
         a2 = TWO_PI * u2
         return r1 * torch.cos(a2), r1 * torch.sin(a2), r2 * torch.cos(TWO_PI * u4)
 
+    c0 = 12 * b
+    nn = _norm3(*nrm)
+
+    # ---- sampleLight (Scene.cpp:429-476): draws 1-9
+    u_pick = bounce_uniform(seed, lane, c0 + 1)
+    k_e = torch.clamp(torch.floor(u_pick * n_e_f).to(torch.int64),
+                      max=max(n_e - 1, 0))
+    row = ecr[k_e]
+    cc = (row[:, 0], row[:, 1], row[:, 2])
+    crad = row[:, 3]
+    bl = _norm3(cc[0] - pos[0], cc[1] - pos[1], cc[2] - pos[2])
+    sx, sy, sz = _norm3(*gauss3(c0 + 2), 1e-20)
+    flip = sx * bl[0] + sy * bl[1] + sz * bl[2] < 0
+    sx, sy, sz = _where3(flip, (-sx, -sy, -sz), (sx, sy, sz))
+    hx, hy, hz = _norm3(*gauss3(c0 + 6), 1e-20)
+    sx, sy, sz = _norm3(sx + 1e-6 * hx, sy + 1e-6 * hy, sz + 1e-6 * hz)
+    spx, spy, spz = cc[0] + sx * crad, cc[1] + sy * crad, cc[2] + sz * crad
+    ll = _norm3(spx - pos[0], spy - pos[1], spz - pos[2])
+    cos_t = ll[0] * bl[0] + ll[1] * bl[1] + ll[2] * bl[2]
+    pdf_l = cos_t * INV_2PI if any_e else torch.zeros_like(cos_t)
+
+    # ---- RR + uniform hemisphere (Material.cpp:14-34): draws 10-12
+    survive = bounce_uniform(seed, lane, c0 + 10) <= p_rr
+    x1 = bounce_uniform(seed, lane, c0 + 11)
+    x2 = bounce_uniform(seed, lane, c0 + 12)
+    zl = (1.0 - 2.0 * x1).abs()
+    rl = torch.sqrt(torch.clamp(1.0 - zl * zl, min=0.0))
+    phi = TWO_PI * x2
+    w = _norm3(*_to_world(rl * torch.cos(phi), rl * torch.sin(phi), zl, *nn))
+    wdn = w[0] * nn[0] + w[1] * nn[1] + w[2] * nn[2]
+    cos_o = torch.clamp(wdn, min=0.0)
+    pdf_b = torch.where(wdn > 0, INV_2PI, 0.0)
+    fr = tuple(torch.where(wdn > 0, kd[k] * INV_PI, 0.0) for k in range(3))
+
+    # ---- both traces, one primitive loop
+    o = tuple(pos[k] + 1e-6 * nn[k] for k in range(3))
+    (tA, nA, eA), (tB, nB, kB, eB, sB) = _dual_trace(
+        tabs, o, ll, w, active, tally, slice_rows)
+
+    # ---- NEE evaluation (Scene.cpp:671-717)
+    hit_a = tA < BIG
+    d3 = tuple(pos[k] - (o[k] + ll[k] * tA) for k in range(3))
+    dist2 = d3[0] * d3[0] + d3[1] * d3[1] + d3[2] * d3[2]
+    not_shadow = (tA * tA - dist2).abs() <= 1e-4
+    lit = hit_a & (torch.sqrt(eA[0] * eA[0] + eA[1] * eA[1]
+                              + eA[2] * eA[2]) > EPS)
+    if not any_e:
+        lit = torch.zeros_like(lit)
+    sn = _norm3(*nA, 1e-20)
+    cos_on = torch.clamp(nn[0] * ll[0] + nn[1] * ll[1] + nn[2] * ll[2],
+                         min=0.0)
+    cos_ln = torch.clamp(-(sn[0] * ll[0] + sn[1] * ll[1] + sn[2] * ll[2]),
+                         min=0.0)
+    ldn = ll[0] * nn[0] + ll[1] * nn[1] + ll[2] * nn[2]
+    pdf_ok_l = (pdf_l >= EPS) & (pdf_l < BIG) & (pdf_l == pdf_l)
+    denom = torch.where(pdf_ok_l, pdf_l, 1.0) * torch.clamp(dist2, min=1e-30)
+    scale = torch.where(lit & not_shadow & pdf_ok_l,
+                        cos_on * cos_ln / denom, 0.0)
+    cur_emissive = torch.sqrt(emit[0] * emit[0] + emit[1] * emit[1]
+                              + emit[2] * emit[2]) > EPS
+    term = []
+    for k in range(3):
+        nee = eA[k] * torch.where(ldn > 0, kd[k] * INV_PI, 0.0) * scale
+        term.append(tp[k] * torch.where(cur_emissive, col[k], nee))
+
+    # ---- state update
+    emis_b = torch.sqrt(eB[0] * eB[0] + eB[1] * eB[1] + eB[2] * eB[2]) > EPS
+    lives = survive & (pdf_b >= EPS) & (tB < BIG) & ~emis_b
+    wgt = cos_o / torch.clamp(pdf_b * p_rr, min=1e-30)
+    after = (tuple(o[k] + w[k] * tB for k in range(3)), _norm3(*nB, 1e-20), kB, eB,
+             tuple(torch.where(sB, 0.0, kB[k]) for k in range(3)),
+             tuple(tp[k] * fr[k] * wgt for k in range(3)))
+    return term, after, lives
+
+
+def _bounce_inputs(scene: RTScene, state: torch.Tensor, live: torch.Tensor,
+                   p_rr: float):
+    state, live = state.contiguous(), live.contiguous()
+    n = _check_state(state, live, scene.device)
+    return (state, live, n, scene.emitter_cr.float(), scene.n_emitters,
+            float(torch.tensor(p_rr, dtype=torch.float32)))
+
+
+def _state_rows(state: torch.Tensor) -> tuple:
+    rows = [state[i] for i in range(STATE_ROWS)]
+    return tuple(tuple(rows[3 * g:3 * g + 3]) for g in range(6))
+
+
+def fused_bounce_group_plain(scene: RTScene, state: torch.Tensor,
+                             live: torch.Tensor, seed: int, n_bounces: int,
+                             p_rr: float = 0.8, stats: Optional[dict] = None,
+                             cull: Optional[bool] = None
+                             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of `fused_bounce_group` (same signature and
+    semantics), on the scene's device. A `stats` dict gets
+    "lane_bounces": the bounces summed over the lanes live at their start
+    (the kernel's unit of work), "per_lane": those bounces lane by lane
+    ((N,) int64), and "row_tests" / "slab_tests" as in
+    `path_camera_render_plain`."""
+    state, live, n, ecr, n_e, p_rr = _bounce_inputs(scene, state, live, p_rr)
+    dev = scene.device
+    tabs = _plain_tables(scene, cull)
+    lane = torch.arange(n, dtype=torch.int64, device=dev)
+    st = _state_rows(state)
+    zero = torch.zeros(n, dtype=torch.float32, device=dev)
+    acc = [zero, zero, zero]
+    per_lane = torch.zeros(n, dtype=torch.int64, device=dev)
+    tally = {} if stats is not None else None
+
     for b in range(n_bounces):
-        n_live = int(live.sum())
-        if n_live == 0:
+        if not bool(live.any()):
             break
-        lane_bounces += n_live
-        c0 = 12 * b
-        nn = _norm3(*nrm)
-
-        # ---- sampleLight (Scene.cpp:429-476): draws 1-9
-        u_pick = bounce_uniform(seed, lane, c0 + 1)
-        k_e = torch.clamp(torch.floor(u_pick * n_e_f).to(torch.int64),
-                          max=max(n_e - 1, 0))
-        row = ecr[k_e]
-        cc = (row[:, 0], row[:, 1], row[:, 2])
-        crad = row[:, 3]
-        bl = _norm3(cc[0] - pos[0], cc[1] - pos[1], cc[2] - pos[2])
-        sx, sy, sz = _norm3(*gauss3(c0 + 2), 1e-20)
-        flip = sx * bl[0] + sy * bl[1] + sz * bl[2] < 0
-        sx, sy, sz = _where3(flip, (-sx, -sy, -sz), (sx, sy, sz))
-        hx, hy, hz = _norm3(*gauss3(c0 + 6), 1e-20)
-        sx, sy, sz = _norm3(sx + 1e-6 * hx, sy + 1e-6 * hy, sz + 1e-6 * hz)
-        spx, spy, spz = cc[0] + sx * crad, cc[1] + sy * crad, cc[2] + sz * crad
-        ll = _norm3(spx - pos[0], spy - pos[1], spz - pos[2])
-        cos_t = ll[0] * bl[0] + ll[1] * bl[1] + ll[2] * bl[2]
-        pdf_l = cos_t * INV_2PI if any_e else torch.zeros_like(cos_t)
-
-        # ---- RR + uniform hemisphere (Material.cpp:14-34): draws 10-12
-        survive = bounce_uniform(seed, lane, c0 + 10) <= p_rr
-        x1 = bounce_uniform(seed, lane, c0 + 11)
-        x2 = bounce_uniform(seed, lane, c0 + 12)
-        zl = (1.0 - 2.0 * x1).abs()
-        rl = torch.sqrt(torch.clamp(1.0 - zl * zl, min=0.0))
-        phi = TWO_PI * x2
-        w = _norm3(*_to_world(rl * torch.cos(phi), rl * torch.sin(phi), zl, *nn))
-        wdn = w[0] * nn[0] + w[1] * nn[1] + w[2] * nn[2]
-        cos_o = torch.clamp(wdn, min=0.0)
-        pdf_b = torch.where(wdn > 0, INV_2PI, 0.0)
-        fr = tuple(torch.where(wdn > 0, kd[k] * INV_PI, 0.0) for k in range(3))
-
-        # ---- both traces, one primitive loop
-        o = tuple(pos[k] + 1e-6 * nn[k] for k in range(3))
-        (tA, nA, eA), (tB, nB, kB, eB, sB) = _dual_trace(
-            tabs, o, ll, w, live, tally)
-
-        # ---- NEE evaluation (Scene.cpp:671-717)
-        hit_a = tA < BIG
-        d3 = tuple(pos[k] - (o[k] + ll[k] * tA) for k in range(3))
-        dist2 = d3[0] * d3[0] + d3[1] * d3[1] + d3[2] * d3[2]
-        not_shadow = (tA * tA - dist2).abs() <= 1e-4
-        lit = hit_a & (torch.sqrt(eA[0] * eA[0] + eA[1] * eA[1]
-                                  + eA[2] * eA[2]) > EPS)
-        if not any_e:
-            lit = torch.zeros_like(lit)
-        sn = _norm3(*nA, 1e-20)
-        cos_on = torch.clamp(nn[0] * ll[0] + nn[1] * ll[1] + nn[2] * ll[2],
-                             min=0.0)
-        cos_ln = torch.clamp(-(sn[0] * ll[0] + sn[1] * ll[1] + sn[2] * ll[2]),
-                             min=0.0)
-        ldn = ll[0] * nn[0] + ll[1] * nn[1] + ll[2] * nn[2]
-        pdf_ok_l = (pdf_l >= EPS) & (pdf_l < BIG) & (pdf_l == pdf_l)
-        denom = torch.where(pdf_ok_l, pdf_l, 1.0) * torch.clamp(dist2, min=1e-30)
-        scale = torch.where(lit & not_shadow & pdf_ok_l,
-                            cos_on * cos_ln / denom, 0.0)
-        cur_emissive = torch.sqrt(emit[0] * emit[0] + emit[1] * emit[1]
-                                  + emit[2] * emit[2]) > EPS
+        per_lane += live.long()
+        term, after, lives = _bounce_plain(tabs, ecr, n_e, p_rr, seed, lane, b,
+                                           st, live, tally)
         for k in range(3):
-            nee = eA[k] * torch.where(ldn > 0, kd[k] * INV_PI, 0.0) * scale
-            direct = torch.where(cur_emissive, col[k], nee)
-            acc[k] = acc[k] + torch.where(live, tp[k] * direct, 0.0)
-
-        # ---- state update, for the lanes that were live at the start
-        emis_b = torch.sqrt(eB[0] * eB[0] + eB[1] * eB[1] + eB[2] * eB[2]) > EPS
-        was = live
-        live = live & survive & (pdf_b >= EPS) & (tB < BIG) & ~emis_b
-        wgt = cos_o / torch.clamp(pdf_b * p_rr, min=1e-30)
-        tp = _where3(was, tuple(tp[k] * fr[k] * wgt for k in range(3)), tp)
-        pos = _where3(was, tuple(o[k] + w[k] * tB for k in range(3)), pos)
-        nrm = _where3(was, _norm3(*nB, 1e-20), nrm)
-        kd = _where3(was, kB, kd)
-        emit = _where3(was, eB, emit)
-        col = _where3(was, tuple(torch.where(sB, 0.0, kB[k]) for k in range(3)),
-                      col)
+            acc[k] = acc[k] + torch.where(live, term[k], 0.0)
+        # the lanes live at the start of the bounce take its state
+        st = tuple(_where3(live, a, old) for a, old in zip(after, st))
+        live = live & lives
 
     if stats is not None:
-        stats["lane_bounces"] = stats.get("lane_bounces", 0) + lane_bounces
+        stats["lane_bounces"] = stats.get("lane_bounces", 0) + int(per_lane.sum())
+        stats["per_lane"] = stats.get("per_lane", 0) + per_lane
         _add_tally(stats, tally)
-    return (torch.stack(acc),
-            torch.stack([*pos, *nrm, *kd, *emit, *col, *tp]), live)
+    return torch.stack(acc), torch.stack([x for g in st for x in g]), live
+
+
+def bounce_major_plain(scene: RTScene, state: torch.Tensor, live: torch.Tensor,
+                       seed: int, n_bounces: int, p_rr: float = 0.8,
+                       order_seed: int = 0, stats: Optional[dict] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """A CPU model of the full sweep's bounce-major schedule
+    (csrc/path_bounce.cu path_bounce_major), for the tests and the chip
+    smoke test: for b in [0, n_bounces) the list of the lanes live at the
+    start of bounce b, in an order shuffled by a `torch.Generator` seeded
+    with `order_seed`, runs bounce b, each lane with its column's draws and
+    the staged sweep's triangle search (`staged_sweep_plain`); a lane adds
+    the bounce's term to its sum and takes its state, and the lanes that
+    live on form the next list. Returns what `fused_bounce_group_plain`
+    returns, bit for bit. A `stats` dict gets "lane_bounces" and "slots":
+    the lane-slots of warps of `WARP` over each bounce's list."""
+    state, live, n, ecr, n_e, p_rr = _bounce_inputs(scene, state, live, p_rr)
+    dev = scene.device
+    tabs = _plain_tables(scene, False)
+    gen = torch.Generator()
+    gen.manual_seed(order_seed)
+    out = state.clone()
+    out_live = live.clone()
+    acc = torch.zeros((3, n), dtype=torch.float32, device=dev)
+    cur = torch.nonzero(live).flatten()
+    lane_bounces = slots = 0
+    for b in range(n_bounces):
+        if cur.numel() == 0:
+            break
+        m = cur.numel()
+        cur = cur[torch.randperm(m, generator=gen).to(dev)]
+        lane_bounces += m
+        slots += WARP * -(-m // WARP)
+        term, after, lives = _bounce_plain(
+            tabs, ecr, n_e, p_rr, seed, cur, b, _state_rows(out[:, cur]), None, None,
+            STAGE_ROWS)
+        acc[:, cur] = torch.stack([acc[k, cur] + term[k] for k in range(3)])
+        out[:, cur] = torch.stack([x for g in after for x in g])
+        out_live[cur] = lives
+        cur = cur[lives]
+    if stats is not None:
+        stats["lane_bounces"] = stats.get("lane_bounces", 0) + lane_bounces
+        stats["slots"] = stats.get("slots", 0) + slots
+    return acc, out, out_live
+
+
+def loop_slots(per_lane: torch.Tensor) -> Tuple[int, int]:
+    """Lane-slots a loop costs warps of `WARP` lanes (in launch order),
+    given the iterations each lane is active in (`per_lane`, (N,) ints; a
+    lane active in k iterations is active in the first k), under two
+    schedules: the static one, each lane running its own loop, so a warp
+    issues 32 slots an iteration until its longest lane is done (the
+    camera kernel, and the per-lane bounce loop); and the bounce-major
+    one, iteration b running the list of the lanes still active, 32 slots
+    for every 32 of them or part. Their SIMT efficiency is
+    per_lane.sum() / slots."""
+    c = per_lane.long().flatten()
+    c = torch.nn.functional.pad(c, (0, -c.numel() % WARP))
+    static = WARP * int(c.reshape(-1, WARP).amax(dim=1).sum()) if c.numel() else 0
+    top = int(c.max()) if c.numel() else 0
+    alive = c.numel() - torch.cumsum(torch.bincount(c, minlength=top + 1), 0)[:top]
+    major = WARP * int(torch.div(alive + WARP - 1, WARP, rounding_mode="floor").sum())
+    return static, major

@@ -93,3 +93,8 @@ def load_library(name: str, sources: List[str]) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(out))
         _LIBS[name] = lib
         return lib
+
+
+def library_path(name: str) -> pathlib.Path:
+    """The file of the loaded library `name` (after `load_library`)."""
+    return pathlib.Path(_LIBS[name]._name)

@@ -1,0 +1,128 @@
+"""The triangle loop of a path kernel in its SASS: instructions a row.
+
+    python -m software_rasterizer_tpu_torch.utils.sass [--csrc DIR] SOURCE KERNEL [SOURCE KERNEL ...]
+
+builds each CUDA source of DIR (default: the package's csrc/) with the
+package's nvcc flags and prints, for the kernel whose mangled name
+contains KERNEL, its triangle loop's instructions a row (one row of the
+table tested against the shadow ray and the bounce ray) and their mix.
+`chip_smoke.py` calls `row_loop` on the libraries it built, to turn the
+count into an issue floor: instructions x rows x lane-iterations over
+(SMs x 4 schedulers x 32 lanes x clock).
+
+The triangle loop is the innermost loop (a backward branch and the code
+it jumps over) that holds Moller-Trumbore's reciprocals (two MUFU.RCP a
+row) and no other MUFU function: the sphere loop holds square roots, the
+sampling code logarithms and sines. The count is static: every
+instruction of the loop body, a conditional block included, once. It
+needs the CUDA toolkit's cuobjdump; only the machine with the card has it.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import os
+import pathlib
+import re
+import subprocess
+import sys
+import tempfile
+from typing import Dict, List, Tuple
+
+from software_rasterizer_tpu_torch.utils import cuda_build
+
+_FUNC = re.compile(r"^\s*Function\s*:\s*(\S+)")
+_INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
+_BRA = re.compile(r"\bBRA(?:\.\S+)?\s+(?:`\()?0x([0-9a-f]+)")
+
+
+def cuobjdump_path() -> str:
+    return str(pathlib.Path(cuda_build.nvcc_path()).with_name("cuobjdump"))
+
+
+def kernel_sass(lib: pathlib.Path, kernel: str) -> List[Tuple[int, str]]:
+    """(address, instruction) of the one function of `lib` whose mangled
+    name contains `kernel`."""
+    out = subprocess.run([cuobjdump_path(), "-sass", str(lib)], capture_output=True,
+                         text=True, check=True).stdout
+    funcs: Dict[str, List[Tuple[int, str]]] = {}
+    name = None
+    for line in out.splitlines():
+        m = _FUNC.match(line)
+        if m:
+            name = m.group(1)
+            funcs[name] = []
+            continue
+        m = _INSTR.search(line)
+        if m and name is not None:
+            funcs[name].append((int(m.group(1), 16), m.group(2)))
+    hits = [f for f in funcs if kernel in f]
+    if len(hits) != 1:
+        raise ValueError(f"{len(hits)} functions of {lib} match {kernel!r}: {sorted(funcs)}")
+    return funcs[hits[0]]
+
+
+def _opcode(instr: str) -> str:
+    words = instr.split()
+    if words and words[0].startswith("@"):
+        words = words[1:]
+    return words[0] if words else ""
+
+
+def row_loop(sass: List[Tuple[int, str]]) -> dict:
+    """The triangle loop of one function's SASS: "per_row" (instructions
+    a row, NOPs left out), "unroll" (rows an iteration), "span" (the
+    loop's instructions) and "mix" (instructions a row by opcode, without
+    its modifiers)."""
+    loops = []
+    for k, (addr, instr) in enumerate(sass):
+        if _opcode(instr).split(".")[0] != "BRA":
+            continue
+        m = _BRA.search(instr)
+        if m is None or int(m.group(1), 16) > addr:
+            continue
+        target = int(m.group(1), 16)
+        body = [i for a, i in sass[:k + 1] if a >= target and _opcode(i) != "NOP"]
+        ops = [_opcode(i) for i in body]
+        n_rcp = ops.count("MUFU.RCP")
+        if n_rcp >= 2 and n_rcp % 2 == 0 and all(
+                not o.startswith("MUFU") or o == "MUFU.RCP" for o in ops):
+            loops.append((len(body), n_rcp, ops))
+    if not loops:
+        raise ValueError("no loop with Moller-Trumbore's reciprocals alone")
+    span, n_rcp, ops = min(loops)
+    unroll = n_rcp // 2
+    mix = collections.Counter(o.split(".")[0] for o in ops)
+    return {"per_row": span / unroll, "unroll": unroll, "span": span,
+            "mix": {o: c / unroll for o, c in mix.most_common()}}
+
+
+def build(source: pathlib.Path, out_dir: pathlib.Path) -> pathlib.Path:
+    """`source` built as the package builds its libraries."""
+    out = out_dir / (source.stem + ".so")
+    subprocess.run([cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS, "-o", str(out),
+                    str(source)], check=True, capture_output=True, text=True)
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--csrc", type=pathlib.Path, default=cuda_build.CSRC_DIR)
+    ap.add_argument("pairs", nargs="+", metavar="SOURCE KERNEL")
+    args = ap.parse_args(argv)
+    if len(args.pairs) % 2:
+        ap.error("give SOURCE KERNEL pairs")
+    with tempfile.TemporaryDirectory() as tmp:
+        for src, kernel in zip(args.pairs[::2], args.pairs[1::2]):
+            lib = build(args.csrc / src, pathlib.Path(tmp))
+            loop = row_loop(kernel_sass(lib, kernel))
+            mix = ", ".join(f"{o} {c:g}" for o, c in loop["mix"].items())
+            print(f"{os.path.join(str(args.csrc), src)} {kernel}: {loop['per_row']:g} "
+                  f"instructions a row (loop of {loop['span']}, {loop['unroll']} rows an "
+                  f"iteration): {mix}", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
