@@ -29,7 +29,10 @@ Phases, one line each; any failure exits non-zero:
   7. Whitted golden: 64x64 at max_depth 4 against tests/goldens whitted;
   8. Whitted main path: pipeline_from_config -> RayTracing.draw() ->
      save(), one kernel launch, the frame and stats of phase 6;
-  9. Whitted times of the kernel and the plain version (CUDA events);
+  9. Whitted times of the kernel and the plain version (CUDA events),
+     the sweep's SIMT efficiency on Cornell from the kernel's (2, 3)
+     tally (main and shadow rays apart) and the issue floor from the SASS
+     of its row loop (utils/sass.py);
  10. raster: the fused tile kernel vs plain on the whole frame (winners,
      depth, attribute planes, ids);
  11. raster: the shaded tile kernel vs plain on the whole frame, and the
@@ -99,9 +102,13 @@ Phases, one line each; any failure exits non-zero:
      (fused=None: the culled bounce kernel; fused=False: the plain
      wavefront over the trace tiers) and the camera kernel against one
      wavefront sample of the frame, by time;
- 28. the same for the Whitted kernel (dropped_rays 0), and the kernel
-     against its plain version on Cornell with mirror walls at max_depth
-     12 and 32 (the 16- and 32-entry stacks);
+ 28. the same for the Whitted kernel (dropped_rays 0; the warp walk
+     under a warp-uniform DFS step), its tally against the plain version's
+     counts, main and shadow rays apart, the walk's SIMT efficiency beside
+     the models of both walks and the per-ray walk's earlier reading, the
+     issue floor of the walk's row loop, and the kernel against its plain
+     version on Cornell with mirror walls at max_depth 12 and 32 (the 16-
+     and 32-entry stacks);
  29. the large-scene main path: pipeline_from_config -> PathTracing.draw()
      and RayTracing.draw() on both scenes at 1024x1024 through the culled
      kernels (launch counts), frames equal to phases 26 and 28, times,
@@ -110,11 +117,15 @@ Phases, one line each; any failure exits non-zero:
 The last lines are a JSON line of per-kernel results (time beside the
 card's bound for the same work; the Whitted kernel's `launches` is phase
 8's main path and `launches_two_emitters` phase 19's, its culled instance
-under "culled"; the camera and bounce kernels, full sweep and culled, with
-their SIMT efficiency, the full sweeps also with their issue floor), the
-card's
-`nvidia-smi` name and power limit, and `{"ok": true, "device": ...}`.
-Images go to chiprun_out/ under the repository root.
+under "culled"; the camera, bounce and Whitted kernels, full sweep and
+culled, with their SIMT efficiency and, but for the culled path kernels,
+their issue floor), the card's `nvidia-smi` name and power limit, and
+`{"ok": true, "device": ...}`. Images go to chiprun_out/ under the
+repository root.
+
+`whitted_ab` (not run by `main`) times Whitted kernels built from other
+sources against each other in turns, e.g. this tree's against an earlier
+commit's.
 """
 
 from __future__ import annotations
@@ -196,6 +207,11 @@ TIME_REPS = 10
 # hits, ms at 9,216 / 147,456 triangles
 EARLIER_CULLED_MS = {"camera": {"mid": 191.745, "large": 486.851},
                      "bounce": {"mid": 13.388, "large": 30.862}}
+# the SIMT efficiency (row tests / row-test slots) of the Whitted kernel's
+# per-ray walk before its step was made warp-uniform, main and shadow rays
+# over the whole max_depth-5 frame at 9,216 / 147,456 triangles, on an
+# NVIDIA H100 80GB HBM3 at 700 W (PERF.md, section 6)
+EARLIER_WHITTED_SIMT = {"mid": (0.8781, 0.8936), "large": (0.7371, 0.7946)}
 
 
 def phase(n: int, msg: str) -> None:
@@ -255,6 +271,24 @@ def bound(n_bytes: float, n_ops: float):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def wall_ms(fn):
+    """fn() once: (its result, wall ms with the device drained)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def tests_bound_ms(table_bytes, tally):
+    """Bound from a culled kernel's tally of (ray, row) tests and slab
+    tests: ~58 float32 operations a row test, ~21 a slab test."""
+    rows, slabs = (int(x) for x in tally[:2].tolist())
+    return bound(table_bytes, 58.0 * rows + 21.0 * slabs), rows, slabs
+
+
 def tensor_bytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -269,18 +303,20 @@ def max_sm_clock_hz() -> float:
     return float(proc.stdout.strip().splitlines()[0]) * 1e6
 
 
-def issue_floor(library: str, kernel: str, n_rows: int, lane_iterations: int):
-    """The issue floor of a path kernel's full sweep: the SASS instructions
-    of its triangle loop a row (utils/sass.py; one row against two rays)
-    x rows x the lane-iterations that sweep them, over every scheduler of
-    the card issuing one warp-instruction (32 lanes) each cycle at the
-    highest SM clock. Returns (ms, the loop's count from utils/sass.py)."""
+def issue_floor(library: str, kernel: str, n_rows: int, lane_iterations: int,
+                rays: int = 2):
+    """The issue floor of a kernel's row loop: the SASS instructions of its
+    triangle loop a row (utils/sass.py; one row against `rays` rays: two
+    in the path kernels' full sweeps, one in the Whitted kernel) x rows x
+    the lane-iterations that sweep them, over every scheduler of the card
+    issuing one warp-instruction (32 lanes) each cycle at the highest SM
+    clock. Returns (ms, the loop's count from utils/sass.py)."""
     import torch
 
     from software_rasterizer_tpu_torch.utils import sass
     from software_rasterizer_tpu_torch.utils.cuda_build import library_path
 
-    loop = sass.row_loop(sass.kernel_sass(library_path(library), kernel))
+    loop = sass.row_loop(sass.kernel_sass(library_path(library), kernel), rays)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     rate = sms * SCHEDULERS_PER_SM * 32 * max_sm_clock_hz()
     return loop["per_row"] * n_rows * lane_iterations / rate * 1e3, loop
@@ -721,12 +757,8 @@ def whitted_phases(dev, card: str) -> dict:
             how = f"one {WINDOW}-pixel window scaled by {n // WINDOW}"
         # the launch alone, with the operand tables packed beforehand:
         # what whitted_uber_trace adds is the wrapper's host work
-        tri, attr, sph, n_tri, n_sph = wk.pack_whitted_tables(r["rt"])
-        ops = (tri, attr, sph, wk.whitted_scalars(r["rt"], wk.SHADOW_BIAS),
-               r["rt"].textures.contiguous(), r["rt"].tex_wh.contiguous(),
-               r["o"], r["d"])
-        bare_ms = cuda_ms(lambda: wk.launch_whitted_uber(
-            *ops, n_tri=n_tri, n_sph=n_sph, max_depth=md), repeats=20)
+        args, kw = wk.whitted_launch_args(r["rt"], r["o"], r["d"], md)
+        bare_ms = cuda_ms(lambda: wk.launch_whitted_uber(*args, **kw), repeats=20)
         times[name] = (k_ms, p_ms, bare_ms)
         phase(9, f"Whitted {name}: kernel {k_ms:.3f} ms ({n / k_ms / 1e3:.2f} M "
                  f"primary rays/s; bare launch {bare_ms:.3f} ms, median of 20), "
@@ -740,11 +772,27 @@ def whitted_phases(dev, card: str) -> dict:
     # diffuse hit spends ~200 on Phong; rays in, colours and counts out
     r = runs["cornell"]
     main_rays, shadow_rays = r["rays"]
-    tri, attr, sph, n_tri, n_sph = wk.pack_whitted_tables(r["rt"])
+    args, kw = wk.whitted_launch_args(r["rt"], r["o"], r["d"], md)
     w_bound, w_by = bound(
-        tensor_bytes(tri, attr, sph, r["o"], r["d"], r["rgb"]) + 8 * n + 32,
-        (main_rays + shadow_rays) * (30 * n_tri + 25 * n_sph) + 200 * shadow_rays)
-    phase(9, f"Whitted cornell bound {w_bound:.4f} ms by {w_by}")
+        tensor_bytes(*args[:3], r["o"], r["d"], r["rgb"]) + 8 * n + 32,
+        (main_rays + shadow_rays) * (30 * kw["n_tri"] + 25 * kw["n_sph"])
+        + 200 * shadow_rays)
+    # the sweep's row-test slots (its SIMT efficiency) and the issue floor
+    # of its row loop over them
+    tally = torch.zeros((2, 3), dtype=torch.int64, device=dev)
+    wk.launch_whitted_uber(*args, tally=tally, **kw)
+    torch.cuda.synchronize()
+    eff = {ray: int(tally[i, 0]) / int(tally[i, 2]) for i, ray in enumerate(wk.TALLY_ROWS)}
+    # the full-sweep instance with the 8-entry stack (max_depth 5)
+    floor_ms, loop = issue_floor("whitted_uber", "whitted_uber_kernelILb0ELi8E", 1,
+                                 int(tally[:, 2].sum()), rays=1)
+    phase(9, f"Whitted cornell bound {w_bound:.4f} ms by {w_by}; SIMT efficiency of the "
+             f"sweep (row tests / row-test slots, the kernel's tally) main {eff['main']:.4f}, "
+             f"shadow {eff['shadow']:.4f}; issue floor {floor_ms:.4f} ms ({loop['per_row']:g} "
+             f"SASS instructions a row and ray, {loop['unroll']} rows a loop iteration: "
+             + ", ".join(f"{o} {c:g}" for o, c in loop["mix"].items())
+             + f"; x {int(tally[:, 2].sum())} slots / 32); bare launch "
+             f"{bare_ms / floor_ms:.2f}x the issue floor")
     return {
         "name": "whitted_uber",
         "route": "cuda",
@@ -758,6 +806,9 @@ def whitted_phases(dev, card: str) -> dict:
         "bound_ms": w_bound,
         "bound_by": w_by,
         "library_ms": None,
+        "simt_efficiency": eff,
+        "issue_floor_ms": floor_ms,
+        "sass_per_row": loop["per_row"],
     }
 
 
@@ -1467,14 +1518,6 @@ def large_scene_phases(dev, card: str):
     block = tt.DEFAULT_BLOCK
     med = statistics.median
 
-    def wall_ms(fn):
-        """fn() once: (its result, wall ms with the device drained)."""
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, (time.perf_counter() - t0) * 1e3
-
     # ---- 20. scenes, tables and rays
     scenes, lines = {}, []
     for name, levels in (("mid", LARGE_LEVELS[0]), ("large", LARGE_LEVELS[1])):
@@ -1787,9 +1830,8 @@ def large_scene_phases(dev, card: str):
 
 def culled_phases(dev, card: str, scenes: dict) -> dict:
     """Phases 25-29: kernel #8 (the unculled chunked sweep) and large-scene
-    path tracing and Whitted through the chunk-culled walks of the camera
-    and bounce kernels (the warp walk) and of the Whitted kernel (the
-    per-ray walk), on phase 20's `scenes`. Returns the JSON
+    path tracing and Whitted through the chunk-culled warp walks of the
+    camera, bounce and Whitted kernels, on phase 20's `scenes`. Returns the JSON
     entries of kernel #8 and of the culled camera and bounce kernels, and
     the culled numbers of the Whitted kernel."""
     import numpy as np
@@ -1803,36 +1845,20 @@ def culled_phases(dev, card: str, scenes: dict) -> dict:
     from software_rasterizer_tpu_torch.ops import trace_tiers as tt
     from software_rasterizer_tpu_torch.ops import whitted_kernel as wk
     from software_rasterizer_tpu_torch.ops.camera import camera_rays
-    from software_rasterizer_tpu_torch.ops.whitted import whitted_render
     from software_rasterizer_tpu_torch.render import pipeline_from_config
-    from software_rasterizer_tpu_torch import models
     from software_rasterizer_tpu_torch.scenes import build_cornell_scene
     from software_rasterizer_tpu_torch.scenes.stress import subdivide_mesh
     from software_rasterizer_tpu_torch.utils.rng import fold_in, key_bits, sample_seeds
 
     sys.path.insert(0, str(ROOT / "tests"))
-    from torch_scenes import mirror_walls_cornell, stress_cornell
+    from torch_scenes import stress_cornell
 
     n = WIDTH * HEIGHT
     med = statistics.median
     sizes = {name: sc["rt"].n_tri for name, sc in scenes.items()}
 
-    def wall_ms(fn):
-        """fn() once: (its result, wall ms with the device drained)."""
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, (time.perf_counter() - t0) * 1e3
-
     def differing(a, b):
         return (a[0] != b[0]) | (a[1] != b[1]) | (a[2] != b[2])
-
-    def tests_bound(table_bytes, tally):
-        """Bound from a kernel's tally: ~58 float32 operations a (ray, row)
-        test, ~21 a slab test."""
-        rows, slabs = (int(x) for x in tally[:2].tolist())
-        return bound(table_bytes, 58.0 * rows + 21.0 * slabs), rows, slabs
 
     def walk_check(what, tally, st):
         """A culled path kernel's (3,) tally on the plain lanes against the
@@ -1970,7 +1996,7 @@ def culled_phases(dev, card: str, scenes: dict) -> dict:
         tally = torch.zeros(3, dtype=torch.int64, device=dev)
         pk.launch_path_camera(*ops, tally=tally, **launch_kw)
         torch.cuda.synchronize()
-        (b_c, by_c), rows, slabs = tests_bound(
+        (b_c, by_c), rows, slabs = tests_bound_ms(
             tensor_bytes(*ops[:4], ct.lo, ct.hi, ct.lo2, ct.hi2, frame), tally)
         simt = rows / int(tally[2])
         cam[name] = dict(frame=frame, t=t_k, bare=t_b, bound=(b_c, by_c), plain=plain,
@@ -2051,7 +2077,7 @@ def culled_phases(dev, card: str, scenes: dict) -> dict:
         tally = torch.zeros(3, dtype=torch.int64, device=dev)
         pk.launch_path_bounce(*ops, tally=tally, **launch_kw)
         torch.cuda.synchronize()
-        (b_b, by_b), rows, slabs = tests_bound(
+        (b_b, by_b), rows, slabs = tests_bound_ms(
             tensor_bytes(*ops[:4], ct.lo, ct.hi, ct.lo2, ct.hi2) + 2 * tensor_bytes(state, live)
             + 12 * n, tally)
         simt = rows / int(tally[2])
@@ -2100,79 +2126,7 @@ def culled_phases(dev, card: str, scenes: dict) -> dict:
     phase(27, f"bounce kernel, culled walk vs full sweep, {MAX_BOUNCES} bounces, on {card}: "
               + "; ".join(lines) + f"; max_abs_err vs plain {bnc_err:.3g}")
 
-    # ---- 28. Whitted: culled vs full sweep vs plain; the deep stack
-    wht, lines, wht_err = {}, [], 0.0
-    md = WHITTED_DEPTH
-    for name, sc in scenes.items():
-        rt = sc["rt"]
-        o_, d_ = sc["rays"]["camera"]
-        a = wk.whitted_uber_trace(rt, o_, d_, md, cull=True)
-        b, full_ms = wall_ms(lambda: wk.whitted_uber_trace(rt, o_, d_, md, cull=False))
-        n_off = int((~same_lanes(a[0], b[0]) | (a[1] != b[1]).any(dim=0)).sum())
-        if n_off:
-            fail(f"culled Whitted kernel on {name}: {n_off}/{n} pixels differ from the full sweep")
-        img, wst = whitted_render(rt, WIDTH, HEIGHT, sc["scene"].fovy, max_depth=md,
-                                  with_stats=True)
-        if int(wst["dropped_rays"]) != 0 or not torch.equal(img.reshape(n, 3), a[0]):
-            fail(f"whitted_render on {name}: dropped {int(wst['dropped_rays'])}, or not the "
-                 f"culled kernel's frame")
-        bad, plain = {}, {}
-        for cull in (True, False):
-            sl = slice(plain_off, plain_off + PLAIN_PATH_LANES)
-            k = wk.whitted_uber_trace(rt, o_[sl], d_[sl], md, cull=cull)
-            p_, plain[cull] = wall_ms(lambda: wk.whitted_uber_trace_plain(
-                rt, o_[sl], d_[sl], md, cull=cull))
-            c = compare_whitted(*k, *p_)
-            wht_err = max(wht_err, c["max_abs_err"])
-            bad[cull] = c["bad"]
-            if c["bad"] > (1.0 - PIX_SHARE) * c["n"] + 1 or c["rays_rel"] > RAYS_RTOL:
-                fail(f"Whitted kernel (cull={cull}) on {name} disagrees with plain: {c}")
-        tri, attr, sph, n_tri, n_sph = wk.pack_whitted_tables(rt)
-        ct = pk.pack_cull_tables(rt)
-        ops = (tri, attr, sph, wk.whitted_scalars(rt, wk.SHADOW_BIAS),
-               rt.textures.contiguous(), rt.tex_wh.contiguous(), o_, d_)
-        t_k = cuda_times(lambda: wk.whitted_uber_trace(rt, o_, d_, md), 10)
-        t_b = cuda_times(lambda: wk.launch_whitted_uber(
-            *ops, n_tri=n_tri, n_sph=n_sph, max_depth=md, cull_tables=ct), 10)
-        tally = torch.zeros(2, dtype=torch.int64, device=dev)
-        wk.launch_whitted_uber(*ops, n_tri=n_tri, n_sph=n_sph, max_depth=md,
-                               cull_tables=ct, tally=tally)
-        torch.cuda.synchronize()
-        (b_w, by_w), rows, slabs = tests_bound(
-            tensor_bytes(*ops, ct.lo, ct.hi, ct.lo2, ct.hi2) + 20 * n, tally)
-        wht[name] = dict(frame=a[0], t=t_k, bare=t_b, bound=(b_w, by_w), plain=plain,
-                         full_ms=full_ms)
-        lines.append(
-            f"{name} ({rt.n_tri} triangles): culled == full sweep on all {n} pixels "
-            f"(rgb and ray counts; full sweep {full_ms:.1f} ms wall), whitted_render "
-            f"dropped_rays 0; vs plain on {PLAIN_PATH_LANES} lanes: culled {bad[True]}, full "
-            f"{bad[False]} pixels differ (plain {plain[True]:.0f} / {plain[False]:.0f} ms); "
-            f"kernel {spread(t_k)} ms, bare {spread(t_b)}, {rows:.4g} row tests, "
-            f"{slabs:.4g} slab tests, bound {b_w:.4f} ms by {by_w}")
-    # a depth beyond the old stack of 8, through the kernel (16-entry stack)
-    mg = mirror_walls_cornell(models, build_cornell_scene)
-    mg.set_ndc_matrix(WIDTH, HEIGHT)
-    mrt = ti.prepare_rt_scene(mg.rt_geometry(), mg.rt_frame(), dev)
-    mo, mdir = (x.contiguous() for x in camera_rays(
-        mrt.eye.cpu().numpy(), mg.fovy, WIDTH, HEIGHT, dev))
-    deep = {}
-    # DEEP_DEPTH on the whole frame, the deepest stack on the centre lanes
-    for depth, sl in ((DEEP_DEPTH, slice(0, n)),
-                      (wk.MAX_DEPTH, slice(n // 2 - LARGE_WINDOW // 2, n // 2 + LARGE_WINDOW // 2))):
-        k = wk.whitted_uber_trace(mrt, mo[sl], mdir[sl], depth)
-        p_ = wk.whitted_uber_trace_plain(mrt, mo[sl], mdir[sl], depth)
-        c = compare_whitted(*k, *p_)
-        wht_err = max(wht_err, c["max_abs_err"])
-        deep[depth] = c
-        if c["bad"] > (1.0 - PIX_SHARE) * c["n"] + 1 or c["rays_rel"] > RAYS_RTOL:
-            fail(f"Whitted kernel at max_depth {depth} disagrees with plain: {c}")
-    phase(28, f"Whitted kernel, culled walk vs full sweep, max_depth {md}, on {card}: "
-              + "; ".join(lines) + "; Cornell with mirror walls, a mirror and a glass sphere "
-              "through the kernel vs plain: "
-              + "; ".join(f"max_depth {k_} ({c['n']} lanes): {c['bad']} pixels differ, rays "
-                          f"main/shadow {c['k_rays'][0]}/{c['k_rays'][1]} vs "
-                          f"{c['p_rays'][0]}/{c['p_rays'][1]}" for k_, c in deep.items())
-              + f"; max_abs_err {wht_err:.3g}")
+    wht, wht_err = whitted_culled_phase(dev, card, scenes)
 
     # ---- 29. the main path: pipeline_from_config -> draw() on both scenes
     cfg = RenderConfig(width=WIDTH, height=HEIGHT, spp=SPP, max_bounces=MAX_BOUNCES, seed=SEED)
@@ -2273,10 +2227,237 @@ def culled_phases(dev, card: str, scenes: dict) -> dict:
         "whitted": {"launches": draw_launches["whitted"], "ms_9216": med(wht[mid]["t"]),
                     "ms_147456": med(wht["large"]["t"]),
                     "bare_ms_9216": med(wht[mid]["bare"]),
+                    "bare_ms_147456": med(wht["large"]["bare"]),
                     "bound_ms_9216": wht[mid]["bound"][0],
                     "bound_ms_147456": wht["large"]["bound"][0],
-                    "plain_ms_9216": wht[mid]["plain"][True], "max_abs_err": wht_err},
+                    "plain_ms_9216": wht[mid]["plain"][True], "max_abs_err": wht_err,
+                    "simt_efficiency": {sz: {ray: e["frame"] for ray, e in wht[k]["eff"].items()}
+                                        for k, sz in (("mid", "9216"), ("large", "147456"))},
+                    "issue_floor_ms_9216": wht[mid]["floor"],
+                    "issue_floor_ms_147456": wht["large"]["floor"]},
     }
+
+
+def whitted_culled_phase(dev, card: str, scenes: dict):
+    """Phase 28: the Whitted kernel's culled walk on phase 20's `scenes`
+    against its full sweep and its plain version, the walk's tallies, and
+    the deep stacks. Returns ({scene: frame, times, bound, efficiencies},
+    the largest difference from plain)."""
+    import torch
+
+    from software_rasterizer_tpu_torch import models
+    from software_rasterizer_tpu_torch.ops import intersect as ti
+    from software_rasterizer_tpu_torch.ops import whitted_kernel as wk
+    from software_rasterizer_tpu_torch.ops.camera import camera_rays
+    from software_rasterizer_tpu_torch.ops.whitted import whitted_render
+    from software_rasterizer_tpu_torch.scenes import build_cornell_scene
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_scenes import mirror_walls_cornell
+
+    n = WIDTH * HEIGHT
+    plain_off = n // 2 - PLAIN_PATH_LANES // 2
+
+    # ---- 28. Whitted: culled vs full sweep vs plain; the deep stack
+    wht, lines, wht_err = {}, [], 0.0
+    md = WHITTED_DEPTH
+    for name, sc in scenes.items():
+        rt = sc["rt"]
+        o_, d_ = sc["rays"]["camera"]
+        a = wk.whitted_uber_trace(rt, o_, d_, md, cull=True)
+        b, full_ms = wall_ms(lambda: wk.whitted_uber_trace(rt, o_, d_, md, cull=False))
+        n_off = int((~same_lanes(a[0], b[0]) | (a[1] != b[1]).any(dim=0)).sum())
+        if n_off:
+            fail(f"culled Whitted kernel on {name}: {n_off}/{n} pixels differ from the full sweep")
+        img, wst = whitted_render(rt, WIDTH, HEIGHT, sc["scene"].fovy, max_depth=md,
+                                  with_stats=True)
+        if int(wst["dropped_rays"]) != 0 or not torch.equal(img.reshape(n, 3), a[0]):
+            fail(f"whitted_render on {name}: dropped {int(wst['dropped_rays'])}, or not the "
+                 f"culled kernel's frame")
+        bad, plain, st = {}, {}, {}
+        sl = slice(plain_off, plain_off + PLAIN_PATH_LANES)
+        for cull in (True, False):
+            k = wk.whitted_uber_trace(rt, o_[sl], d_[sl], md, cull=cull)
+            p_, plain[cull] = wall_ms(lambda: wk.whitted_uber_trace_plain(
+                rt, o_[sl], d_[sl], md, cull=cull, stats=st if cull else None))
+            c = compare_whitted(*k, *p_)
+            wht_err = max(wht_err, c["max_abs_err"])
+            bad[cull] = c["bad"]
+            if c["bad"] > (1.0 - PIX_SHARE) * c["n"] + 1 or c["rays_rel"] > RAYS_RTOL:
+                fail(f"Whitted kernel (cull={cull}) on {name} disagrees with plain: {c}")
+        args, kw = wk.whitted_launch_args(rt, o_, d_, md, cull=True)
+        ct = kw["cull_tables"]
+        t_k = cuda_times(lambda: wk.whitted_uber_trace(rt, o_, d_, md), 10)
+        t_b = cuda_times(lambda: wk.launch_whitted_uber(*args, **kw), 10)
+        # the culled walk's tallies, main and shadow rays apart: the whole
+        # frame, and the plain lanes against the plain version's counts
+        tally = torch.zeros((2, 3), dtype=torch.int64, device=dev)
+        wk.launch_whitted_uber(*args, tally=tally, **kw)
+        tally_pl = torch.zeros((2, 3), dtype=torch.int64, device=dev)
+        wk.launch_whitted_uber(*args[:6], o_[sl], d_[sl], tally=tally_pl, **kw)
+        torch.cuda.synchronize()
+        (b_w, by_w), rows, slabs = tests_bound_ms(
+            tensor_bytes(*args, ct.lo, ct.hi, ct.lo2, ct.hi2) + 20 * n,
+            tally[:, :2].sum(dim=0))
+        eff = {}
+        for i, ray in enumerate(wk.TALLY_ROWS):
+            fr, pl, want = tally[i].tolist(), tally_pl[i].tolist(), st[ray]
+            if pl != [want["row_tests"], want["slab_tests"], want["slots"]]:
+                fail(f"Whitted culled walk on {name}, {ray} rays: tally (row tests, slab "
+                     f"tests, slots) {pl} on the plain lanes, plain {want} (slots: the "
+                     f"warp walk's model)")
+            eff[ray] = {"frame": fr[0] / fr[2], "lanes": pl[0] / pl[2],
+                        "model_per_ray": want["row_tests"] / want["slots_thread"],
+                        "model_warp": want["row_tests"] / want["slots"]}
+        # the culled instance with the 8-entry stack (max_depth 5)
+        floor_ms, loop = issue_floor("whitted_uber", "whitted_uber_kernelILb1ELi8E", 1,
+                                     int(tally[:, 2].sum()), rays=1)
+        wht[name] = dict(frame=a[0], t=t_k, bare=t_b, bound=(b_w, by_w), plain=plain,
+                         full_ms=full_ms, eff=eff, floor=floor_ms)
+        lines.append(
+            f"{name} ({rt.n_tri} triangles): culled == full sweep on all {n} pixels "
+            f"(rgb and ray counts; full sweep {full_ms:.1f} ms wall), whitted_render "
+            f"dropped_rays 0; vs plain on {PLAIN_PATH_LANES} lanes: culled {bad[True]}, full "
+            f"{bad[False]} pixels differ (plain {plain[True]:.0f} / {plain[False]:.0f} ms); "
+            f"kernel {spread(t_k)} ms, bare {spread(t_b)}, {rows:.4g} row tests, "
+            f"{slabs:.4g} slab tests, bound {b_w:.4f} ms by {by_w}; SIMT efficiency of "
+            f"the walk (row tests / slots), main / shadow rays: the kernel's tally "
+            + ", ".join(f"{e['frame']:.4f}" for e in eff.values()) + " on the frame, "
+            + ", ".join(f"{e['lanes']:.4f}" for e in eff.values())
+            + f" on the {PLAIN_PATH_LANES} plain lanes, where the models (plain version, "
+            f"trace_tiers.warp_slots) give the per-ray walk under a warp-uniform step "
+            + ", ".join(f"{e['model_per_ray']:.4f}" for e in eff.values())
+            + " and the warp walk " + ", ".join(f"{e['model_warp']:.4f}" for e in eff.values())
+            + f" (the per-ray walk's before the warp-uniform step: "
+            + ", ".join(f"{x:.4f}" for x in EARLIER_WHITTED_SIMT[name])
+            + f", an earlier reading); issue floor {floor_ms:.4f} ms ({loop['per_row']:g} SASS "
+            f"instructions a row and ray in the walk's row loop, {loop['unroll']} rows a loop "
+            f"iteration, x {int(tally[:, 2].sum())} slots / 32), bare "
+            f"{statistics.median(t_b) / floor_ms:.2f}x it")
+    # a depth beyond the old stack of 8, through the kernel (16-entry stack)
+    mg = mirror_walls_cornell(models, build_cornell_scene)
+    mg.set_ndc_matrix(WIDTH, HEIGHT)
+    mrt = ti.prepare_rt_scene(mg.rt_geometry(), mg.rt_frame(), dev)
+    mo, mdir = (x.contiguous() for x in camera_rays(
+        mrt.eye.cpu().numpy(), mg.fovy, WIDTH, HEIGHT, dev))
+    deep = {}
+    # DEEP_DEPTH on the whole frame, the deepest stack on the centre lanes
+    for depth, sl in ((DEEP_DEPTH, slice(0, n)),
+                      (wk.MAX_DEPTH, slice(n // 2 - LARGE_WINDOW // 2, n // 2 + LARGE_WINDOW // 2))):
+        k = wk.whitted_uber_trace(mrt, mo[sl], mdir[sl], depth)
+        p_ = wk.whitted_uber_trace_plain(mrt, mo[sl], mdir[sl], depth)
+        c = compare_whitted(*k, *p_)
+        wht_err = max(wht_err, c["max_abs_err"])
+        deep[depth] = c
+        if c["bad"] > (1.0 - PIX_SHARE) * c["n"] + 1 or c["rays_rel"] > RAYS_RTOL:
+            fail(f"Whitted kernel at max_depth {depth} disagrees with plain: {c}")
+    phase(28, f"Whitted kernel, culled walk vs full sweep, max_depth {md}, on {card}: "
+              + "; ".join(lines) + "; Cornell with mirror walls, a mirror and a glass sphere "
+              "through the kernel vs plain: "
+              + "; ".join(f"max_depth {k_} ({c['n']} lanes): {c['bad']} pixels differ, rays "
+                          f"main/shadow {c['k_rays'][0]}/{c['k_rays'][1]} vs "
+                          f"{c['p_rays'][0]}/{c['p_rays'][1]}" for k_, c in deep.items())
+              + f"; max_abs_err {wht_err:.3g}")
+
+    return wht, wht_err
+
+
+def whitted_ab(csrc_dirs: dict, rounds: int = 4, repeats: int = 5) -> dict:
+    """Times the Whitted kernel as built from other sources, in turns in one
+    process on one card, at 1024x1024 max_depth 5:
+
+        python3 -c "import chip_smoke as c; c.whitted_ab({'parent': 'DIR', 'this':
+            'software_rasterizer_tpu_torch/csrc'})"
+
+    `csrc_dirs` names directories that each hold a whitted_uber.cu (and
+    the headers it includes) with this tree's C interface, e.g. the csrc/
+    of an unpacked earlier commit. Each is built with the package's nvcc
+    flags; its bare launch is timed on Cornell, Cornell with a mirror and a
+    glass sphere, two emitters at spp 4 and the tessellated Cornell boxes
+    of 9,216 and 147,456 triangles (the culled walk), `rounds` rounds of
+    `repeats` launches, the order of the builds reversed every other round.
+    Every build's frame and ray counts must equal the first's bit for bit.
+    Prints a line a scene and the builds' ptxas register and spill lines;
+    returns {scene: {build: sorted ms}}."""
+    import ctypes
+
+    import torch
+
+    from software_rasterizer_tpu_torch import models
+    from software_rasterizer_tpu_torch.ops import whitted_kernel as wk
+    from software_rasterizer_tpu_torch.ops.camera import camera_rays
+    from software_rasterizer_tpu_torch.ops.intersect import prepare_rt_scene
+    from software_rasterizer_tpu_torch.scenes import build_cornell_scene
+    from software_rasterizer_tpu_torch.scenes.stress import subdivide_mesh
+    from software_rasterizer_tpu_torch.utils import cuda_build
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_scenes import mirror_glass_cornell, stress_cornell, two_emitter_cornell
+
+    card = card_line()
+    dev = torch.device("cuda")
+    names = list(csrc_dirs)
+    argtypes, restype = wk._cuda_fn().argtypes, wk._cuda_fn().restype
+    cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, d in csrc_dirs.items():
+        out = cuda_build.BUILD_DIR / f"ab_whitted_{name}.so"
+        procs[name] = (out, subprocess.Popen(
+            [cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS, "-o", str(out),
+             str(pathlib.Path(d) / "whitted_uber.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    fns = {}
+    for name, (out, proc) in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            fail(f"nvcc failed on {csrc_dirs[name]}: {log}")
+        for ln in log.splitlines():
+            if "registers" in ln or "spill" in ln or "entry function" in ln:
+                print(f"[ab] {name}: {ln.strip()}", flush=True)
+        fn = ctypes.CDLL(str(out)).srt_whitted_uber
+        fn.argtypes, fn.restype = argtypes, restype
+        fns[name] = fn
+    own = wk._cuda_fn
+    md, n = WHITTED_DEPTH, WIDTH * HEIGHT
+    scenes = {
+        "cornell": (build_cornell_scene, 1),
+        "mirror_glass": (lambda: mirror_glass_cornell(models, build_cornell_scene), 1),
+        "two_emitters_spp4": (lambda: two_emitter_cornell(models, build_cornell_scene),
+                              WHITTED_EMITTER_SPP),
+        "mid": (lambda: stress_cornell(build_cornell_scene, subdivide_mesh, LARGE_LEVELS[0]), 1),
+        "large": (lambda: stress_cornell(build_cornell_scene, subdivide_mesh, LARGE_LEVELS[1]),
+                  1),
+    }
+    res = {}
+    try:
+        for sname, (build, spp) in scenes.items():
+            scene = build()
+            scene.set_ndc_matrix(WIDTH, HEIGHT)
+            rt = prepare_rt_scene(scene.rt_geometry(), scene.rt_frame(), dev)
+            o, d = (x.contiguous() for x in camera_rays(
+                rt.eye.cpu().numpy(), scene.fovy, WIDTH, HEIGHT, dev))
+            ops, kw = wk.whitted_launch_args(rt, o, d, md, key=SEED, spp=spp)
+            outs, times = {}, {b: [] for b in names}
+            for b in names:
+                wk._cuda_fn = lambda b=b: fns[b]
+                outs[b] = wk.launch_whitted_uber(*ops, **kw)
+            torch.cuda.synchronize()
+            same = {b: bool(torch.equal(outs[b][0], outs[names[0]][0])
+                            and torch.equal(outs[b][1], outs[names[0]][1])) for b in names}
+            if not all(same.values()):
+                fail(f"ab {sname}: frames equal to {names[0]}'s: {same}")
+            for rnd in range(rounds):
+                for b in (names if rnd % 2 == 0 else names[::-1]):
+                    wk._cuda_fn = lambda b=b: fns[b]
+                    times[b] += cuda_times(lambda: wk.launch_whitted_uber(*ops, **kw), repeats)
+            res[sname] = {b: sorted(t) for b, t in times.items()}
+            print(f"[ab] {sname} ({rt.n_tri} triangles, {n} lanes, bare launch, ms as median "
+                  f"[min-max] of {rounds * repeats} in turns, on {card}): "
+                  + ", ".join(f"{b} {spread(res[sname][b])}" for b in names)
+                  + f"; frames and ray counts equal to {names[0]}'s", flush=True)
+    finally:
+        wk._cuda_fn = own
+    return res
 
 
 def whitted_emitter_phases(dev, card: str) -> dict:
@@ -2366,18 +2547,12 @@ def whitted_emitter_phases(dev, card: str) -> dict:
     if np.array_equal(first, render.frame):
         fail("two draws of one RayTracing picked the same emitters")
 
-    tri, attr, sph, n_tri, n_sph = wk.pack_whitted_tables(rt)
-    ops = (tri, attr, sph, wk.whitted_scalars(rt, wk.SHADOW_BIAS),
-           rt.textures.contiguous(), rt.tex_wh.contiguous(), o, d)
-    ecr = rt.emitter_cr.float().contiguous()
     times = []
     for spp in (1, WHITTED_EMITTER_SPP):
-        seeds = torch.as_tensor(wk.pick_seed_table(SEED, md, spp), device=dev)
         t_wrap = cuda_times(lambda: wk.whitted_uber_trace(
             rt, o, d, md, key=SEED, spp=spp), 20)
-        t_bare = cuda_times(lambda: wk.launch_whitted_uber(
-            *ops, n_tri=n_tri, n_sph=n_sph, max_depth=md, ecr=ecr,
-            pick_seeds=seeds, n_emitters=rt.n_emitters), 20)
+        args, kw = wk.whitted_launch_args(rt, o, d, md, key=SEED, spp=spp)
+        t_bare = cuda_times(lambda: wk.launch_whitted_uber(*args, **kw), 20)
         times.append(f"spp {spp}: wrapper {spread(t_wrap)}, bare launch {spread(t_bare)}")
     phase(19, f"Whitted, Cornell with a mirror, a glass sphere and two emitters, "
               f"{WIDTH}x{HEIGHT} max_depth {md}, kernel vs plain: " + "; ".join(lines)

@@ -1,8 +1,7 @@
 // What the nearest-hit kernels share: the Moller-Trumbore test of one ray
-// against one [v0|e1|e2|pad] table row, the ray-box slab test, and two
-// walks over the chunk boxes of a table: per ray (walk_chunks, the Whitted
-// kernel's culled instance) and per warp (warp_walk_chunks, the path
-// kernels' culled instances).
+// against one [v0|e1|e2|pad] table row, the ray-box slab test, and the
+// walk over the chunk boxes of a table that the culled instances of the
+// camera, bounce and Whitted kernels take (warp_walk_chunks).
 //
 // Both are the expressions of the plain PyTorch versions in their order.
 // Built with -fmad=false and without fast math, every multiply and add
@@ -90,7 +89,7 @@ __device__ __forceinline__ bool slab_enter(const Ray& r, const InvDir& i,
   return tmax >= nan_max(tmin, 0.0f);
 }
 
-// The chunk tables of a per-ray walk: the boxes of runs of `chunk` rows
+// The chunk tables of a culled walk: the boxes of runs of `chunk` rows
 // of the triangle table (RTScene.chunk_lo / chunk_hi, BVH leaf order) and
 // of runs of kSuper chunks (ops/trace_tiers.super_bounds).
 constexpr int kSuper = 8;  // ops/trace_tiers.MM2C_SUPER
@@ -114,37 +113,20 @@ struct Tally {
   }
 };
 
-// visit(f) for every row f < n_rows of the chunks whose boxes the ray
-// `r` enters, in ascending order: a slab test on each super-chunk's box,
-// then on each of its chunks' boxes. The test is conservative, so a
-// nearest-hit search over the visited rows under a strict `<` finds the
-// full sweep's winner: only rows the ray cannot hit are skipped.
-template <typename Visit>
-__device__ __forceinline__ void walk_chunks(const Ray& r, const CullTables& ct,
-                                            int n_rows, Visit visit, Tally& tl) {
-  const InvDir inv = inv_dir(r);
-  tl.slabs += ct.nsc;
-  for (int sc = 0; sc < ct.nsc; ++sc) {
-    if (!slab_enter(r, inv, ct.lo2 + 3 * sc, ct.hi2 + 3 * sc)) continue;
-    const int c_end = min((sc + 1) * kSuper, ct.nc);
-    tl.slabs += c_end - sc * kSuper;
-    for (int c = sc * kSuper; c < c_end; ++c) {
-      if (!slab_enter(r, inv, ct.lo + 3 * c, ct.hi + 3 * c)) continue;
-      const int f_end = min((c + 1) * ct.chunk, n_rows);
-      if (f_end > c * ct.chunk) tl.rows += f_end - c * ct.chunk;
-      for (int f = c * ct.chunk; f < f_end; ++f) visit(f);
-    }
-  }
-}
-
 // ---- the warp walk: one warp tests each (ray, chunk) pair together
 //
-// walk_chunks leaves each thread to its own chunks, so a warp runs every
-// row of every chunk that any of its 32 rays enters while the threads
-// whose ray did not enter it idle. warp_walk_chunks makes the same slab
-// tests per ray, ballots each entered chunk across the warp, and then
-// lets all 32 threads test that chunk's rows for one entering ray at a
-// time: a warp issues the sum of its rays' rows, not the union.
+// Each ray enters the chunks whose boxes it meets: a slab test on each
+// super-chunk's box, then on each of its chunks' boxes. The test is
+// conservative, so a nearest-hit search over the entered rows under a
+// strict `<` finds the full sweep's winner: only rows the ray cannot hit
+// are skipped. A walk per thread (the plain version's
+// ops/trace_tiers.walk_nearest_plain) leaves each thread to its own chunks,
+// so a warp runs every row of every chunk that any of its 32 rays enters
+// while the threads whose ray did not enter it idle. warp_walk_chunks
+// makes the same slab tests per ray, ballots each entered chunk across the
+// warp, and then lets all 32 threads test that chunk's rows for one
+// entering ray at a time: a warp issues the sum of its rays' rows, not the
+// union.
 
 constexpr unsigned kFullMask = 0xffffffffu;
 // rows of one staged slice of a chunk: a thread tests 4 rows of a slice
@@ -190,7 +172,7 @@ struct WalkCursor {
 
 // Advance `cur` to the next slice in (chunk, row) order whose chunk some
 // active ray of the warp enters; false when none is left. Each ray makes
-// walk_chunks' slab tests in walk_chunks' order (the super box, then the
+// its slab tests in the per-ray walk's order (the super box, then the
 // chunks of an entered super box) and tallies them and its rows alike.
 // Warp-uniform: every thread of the warp calls it together.
 __device__ __forceinline__ bool walk_next(const Ray& r, const InvDir& inv,
@@ -247,8 +229,8 @@ __device__ __forceinline__ void walk_stage(float4* __restrict__ dst,
 // The nearest row of ray `r` over the chunks whose boxes it enters, for
 // every thread of a warp at once; `test(g, ray)` is the kernel's
 // Moller-Trumbore of `ray` against the 12 floats `g` of one row (t or
-// kBig). Equal to a sequential walk_chunks under a strict `<`:
-//   * each (ray, row) pair that walk_chunks tests is tested once, with
+// kBig). Equal to a sequential per-ray walk under a strict `<`:
+//   * each (ray, row) pair that the per-ray walk tests is tested once, with
 //     the same `test`, by thread (row - f0) % 32 of the slice;
 //   * a thread keeps its slots' minimum under a strict `<` over ascending
 //     rows; two warp reductions then take the lexicographic minimum of

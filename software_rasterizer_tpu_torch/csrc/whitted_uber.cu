@@ -20,13 +20,25 @@
 // cached in L1); K is the smallest of 8, 16 and 32 that holds max_depth,
 // one instance each, so a shallow render keeps the small stack.
 //
-// Large scenes (the culled instances, kCull): the main ray and the shadow
-// ray each walk the chunk boxes of the table (trace_common.cuh
-// walk_chunks) and test only the rows of the chunks they enter, with the
-// kernel's own `mt`: the winner is the full sweep's, pixel for pixel. The
-// JAX kernel's chunk cull (pack_uber_tables, super_body) votes per block of
-// lanes; here each ray culls for itself. The tables are read from global memory; every
-// thread of a warp reads the same row, so the loads broadcast. A textured
+// The step is warp-uniform, as the JAX kernel sweeps a whole tile of lanes
+// a DFS step (ops/pallas_whitted.py:197): each pass of a warp makes one
+// main trace for the lanes that have a ray, then the shadow traces of the
+// lanes whose hit is diffuse (one; with several emitters one an emitter,
+// in ascending order, for the lanes whose picks count it), each called by
+// all 32 threads together. A thread whose tree is done, or that lies past
+// n_lanes, stays in the loop as an inactive lane until no lane of its warp
+// is live. A lane's rays, stack and sums are those of a thread that walks
+// its tree alone; only the interleaving across lanes differs, so the frame
+// keeps its bits.
+//
+// Large scenes (the culled instances, kCull): the main trace and each
+// shadow trace go through the warp walk (trace_common.cuh
+// warp_walk_chunks): each ray makes its own slab tests on the chunk boxes,
+// the warp ballots every entered chunk, stages its rows in shared memory
+// (a WarpStage a warp) and tests them for one entering ray at a time with
+// the kernel's own `mt`; the winner is the full sweep's, pixel for pixel.
+// The full-sweep instance reads the table from global memory; the active
+// threads of a warp read the same row, so the loads broadcast. A textured
 // diffuse hit fetches its texel directly, so the TPU kernel's per-lane
 // texture slots, and their overflow, have no counterpart.
 //
@@ -58,12 +70,22 @@
 namespace {
 
 using srt::CullTables;
+using srt::kFullMask;
 
 constexpr float kEps = 1e-5f;
 constexpr float kBig = 1e30f;
 constexpr int kMaxDepth = 32;  // ops/whitted_kernel.MAX_DEPTH
 constexpr int kAttrCols = 40;
 constexpr int kSphCols = 24;
+constexpr int kThreads = 128;
+// blocks an SM asked of the compiler, which caps the registers a thread.
+// Culled: four blocks' WarpStages fill the SM's shared memory, so 4 (128
+// registers; asked for 1 it took 135 and ran 3 blocks, 1.16x / 1.17x the
+// time on an H100 at 9,216 / 147,456 triangles). Full sweep: 6 (80
+// registers), up to 3% less time on the Cornell scenes than unasked (95
+// registers, 5 blocks) or 8 (64 registers and a 208-byte spill).
+constexpr int kMinBlocksCull = 4;
+constexpr int kMinBlocksFull = 6;
 
 struct V3 {
   float x, y, z;
@@ -106,6 +128,14 @@ __device__ __forceinline__ float mt(const float* g, V3 o, V3 d, float* u_out,
   return t;
 }
 
+// t of the ray (o, d) at row g where the thresholds accept the hit, else kBig
+__device__ __forceinline__ float mt_t(const float* g, V3 o, V3 d) {
+  float u, v;
+  bool ok;
+  const float t = mt(g, o, d, &u, &v, &ok);
+  return ok ? t : kBig;
+}
+
 struct Nearest {
   float tt;  // nearest triangle t (kBig: none)
   int bf;    // its index
@@ -113,35 +143,74 @@ struct Nearest {
   int bs;    // its index
 };
 
-// Nearest triangle and nearest sphere; a strict `<` keeps the lowest
-// index on a tie. Sphere rows are rejected by their valid column 7. The
-// culled instance tests the rows of the chunks the ray enters, the other
-// every row.
+// What the traces of one kind of ray (main or shadow) cost: the (ray,
+// row) and slab tests of its lanes, and the row-test slots its warps
+// issued (lane 0's count, 32 a row-step of the warp).
+struct TraceTally {
+  srt::Tally tests;
+  unsigned long long slots = 0;
+};
+
+struct Params {
+  const float* tri;      // (F,12) [v0|e1|e2|pad]
+  const float* attr;     // (F,40) pack_uber_tables rows
+  const float* sph;      // (S,24) [c|r|emit|valid|type|ior|ka|ks|spec|pad]
+  const float* scal;     // (8,) [emitter centre|background|bias|any emitter]
+  const float* ecr;      // (O,4) emitter [centre|radius] rows
+  const int* pick_seeds;  // (max_depth+1, spp) seeds of the emitter picks
+  const uint8_t* atlas;  // (K,Hm,Wm,3) u8
+  const int* tex_wh;     // (K,2) (width, height)
+  const float* orig;     // (N,3)
+  const float* dir;      // (N,3)
+  float* rgb;            // (N,3)
+  int* nray;             // (2,N) [main rays traced, diffuse hits]
+  CullTables cull;       // read by the culled instances only
+  // (2,3) [main | shadow] x [row tests, slab tests, row-test slots] added,
+  // or null
+  unsigned long long* tally;
+  int n_tri, n_sph, n_lanes, tex_h, tex_w, max_depth;
+  int n_emitters, spp, lane_offset;
+};
+
+// Nearest triangle and nearest sphere of the ray (o, d) for the `active`
+// threads; a strict `<` keeps the lowest index on a tie. Sphere rows are
+// rejected by their valid column 7. The culled instance tests the rows of
+// the chunks the ray enters (the warp walk), the other every row. The
+// whole warp calls it; an inactive thread tests nothing and gets misses.
 template <bool kCull>
-__device__ __forceinline__ Nearest trace(const float* __restrict__ tri,
-                                         const float* __restrict__ sph,
-                                         int n_tri, int n_sph,
-                                         const CullTables& ct, V3 o, V3 d,
-                                         srt::Tally& tl) {
+__device__ __forceinline__ Nearest trace(const Params& p, V3 o, V3 d,
+                                         bool active, srt::WarpStage& stage,
+                                         TraceTally& tt) {
   Nearest r{kBig, 0, kBig, 0};
-  auto step = [&](int f) {
-    float u, v;
-    bool ok;
-    const float t = mt(tri + 12 * f, o, d, &u, &v, &ok);
-    const float tm = ok ? t : kBig;
-    if (tm < r.tt) {
-      r.tt = tm;
-      r.bf = f;
-    }
-  };
+  if (!__any_sync(kFullMask, active)) return r;
   if (kCull) {
-    srt::walk_chunks(srt::Ray{o.x, o.y, o.z, d.x, d.y, d.z}, ct, n_tri, step, tl);
+    const srt::RowHit best = srt::warp_walk_chunks(
+        srt::Ray{o.x, o.y, o.z, d.x, d.y, d.z}, active, p.cull, p.tri, p.n_tri,
+        stage,
+        [](const float* g, const srt::Ray& rl) {
+          return mt_t(g, V3{rl.ox, rl.oy, rl.oz}, V3{rl.dx, rl.dy, rl.dz});
+        },
+        tt.tests, tt.slots);
+    if (best.row >= 0) {
+      r.tt = best.t;
+      r.bf = best.row;
+    }
   } else {
-    tl.rows += (uint32_t)n_tri;
-    for (int f = 0; f < n_tri; ++f) step(f);
+    if ((threadIdx.x & 31) == 0) tt.slots += 32ull * (unsigned)p.n_tri;
+    if (active) {
+      tt.tests.rows += (uint32_t)p.n_tri;
+      for (int f = 0; f < p.n_tri; ++f) {
+        const float tm = mt_t(p.tri + 12 * f, o, d);
+        if (tm < r.tt) {
+          r.tt = tm;
+          r.bf = f;
+        }
+      }
+    }
   }
-  for (int s = 0; s < n_sph; ++s) {
-    const float* row = sph + kSphCols * s;
+  if (!active) return r;
+  for (int s = 0; s < p.n_sph; ++s) {
+    const float* row = p.sph + kSphCols * s;
     const float rr = row[3];
     const V3 l = {o.x - row[0], o.y - row[1], o.z - row[2]};
     float a = d.x * d.x + d.y * d.y + d.z * d.z;
@@ -164,25 +233,6 @@ __device__ __forceinline__ Nearest trace(const float* __restrict__ tri,
   return r;
 }
 
-struct Params {
-  const float* tri;      // (F,12) [v0|e1|e2|pad]
-  const float* attr;     // (F,40) pack_uber_tables rows
-  const float* sph;      // (S,24) [c|r|emit|valid|type|ior|ka|ks|spec|pad]
-  const float* scal;     // (8,) [emitter centre|background|bias|any emitter]
-  const float* ecr;      // (O,4) emitter [centre|radius] rows
-  const int* pick_seeds;  // (max_depth+1, spp) seeds of the emitter picks
-  const uint8_t* atlas;  // (K,Hm,Wm,3) u8
-  const int* tex_wh;     // (K,2) (width, height)
-  const float* orig;     // (N,3)
-  const float* dir;      // (N,3)
-  float* rgb;            // (N,3)
-  int* nray;             // (2,N) [main rays traced, diffuse hits]
-  CullTables cull;       // read by the culled instances only
-  unsigned long long* tally;  // (2,) [row tests, slab tests] added, or null
-  int n_tri, n_sph, n_lanes, tex_h, tex_w, max_depth;
-  int n_emitters, spp, lane_offset;
-};
-
 // fetch_nearest (TextureLoader.cpp:14-31): uv clamped to [0,1],
 // x = int(u*w), y = int(v*h), out of range -> black, texels u8/255.
 __device__ __forceinline__ V3 fetch_nearest(const Params& p, int tid,
@@ -197,15 +247,25 @@ __device__ __forceinline__ V3 fetch_nearest(const Params& p, int tid,
           (float)px[2] / 255.0f};
 }
 
+// The hit point, shading normal and material of a main ray's winner.
+struct Surface {
+  V3 c, n, ka, ks, kd;
+  int mtype;
+  float ior, sexp;
+};
+
 // The Phong term toward the emitter centre `ec` behind a shadow trace
 // (Scene.cpp:509-574), without the ray's weight; false when the shadow
-// ray's nearest hit is not an emitter.
+// ray's nearest hit is not an emitter. The whole warp calls it; a thread
+// that is not `active` traces nothing and gets false.
 template <bool kCull>
-__device__ __forceinline__ bool phong_toward(const Params& p, V3 ec, V3 c,
-                                             V3 n, V3 d, V3 ka, V3 ks, V3 kd,
-                                             float sexp, float shadow_bias,
+__device__ __forceinline__ bool phong_toward(const Params& p, V3 ec,
+                                             const Surface& sf, V3 d,
+                                             bool active, float shadow_bias,
                                              bool any_e, V3* out,
-                                             srt::Tally& tl) {
+                                             srt::WarpStage& stage,
+                                             TraceTally& tt) {
+  const V3 c = sf.c, n = sf.n;
   const V3 l = norm3(ec.x - c.x, ec.y - c.y, ec.z - c.z, 0.0f);
   const float ndl = dot3(n, l);
   const float side = ndl >= 0.0f ? 1.0f : -1.0f;
@@ -214,18 +274,9 @@ __device__ __forceinline__ bool phong_toward(const Params& p, V3 ec, V3 c,
       fmaxf(fmaxf(fabsf(c.x), fmaxf(fabsf(c.y), fabsf(c.z))), 1.0f);
   const float sb = side * bias;
   const V3 so = {c.x + n.x * sb, c.y + n.y * sb, c.z + n.z * sb};
-  const float diff = fmaxf(ndl, 0.0f);
-  const float mldn = (-l.x) * n.x + (-l.y) * n.y + (-l.z) * n.z;
-  const float m2 = 2.0f * mldn;
-  const V3 rl =
-      norm3(-l.x - m2 * n.x, -l.y - m2 * n.y, -l.z - m2 * n.z, 0.0f);
-  const float sdot = fmaxf(-dot3(d, rl), 0.0f);
-  const float spec =
-      sdot > 0.0f ? expf(sexp * logf(fmaxf(sdot, 1e-30f)))
-                  : (sexp == 0.0f ? 1.0f : 0.0f);
 
-  const Nearest s2 =
-      trace<kCull>(p.tri, p.sph, p.n_tri, p.n_sph, p.cull, so, l, tl);
+  const Nearest s2 = trace<kCull>(p, so, l, active, stage, tt);
+  if (!active) return false;
   const bool use_s2 = s2.st < s2.tt;
   const float t_sh = use_s2 ? s2.st : s2.tt;
   V3 em = {0.0f, 0.0f, 0.0f};
@@ -238,11 +289,21 @@ __device__ __forceinline__ bool phong_toward(const Params& p, V3 ec, V3 c,
   }
   const bool lit = t_sh < kBig && sqrtf(dot3(em, em)) >= kEps && any_e;
   if (!lit) return false;
+  const float diff = fmaxf(ndl, 0.0f);
+  const float mldn = (-l.x) * n.x + (-l.y) * n.y + (-l.z) * n.z;
+  const float m2 = 2.0f * mldn;
+  const V3 rl =
+      norm3(-l.x - m2 * n.x, -l.y - m2 * n.y, -l.z - m2 * n.z, 0.0f);
+  const float sdot = fmaxf(-dot3(d, rl), 0.0f);
+  const float spec =
+      sdot > 0.0f ? expf(sf.sexp * logf(fmaxf(sdot, 1e-30f)))
+                  : (sf.sexp == 0.0f ? 1.0f : 0.0f);
   const V3 dl = {l.x * t_sh, l.y * t_sh, l.z * t_sh};
   const float dist2 = dot3(dl, dl);
   // the |t^2 - dist^2| quirk (Scene.cpp:541-545) zeroes the ambient and
   // diffuse terms, not the specular one
   const float amb = fabsf(t_sh * t_sh - dist2) > 1e-6f ? 0.0f : 1.0f;
+  const V3 ka = sf.ka, ks = sf.ks, kd = sf.kd;
   *out = {amb * (ka.x + diff * kd.x) * em.x + spec * ks.x * em.x,
           amb * (ka.y + diff * kd.y) * em.y + spec * ks.y * em.y,
           amb * (ka.z + diff * kd.z) * em.z + spec * ks.z * em.z};
@@ -266,203 +327,225 @@ __device__ __forceinline__ int pick_emitter(uint32_t rid, uint32_t seed,
 // K: the stack's entries, at least max_depth (a refract child is pushed
 // at most once a depth level).
 template <bool kCull, int K>
-__global__ void __launch_bounds__(128) whitted_uber_kernel(const Params p) {
+__global__ void __launch_bounds__(kThreads, kCull ? kMinBlocksCull : kMinBlocksFull)
+whitted_uber_kernel(const Params p) {
+  extern __shared__ srt::WarpStage s_stage[];  // culled: one a warp
+  srt::WarpStage& stage = s_stage[threadIdx.x >> 5];
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= p.n_lanes) return;
+  const bool valid = idx < p.n_lanes;
+  const int li = valid ? idx : 0;
   const V3 ec = {p.scal[0], p.scal[1], p.scal[2]};
   const V3 bg = {p.scal[3], p.scal[4], p.scal[5]};
   const float shadow_bias = p.scal[6];
   const bool any_e = p.scal[7] > 0.0f;
 
-  V3 o = {p.orig[3 * idx], p.orig[3 * idx + 1], p.orig[3 * idx + 2]};
-  V3 d = {p.dir[3 * idx], p.dir[3 * idx + 1], p.dir[3 * idx + 2]};
+  V3 o = {p.orig[3 * li], p.orig[3 * li + 1], p.orig[3 * li + 2]};
+  V3 d = {p.dir[3 * li], p.dir[3 * li + 1], p.dir[3 * li + 2]};
   V3 w = {1.0f, 1.0f, 1.0f};
   int depth = 0, sp = 0;
-  uint32_t rid = (uint32_t)(p.lane_offset + idx);
+  uint32_t rid = (uint32_t)(p.lane_offset + li);
   // refract children: [origin | direction | weight], their depth and id
   float stk[K][9];
   int stk_depth[K];
   uint32_t stk_rid[K];
   float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
   int n_main = 0, n_diff = 0;
-  srt::Tally tl;
+  TraceTally t_main, t_shadow;
+  bool live = valid;
 
-  while (true) {
-    ++n_main;
-    const Nearest h =
-        trace<kCull>(p.tri, p.sph, p.n_tri, p.n_sph, p.cull, o, d, tl);
-    const bool use_s = h.st < h.tt;
-    bool cont = false;
-    if (!(fminf(h.st, h.tt) < kBig)) {
+  // a pass: one DFS step of every live lane of the warp
+  while (__any_sync(kFullMask, live)) {
+    if (live) ++n_main;
+    const Nearest h = trace<kCull>(p, o, d, live, stage, t_main);
+    const bool hit = live && fminf(h.st, h.tt) < kBig;
+    if (live && !hit) {
       // ---- miss -> background (Scene.cpp:486-497)
       acc_r = acc_r + w.x * bg.x;
       acc_g = acc_g + w.y * bg.y;
       acc_b = acc_b + w.z * bg.z;
-    } else {
-      // ---- the winner: exact hit point, normal and material
-      V3 c, n, ka, ks, kd;
-      int mtype;
-      float ior, sexp;
-      if (use_s) {
+    }
+    // ---- the winner: exact hit point, normal and material
+    Surface sf = {};
+    if (hit) {
+      if (h.st < h.tt) {
         const float* s = p.sph + kSphCols * h.bs;
-        c = {o.x + d.x * h.st, o.y + d.y * h.st, o.z + d.z * h.st};
-        n = norm3(c.x - s[0], c.y - s[1], c.z - s[2], 1e-20f);
-        mtype = (int)rintf(s[8]);
-        ior = s[9];
-        ka = {s[10], s[11], s[12]};
-        ks = {s[13], s[14], s[15]};
-        sexp = s[16];
-        kd = {0.0f, 0.0f, 0.0f};  // sphere colour quirk (Object.hpp:36-40)
+        sf.c = {o.x + d.x * h.st, o.y + d.y * h.st, o.z + d.z * h.st};
+        sf.n = norm3(sf.c.x - s[0], sf.c.y - s[1], sf.c.z - s[2], 1e-20f);
+        sf.mtype = (int)rintf(s[8]);
+        sf.ior = s[9];
+        sf.ka = {s[10], s[11], s[12]};
+        sf.ks = {s[13], s[14], s[15]};
+        sf.sexp = s[16];
+        sf.kd = {0.0f, 0.0f, 0.0f};  // sphere colour quirk (Object.hpp:36-40)
       } else {
         const float* a = p.attr + kAttrCols * h.bf;
         float u, v;
         bool ok;
         const float t = mt(p.tri + 12 * h.bf, o, d, &u, &v, &ok);
-        c = {o.x + d.x * t, o.y + d.y * t, o.z + d.z * t};
+        sf.c = {o.x + d.x * t, o.y + d.y * t, o.z + d.z * t};
         const float wb = 1.0f - u - v;
-        n = norm3(wb * a[9] + u * a[12] + v * a[15],
-                  wb * a[10] + u * a[13] + v * a[16],
-                  wb * a[11] + u * a[14] + v * a[17], 1e-20f);
-        mtype = (int)rintf(a[30]);
-        ior = a[31];
-        ka = {a[33], a[34], a[35]};
-        ks = {a[36], a[37], a[38]};
-        sexp = a[39];
+        sf.n = norm3(wb * a[9] + u * a[12] + v * a[15],
+                     wb * a[10] + u * a[13] + v * a[16],
+                     wb * a[11] + u * a[14] + v * a[17], 1e-20f);
+        sf.mtype = (int)rintf(a[30]);
+        sf.ior = a[31];
+        sf.ka = {a[33], a[34], a[35]};
+        sf.ks = {a[36], a[37], a[38]};
+        sf.sexp = a[39];
         if (a[32] >= 0.0f) {
-          kd = fetch_nearest(p, (int)rintf(a[32]),
-                             wb * a[18] + u * a[20] + v * a[22],
-                             wb * a[19] + u * a[21] + v * a[23]);
+          sf.kd = fetch_nearest(p, (int)rintf(a[32]),
+                                wb * a[18] + u * a[20] + v * a[22],
+                                wb * a[19] + u * a[21] + v * a[23]);
         } else {
-          kd = {a[24], a[25], a[26]};
+          sf.kd = {a[24], a[25], a[26]};
         }
       }
-
-      if (mtype == 0) {
-        // ---- Phong toward an emitter's centre behind a shadow trace
-        ++n_diff;
-        if (p.n_emitters <= 1) {
-          V3 v;
-          if (phong_toward<kCull>(p, ec, c, n, d, ka, ks, kd, sexp,
-                                  shadow_bias, any_e, &v, tl)) {
-            acc_r = acc_r + w.x * v.x;
-            acc_g = acc_g + w.y * v.y;
-            acc_b = acc_b + w.z * v.z;
-          }
-        } else {
-          // mean over the spp emitter picks, regrouped by emitter
-          const int* seeds = p.pick_seeds + depth * p.spp;
-          float tr = 0.0f, tg = 0.0f, tb = 0.0f;
-          for (int k = 0; k < p.n_emitters; ++k) {
-            int count = 0;
-            for (int j = 0; j < p.spp; ++j)
-              count += pick_emitter(rid, (uint32_t)seeds[j], p.n_emitters) == k;
-            if (count == 0) continue;
-            const float* e = p.ecr + 4 * k;
-            V3 v;
-            if (phong_toward<kCull>(p, V3{e[0], e[1], e[2]}, c, n, d, ka, ks,
-                                    kd, sexp, shadow_bias, any_e, &v, tl)) {
-              const float cf = (float)count;
-              tr = tr + cf * v.x;
-              tg = tg + cf * v.y;
-              tb = tb + cf * v.z;
-            }
-          }
-          const float spp_f = (float)p.spp;
-          acc_r = acc_r + w.x * (tr / spp_f);
-          acc_g = acc_g + w.y * (tg / spp_f);
-          acc_b = acc_b + w.z * (tb / spp_f);
-        }
-      } else if ((mtype == 1 || mtype == 2) && depth < p.max_depth) {
-        // ---- Fresnel fork (Tools.cpp:250-293, Scene.cpp:576-614)
-        cont = true;
-        const bool glass = mtype == 1;
-        const float cosi = fminf(fmaxf(dot3(d, n), -1.0f), 1.0f);
-        const bool exiting = cosi > 0.0f;
-        const float etai = exiting ? ior : 1.0f;
-        const float etat = exiting ? 1.0f : ior;
-        const float sint =
-            etai / etat * sqrtf(fmaxf(1.0f - cosi * cosi, 0.0f));
-        const float cost = sqrtf(fmaxf(1.0f - sint * sint, 0.0f));
-        const float ci = fabsf(cosi);
-        const float rs = (etat * ci - etai * cost) / (etat * ci + etai * cost);
-        const float rp = (etai * ci - etat * cost) / (etai * ci + etat * cost);
-        float kr = sint >= 1.0f ? 1.0f : (rs * rs + rp * rp) * 0.5f;
-        kr = fminf(fmaxf(kr, 0.0f), 1.0f);
-        const float c2 = 2.0f * cosi;
-        const V3 rf = norm3(d.x - c2 * n.x, d.y - c2 * n.y, d.z - c2 * n.z,
-                            0.0f);
-        const bool entering = cosi < 0.0f;
-        const float r_etai = entering ? 1.0f : ior;
-        const float r_etat = entering ? ior : 1.0f;
-        const V3 nn2 = entering ? n : V3{-n.x, -n.y, -n.z};
-        const float eta = r_etai / r_etat;
-        const float kk = 1.0f - eta * eta * (1.0f - ci * ci);
-        const float rr_s = eta * ci - sqrtf(fmaxf(kk, 0.0f));
-        V3 rr = kk < 0.0f ? V3{0.0f, 0.0f, 0.0f}
-                          : V3{eta * d.x + rr_s * nn2.x,
-                               eta * d.y + rr_s * nn2.y,
-                               eta * d.z + rr_s * nn2.z};
-        const bool has_refr =
-            sqrtf(dot3(rr, rr)) > 1e-6f && fabsf(kr - 1.0f) > 1e-6f;
-        rr = norm3(rr.x, rr.y, rr.z, 1e-20f);
-        // three offset rules: glass reflect by I.N, mirror reflect by
-        // R.N, refract by I.N the other way
-        const float side_g = cosi < 0.0f ? 1.0f : -1.0f;
-        const float side_m = dot3(rf, n) > 0.0f ? 1.0f : -1.0f;
-        const float side_r = cosi > 0.0f ? 1.0f : -1.0f;
-        const float refl_side = glass ? side_g : side_m;
-        if (glass && has_refr) {
-          float* e = stk[sp];
-          e[0] = c.x + n.x * side_r * kEps;
-          e[1] = c.y + n.y * side_r * kEps;
-          e[2] = c.z + n.z * side_r * kEps;
-          e[3] = rr.x;
-          e[4] = rr.y;
-          e[5] = rr.z;
-          e[6] = w.x * (1.0f - kr);
-          e[7] = w.y * (1.0f - kr);
-          e[8] = w.z * (1.0f - kr);
-          stk_depth[sp] = depth + 1;
-          stk_rid[sp] = 2u * rid + 2u;
-          ++sp;
-        }
-        o = {c.x + n.x * refl_side * kEps, c.y + n.y * refl_side * kEps,
-             c.z + n.z * refl_side * kEps};
-        d = rf;
-        const float refl_w = glass ? kr : 1.0f;
-        w = {w.x * refl_w, w.y * refl_w, w.z * refl_w};
-        ++depth;
-        rid = 2u * rid + 1u;
-      }
-      // a specular hit at max_depth adds nothing: the reference's black
     }
-    if (!cont) {
-      if (sp == 0) break;
-      --sp;
-      const float* e = stk[sp];
-      o = {e[0], e[1], e[2]};
-      d = {e[3], e[4], e[5]};
-      w = {e[6], e[7], e[8]};
-      depth = stk_depth[sp];
-      rid = stk_rid[sp];
+
+    // ---- Phong toward an emitter's centre behind a shadow trace
+    const bool diffuse = hit && sf.mtype == 0;
+    if (diffuse) ++n_diff;
+    if (p.n_emitters <= 1) {
+      V3 v;
+      if (phong_toward<kCull>(p, ec, sf, d, diffuse, shadow_bias, any_e, &v,
+                              stage, t_shadow)) {
+        acc_r = acc_r + w.x * v.x;
+        acc_g = acc_g + w.y * v.y;
+        acc_b = acc_b + w.z * v.z;
+      }
+    } else {
+      // mean over the spp emitter picks, regrouped by emitter: a shadow
+      // trace an emitter, for the lanes whose picks count it
+      const int* seeds = p.pick_seeds + depth * p.spp;
+      float tr = 0.0f, tg = 0.0f, tb = 0.0f;
+      for (int k = 0; k < p.n_emitters; ++k) {
+        int count = 0;
+        if (diffuse)
+          for (int j = 0; j < p.spp; ++j)
+            count += pick_emitter(rid, (uint32_t)seeds[j], p.n_emitters) == k;
+        if (!__any_sync(kFullMask, count > 0)) continue;
+        const float* e = p.ecr + 4 * k;
+        V3 v;
+        if (phong_toward<kCull>(p, V3{e[0], e[1], e[2]}, sf, d, count > 0,
+                                shadow_bias, any_e, &v, stage, t_shadow)) {
+          const float cf = (float)count;
+          tr = tr + cf * v.x;
+          tg = tg + cf * v.y;
+          tb = tb + cf * v.z;
+        }
+      }
+      if (diffuse) {
+        const float spp_f = (float)p.spp;
+        acc_r = acc_r + w.x * (tr / spp_f);
+        acc_g = acc_g + w.y * (tg / spp_f);
+        acc_b = acc_b + w.z * (tb / spp_f);
+      }
+    }
+
+    bool cont = false;
+    if (hit && (sf.mtype == 1 || sf.mtype == 2) && depth < p.max_depth) {
+      // ---- Fresnel fork (Tools.cpp:250-293, Scene.cpp:576-614)
+      cont = true;
+      const V3 c = sf.c, n = sf.n;
+      const float ior = sf.ior;
+      const bool glass = sf.mtype == 1;
+      const float cosi = fminf(fmaxf(dot3(d, n), -1.0f), 1.0f);
+      const bool exiting = cosi > 0.0f;
+      const float etai = exiting ? ior : 1.0f;
+      const float etat = exiting ? 1.0f : ior;
+      const float sint =
+          etai / etat * sqrtf(fmaxf(1.0f - cosi * cosi, 0.0f));
+      const float cost = sqrtf(fmaxf(1.0f - sint * sint, 0.0f));
+      const float ci = fabsf(cosi);
+      const float rs = (etat * ci - etai * cost) / (etat * ci + etai * cost);
+      const float rp = (etai * ci - etat * cost) / (etai * ci + etat * cost);
+      float kr = sint >= 1.0f ? 1.0f : (rs * rs + rp * rp) * 0.5f;
+      kr = fminf(fmaxf(kr, 0.0f), 1.0f);
+      const float c2 = 2.0f * cosi;
+      const V3 rf = norm3(d.x - c2 * n.x, d.y - c2 * n.y, d.z - c2 * n.z,
+                          0.0f);
+      const bool entering = cosi < 0.0f;
+      const float r_etai = entering ? 1.0f : ior;
+      const float r_etat = entering ? ior : 1.0f;
+      const V3 nn2 = entering ? n : V3{-n.x, -n.y, -n.z};
+      const float eta = r_etai / r_etat;
+      const float kk = 1.0f - eta * eta * (1.0f - ci * ci);
+      const float rr_s = eta * ci - sqrtf(fmaxf(kk, 0.0f));
+      V3 rr = kk < 0.0f ? V3{0.0f, 0.0f, 0.0f}
+                        : V3{eta * d.x + rr_s * nn2.x,
+                             eta * d.y + rr_s * nn2.y,
+                             eta * d.z + rr_s * nn2.z};
+      const bool has_refr =
+          sqrtf(dot3(rr, rr)) > 1e-6f && fabsf(kr - 1.0f) > 1e-6f;
+      rr = norm3(rr.x, rr.y, rr.z, 1e-20f);
+      // three offset rules: glass reflect by I.N, mirror reflect by
+      // R.N, refract by I.N the other way
+      const float side_g = cosi < 0.0f ? 1.0f : -1.0f;
+      const float side_m = dot3(rf, n) > 0.0f ? 1.0f : -1.0f;
+      const float side_r = cosi > 0.0f ? 1.0f : -1.0f;
+      const float refl_side = glass ? side_g : side_m;
+      if (glass && has_refr) {
+        float* e = stk[sp];
+        e[0] = c.x + n.x * side_r * kEps;
+        e[1] = c.y + n.y * side_r * kEps;
+        e[2] = c.z + n.z * side_r * kEps;
+        e[3] = rr.x;
+        e[4] = rr.y;
+        e[5] = rr.z;
+        e[6] = w.x * (1.0f - kr);
+        e[7] = w.y * (1.0f - kr);
+        e[8] = w.z * (1.0f - kr);
+        stk_depth[sp] = depth + 1;
+        stk_rid[sp] = 2u * rid + 2u;
+        ++sp;
+      }
+      o = {c.x + n.x * refl_side * kEps, c.y + n.y * refl_side * kEps,
+           c.z + n.z * refl_side * kEps};
+      d = rf;
+      const float refl_w = glass ? kr : 1.0f;
+      w = {w.x * refl_w, w.y * refl_w, w.z * refl_w};
+      ++depth;
+      rid = 2u * rid + 1u;
+    }
+    // a specular hit at max_depth adds nothing: the reference's black
+    if (live && !cont) {
+      if (sp == 0) {
+        live = false;
+      } else {
+        --sp;
+        const float* e = stk[sp];
+        o = {e[0], e[1], e[2]};
+        d = {e[3], e[4], e[5]};
+        w = {e[6], e[7], e[8]};
+        depth = stk_depth[sp];
+        rid = stk_rid[sp];
+      }
     }
   }
-  p.rgb[3 * idx] = acc_r;
-  p.rgb[3 * idx + 1] = acc_g;
-  p.rgb[3 * idx + 2] = acc_b;
-  p.nray[idx] = n_main;
-  p.nray[p.n_lanes + idx] = n_diff;
-  tl.flush(p.tally);
+  if (valid) {
+    p.rgb[3 * idx] = acc_r;
+    p.rgb[3 * idx + 1] = acc_g;
+    p.rgb[3 * idx + 2] = acc_b;
+    p.nray[idx] = n_main;
+    p.nray[p.n_lanes + idx] = n_diff;
+  }
+  if (p.tally != nullptr) {
+    t_main.tests.flush(p.tally);
+    t_shadow.tests.flush(p.tally + 3);
+    if (t_main.slots != 0) atomicAdd(p.tally + 2, t_main.slots);
+    if (t_shadow.slots != 0) atomicAdd(p.tally + 5, t_shadow.slots);
+  }
 }
 
 template <bool kCull>
 void launch(const Params& p, int blocks, cudaStream_t s) {
+  const size_t shmem = kCull ? (kThreads / 32) * srt::kWarpStageBytes : 0;
   if (p.max_depth <= 8)
-    whitted_uber_kernel<kCull, 8><<<blocks, 128, 0, s>>>(p);
+    whitted_uber_kernel<kCull, 8><<<blocks, kThreads, shmem, s>>>(p);
   else if (p.max_depth <= 16)
-    whitted_uber_kernel<kCull, 16><<<blocks, 128, 0, s>>>(p);
+    whitted_uber_kernel<kCull, 16><<<blocks, kThreads, shmem, s>>>(p);
   else
-    whitted_uber_kernel<kCull, kMaxDepth><<<blocks, 128, 0, s>>>(p);
+    whitted_uber_kernel<kCull, kMaxDepth><<<blocks, kThreads, shmem, s>>>(p);
 }
 
 }  // namespace
@@ -492,7 +575,7 @@ extern "C" int srt_whitted_uber(const float* tri, const float* attr,
            tex_wh, orig, dir,     rgb,   nray,  ct,         tally, n_tri,
            n_sph, n_lanes, tex_h, tex_w, max_depth, n_emitters, spp,
            lane_offset};
-  const int blocks = (n_lanes + 127) / 128;
+  const int blocks = (n_lanes + kThreads - 1) / kThreads;
   if (lo != nullptr)
     launch<true>(p, blocks, (cudaStream_t)stream);
   else

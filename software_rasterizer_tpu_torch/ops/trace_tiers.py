@@ -27,10 +27,11 @@ t. `block` and `chunk` change the work, never a result.
     staged in turn for every ray block (`nearest_hit(backend="mm")`).
 
 `walk_nearest_plain` is the per-ray form of the cull: each ray tests the
-rows of the chunks whose boxes it enters itself, as the culled instances
-of the path and Whitted kernels do (`CullTables`, `cull_tables`).
-`warp_walk_plain` models how the path kernels' warps schedule those tests
-(csrc/trace_common.cuh warp_walk_chunks) and counts the slots they issue.
+rows of the chunks whose boxes it enters itself, the tests the culled
+instances of the path and Whitted kernels make (`CullTables`,
+`cull_tables`). `warp_walk_plain` models how those kernels' warps
+schedule the tests (csrc/trace_common.cuh warp_walk_chunks) and counts the
+slots they issue.
 
 On CUDA tensors each entry point launches its hand-written kernel
 (csrc/trace_culled.cu) and counts the launch; on CPU tensors it runs its

@@ -23,8 +23,14 @@ nothing (the reference's black depth cap).
 Two tiers of the triangle search (`cull`, as in the path kernels,
 ops/path_kernel.use_cull): every row, or, above 512 rows unless the
 caller names a tier, the culled walk in which the main ray and the shadow
-ray each test only the rows of the chunks whose boxes they enter. The two
+ray each test only the rows of the chunks whose boxes they enter (the
+kernel's warp walk, modelled by `trace_tiers.warp_walk_plain`). The two
 agree pixel for pixel.
+
+The kernel's step is warp-uniform: each warp takes one DFS step of all
+its live lanes a pass, one main trace and then the shadow traces, as the
+plain version steps all lanes a pass (`warp_step_plain` models the
+warps' schedule).
 
 Several emitters (the JAX package serves these by its wavefront,
 ops/whitted.py:214-265): a ray carries the id `rid`, the absolute pixel
@@ -57,12 +63,11 @@ from software_rasterizer_tpu_torch.ops.path_kernel import (
     _as_f32_rows,
     _check_cull,
     _check_table,
-    _check_tally,
     _norm3,
     pack_cull_tables,
     use_cull,
 )
-from software_rasterizer_tpu_torch.ops.trace_tiers import CullTables, walk_nearest_plain
+from software_rasterizer_tpu_torch.ops.trace_tiers import WARP, CullTables, walk_nearest_plain
 from software_rasterizer_tpu_torch.ops.texture_ops import fetch_nearest
 from software_rasterizer_tpu_torch.utils.rng import _M32, fold_in, hash_uniform, key_bits
 
@@ -88,6 +93,12 @@ _A_KA, _A_KS, _A_SPEC = 33, 36, 39
 # count one run
 LAUNCHES = 0
 LAUNCHES_CULLED = 0
+
+# the kernel's optional (2, 3) int64 tally: a row for the main rays and
+# one for the shadow rays, each [(ray, row) tests, slab tests, row-test
+# slots the warps issued]; the SIMT efficiency of a trace is tests / slots
+TALLY_ROWS = ("main", "shadow")
+TALLY_COLUMNS = ("row_tests", "slab_tests", "slots")
 
 
 def pack_whitted_tables(scene: RTScene) -> Tuple[torch.Tensor, torch.Tensor,
@@ -204,9 +215,11 @@ def launch_whitted_uber(tri: torch.Tensor, attr: torch.Tensor,
     """Launch csrc/whitted_uber.cu on the current stream; returns rgb
     (N,3) float32 and nray (2,N) int32. `ecr` (O,4) and `pick_seeds`
     (max_depth+1, spp) int32 are read only when n_emitters > 1. With
-    `cull_tables` a culled instance runs; a `tally` (2,) int64 gets the
-    (ray, row) and slab tests added. Checks every operand and raises on a
-    launch error."""
+    `cull_tables` a culled instance runs; a `tally` (2, 3) int64 gets the
+    (ray, row) tests, slab tests and row-test slots of the main rays (row
+    0) and of the shadow rays (row 1) added (`TALLY_ROWS`,
+    `TALLY_COLUMNS`). Checks every operand and raises on a launch
+    error."""
     global LAUNCHES, LAUNCHES_CULLED
     device = tri.device
     if device.type != "cuda":
@@ -245,7 +258,14 @@ def launch_whitted_uber(tri: torch.Tensor, attr: torch.Tensor,
                              f"expected ({max_depth + 1}, spp)")
         spp = pick_seeds.shape[1]
     cull_args = _check_cull(cull_tables, n_tri, device)
-    tally_ptr = _check_tally(tally, device)
+    tally_ptr = None
+    if tally is not None:
+        _check_table("tally", tally, torch.int64, None, device)
+        want = (len(TALLY_ROWS), len(TALLY_COLUMNS))
+        if tally.shape != want:
+            raise ValueError(f"tally has shape {tuple(tally.shape)}, expected {want}: "
+                             f"rows {TALLY_ROWS} x columns {TALLY_COLUMNS}")
+        tally_ptr = tally.data_ptr()
     rgb = torch.empty((n, 3), dtype=f32, device=device)
     nray = torch.empty((2, n), dtype=torch.int32, device=device)
     if n == 0:
@@ -269,6 +289,28 @@ def launch_whitted_uber(tri: torch.Tensor, attr: torch.Tensor,
     return rgb, nray
 
 
+def whitted_launch_args(scene: RTScene, orig: torch.Tensor, d: torch.Tensor,
+                        max_depth: int = 5, shadow_bias: float = SHADOW_BIAS,
+                        key=0, spp: int = 1, lane_offset: int = 0,
+                        cull: Optional[bool] = None) -> Tuple[tuple, dict]:
+    """The operands of `launch_whitted_uber` for the rays `orig`, `d` of a
+    CUDA `scene`, as (positional, keyword) arguments: the packed tables,
+    the emitter picks' seeds where the scene has several emitters, and the
+    chunk tables where `cull` (None: `use_cull`) takes the culled walk."""
+    check_max_depth(max_depth)
+    tri, attr, sph, n_tri, n_sph = pack_whitted_tables(scene)
+    kw = dict(n_tri=n_tri, n_sph=n_sph, max_depth=max_depth,
+              cull_tables=pack_cull_tables(scene) if use_cull(scene, cull) else None)
+    if scene.n_emitters > 1:
+        kw.update(ecr=scene.emitter_cr.float().contiguous(),
+                  pick_seeds=torch.as_tensor(pick_seed_table(key, max_depth, spp),
+                                             device=scene.device),
+                  n_emitters=scene.n_emitters, lane_offset=lane_offset)
+    args = (tri, attr, sph, whitted_scalars(scene, shadow_bias),
+            scene.textures.contiguous(), scene.tex_wh.contiguous(), orig, d)
+    return args, kw
+
+
 def whitted_uber_trace(scene: RTScene, orig: torch.Tensor, d: torch.Tensor,
                        max_depth: int = 5, shadow_bias: float = SHADOW_BIAS,
                        key=0, spp: int = 1, lane_offset: int = 0,
@@ -288,21 +330,9 @@ def whitted_uber_trace(scene: RTScene, orig: torch.Tensor, d: torch.Tensor,
                                         key, spp, lane_offset, cull=cull)
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
-    check_max_depth(max_depth)
-    tri, attr, sph, n_tri, n_sph = pack_whitted_tables(scene)
-    picks = {}
-    if scene.n_emitters > 1:
-        picks = dict(
-            ecr=scene.emitter_cr.float().contiguous(),
-            pick_seeds=torch.as_tensor(pick_seed_table(key, max_depth, spp),
-                                       device=device),
-            n_emitters=scene.n_emitters, lane_offset=lane_offset)
-    return launch_whitted_uber(
-        tri, attr, sph, whitted_scalars(scene, shadow_bias),
-        scene.textures.contiguous(), scene.tex_wh.contiguous(), orig, d,
-        n_tri=n_tri, n_sph=n_sph, max_depth=max_depth,
-        cull_tables=pack_cull_tables(scene) if use_cull(scene, cull) else None,
-        **picks)
+    args, kw = whitted_launch_args(scene, orig, d, max_depth, shadow_bias, key, spp,
+                                   lane_offset, cull)
+    return launch_whitted_uber(*args, **kw)
 
 
 # --------------------------------------------------------- plain version
@@ -323,11 +353,21 @@ def _trace(tri_t, cull, sph, n_tri, n_sph, o, d, active=None, tally=None):
     (ops/pallas_whitted.py:253-285, :371-396); a strict `<` keeps the
     lowest index on a tie. Sphere rows are host lists of float32 values.
     Lanes outside `active` miss every triangle; `tally` counts the tests
-    of those inside."""
+    of those inside and the row-test slots of their warps (`WARP` lanes in
+    launch order): with `cull` those of the warp walk ("slots") and of the
+    per-ray walk ("slots_thread", `trace_tiers.warp_slots`); without, a
+    warp with an active lane steps through every row in both."""
     ox, oy, oz = o
     dx, dy, dz = d
     tt, bf, _, _ = walk_nearest_plain(tri_t, n_tri, torch.stack(o, dim=1),
                                       torch.stack(d, dim=1), cull, active, tally)
+    if cull is None and tally is not None:
+        lanes = torch.arange(ox.shape[0], device=ox.device)
+        if active is not None:
+            lanes = lanes[active]
+        sweep = WARP * n_tri * torch.unique(torch.div(lanes, WARP, rounding_mode="floor")).numel()
+        for k in ("slots", "slots_thread"):
+            tally[k] = tally.get(k, 0) + sweep
     bf = torch.clamp(bf, min=0)
     st = torch.full_like(ox, BIG)
     bs = torch.zeros_like(bf)
@@ -387,12 +427,46 @@ def whitted_uber_trace_plain(scene: RTScene, orig: torch.Tensor,
                              shadow_bias: float = SHADOW_BIAS, key=0,
                              spp: int = 1, lane_offset: int = 0,
                              cull: Optional[bool] = None,
-                             stats: Optional[dict] = None
+                             stats: Optional[dict] = None,
+                             rays: Optional[list] = None
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of `whitted_uber_trace` (same signature and
-    semantics), on the scene's device. A `stats` dict gets "row_tests"
-    and "slab_tests": the (ray, row) and slab tests of the traces the
-    kernel makes, which its `tally` adds up."""
+    semantics), on the scene's device: every live lane takes one DFS step
+    a pass, as the JAX kernel sweeps a tile. A `stats` dict gets
+    "row_tests" and "slab_tests": the (ray, row) and slab tests of the
+    traces the kernel makes, and "main" and "shadow": dicts of the same
+    two counts and the row-test slots ("slots", "slots_thread", see
+    `_trace`) of the main and the shadow traces apart; the kernel's `tally`
+    adds them up (`TALLY_ROWS`, `TALLY_COLUMNS`). A `rays` list gets an
+    entry a trace: (kind "main" or "shadow", the emitter of a shadow trace
+    or -1, the lanes traced (k,), their depths (k,), origins (k,3) and
+    directions (k,3))."""
+    return _uber_plain(scene, orig, d, max_depth, shadow_bias, key, spp, lane_offset,
+                       cull, stats, rays, None)
+
+
+def warp_step_plain(scene: RTScene, orig: torch.Tensor, d: torch.Tensor,
+                    max_depth: int = 5, shadow_bias: float = SHADOW_BIAS, key=0,
+                    spp: int = 1, lane_offset: int = 0, cull: Optional[bool] = None,
+                    stats: Optional[dict] = None, rays: Optional[list] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A CPU model of the kernel's warp-uniform step: `whitted_uber_trace_plain`
+    with the lanes in warps of `WARP` in launch order, each warp taking its
+    passes on its own until none of its lanes is live, warp after warp. A
+    pass makes one main trace for the warp's live lanes, then the shadow
+    trace of its diffuse lanes (with several emitters, one an emitter in
+    ascending order for the lanes whose picks count it; none where no lane
+    of the warp needs it). Same arguments and results; `rays` shows the
+    calls in the kernel's order. A model of the schedule, not a second
+    reference."""
+    return _uber_plain(scene, orig, d, max_depth, shadow_bias, key, spp, lane_offset,
+                       cull, stats, rays, WARP)
+
+
+def _uber_plain(scene, orig, d, max_depth, shadow_bias, key, spp, lane_offset, cull,
+                stats, rays, warp):
+    """Both plain schedules: the lanes in groups of `warp` (None: one
+    group), each group stepping until none of its lanes is live."""
     check_max_depth(max_depth)
     n = _check_rays(orig, d)
     n_e = scene.n_emitters
@@ -406,7 +480,7 @@ def whitted_uber_trace_plain(scene: RTScene, orig: torch.Tensor,
     tri_t, attr_t, sph_t, n_tri, n_sph = pack_whitted_tables(scene)
     ct = pack_cull_tables(scene) if use_cull(scene, cull) else None
     sph = _as_f32_rows(sph_t, n_sph)
-    tally = {}
+    tally = {"main": {}, "shadow": {}}
     scal = [float(v) for v in whitted_scalars(scene, shadow_bias).cpu()]
     ec, bg, bias0, any_e = scal[0:3], scal[3:6], scal[6], scal[7] > 0.0
 
@@ -421,16 +495,28 @@ def whitted_uber_trace_plain(scene: RTScene, orig: torch.Tensor,
     # ray ids, 32-bit words held in int64 (children 2 rid + 1 and 2 rid + 2)
     rid = (lane_offset + torch.arange(n, dtype=torch.int64, device=dev)) & _M32
     stack_rid = torch.zeros_like(stack_depth)
-    live = torch.ones(n, dtype=torch.bool, device=dev)
     rgb = [zero, zero, zero]
     nray = torch.zeros((2, n), dtype=torch.int32, device=dev)
     lanes = torch.arange(n, device=dev)
+    groups = ([lanes >= 0] if warp is None
+              else [torch.div(lanes, warp, rounding_mode="floor") == k
+                    for k in range(-(-n // warp))])
 
-    while bool(live.any()):
+    def log(kind, emitter, active, ro, rd):
+        if rays is not None:
+            sel = lanes[active]
+            rays.append((kind, emitter, sel, depth[sel],
+                         torch.stack(ro, dim=1)[sel], torch.stack(rd, dim=1)[sel]))
+
+    def step(live):
+        """One DFS step of the `live` lanes (the lanes outside it keep
+        their state); returns the lanes still live after it."""
+        nonlocal o, dd, w, depth, sp, rid
         nray[0] += live.to(torch.int32)
 
         # ---- main trace and the winner's attributes (:470-558)
-        tt, bf, st, bs = _trace(tri_t, ct, sph, n_tri, n_sph, o, dd, live, tally)
+        log("main", -1, live, o, dd)
+        tt, bf, st, bs = _trace(tri_t, ct, sph, n_tri, n_sph, o, dd, live, tally["main"])
         use_s = st < tt
         hit = live & (torch.minimum(st, tt) < BIG)
         g = _rows(tri_t, bf)
@@ -472,7 +558,7 @@ def whitted_uber_trace_plain(scene: RTScene, orig: torch.Tensor,
         nray[1] += is_diff.to(torch.int32)
 
         # ---- Phong toward an emitter's centre, behind a shadow trace (:577-643)
-        def phong_toward(ec, shade):
+        def phong_toward(ec, shade, emitter):
             """(term without the ray's weight, lit) toward the centre ec;
             the kernel traces the shadow rays of the `shade` lanes."""
             ll = _norm3(ec[0] - c[0], ec[1] - c[1], ec[2] - c[2])
@@ -491,8 +577,9 @@ def whitted_uber_trace_plain(scene: RTScene, orig: torch.Tensor,
                 torch.exp(sexp * torch.log(torch.clamp(sdot, min=1e-30))),
                 torch.where(sexp == 0.0, 1.0, 0.0))
 
+            log("shadow", emitter, shade, so, ll)
             tt2, bf2, st2, bs2 = _trace(tri_t, ct, sph, n_tri, n_sph, so, ll,
-                                        shade, tally)
+                                        shade, tally["shadow"])
             use_s2 = st2 < tt2
             t_sh = torch.where(use_s2, st2, tt2)
             a2 = _rows(attr_t, bf2)
@@ -511,7 +598,7 @@ def whitted_uber_trace_plain(scene: RTScene, orig: torch.Tensor,
                          + spec * ks[k] * em[k] for k in range(3)), lit
 
         if bool(is_diff.any()) and n_e <= 1:
-            term, lit = phong_toward(ec, is_diff)
+            term, lit = phong_toward(ec, is_diff, 0)
             dep = is_diff & lit
             for k in range(3):
                 rgb[k] = rgb[k] + torch.where(dep, w[k] * term[k], 0.0)
@@ -531,7 +618,7 @@ def whitted_uber_trace_plain(scene: RTScene, orig: torch.Tensor,
                 count = sum((pk == o_i).to(f32) for pk in picks)
                 if not bool((is_diff & (count > 0)).any()):
                     continue
-                term, lit = phong_toward(ecr[o_i][0:3], is_diff & (count > 0))
+                term, lit = phong_toward(ecr[o_i][0:3], is_diff & (count > 0), o_i)
                 for k in range(3):
                     total[k] = total[k] + torch.where(
                         lit & (count > 0), count * term[k], 0.0)
@@ -602,9 +689,20 @@ def whitted_uber_trace_plain(scene: RTScene, orig: torch.Tensor,
             depth[idx] = stack_depth[sp[idx], idx]
             rid = rid.clone()
             rid[idx] = stack_rid[sp[idx], idx]
-        live = cont | pop
+        return cont | pop
+
+    # the lanes in groups (the whole set, or warps), each group stepping
+    # until none of its lanes is live
+    for group in groups:
+        live = group.clone()
+        while bool(live.any()):
+            live = step(live)
 
     if stats is not None:
         for k in ("row_tests", "slab_tests"):
-            stats[k] = stats.get(k, 0) + tally.get(k, 0)
+            stats[k] = stats.get(k, 0) + sum(t.get(k, 0) for t in tally.values())
+        for ray, t in tally.items():
+            part = stats.setdefault(ray, {})
+            for k in ("row_tests", "slab_tests", "slots", "slots_thread"):
+                part[k] = part.get(k, 0) + t.get(k, 0)
     return torch.stack(rgb, dim=1), nray

@@ -1,18 +1,19 @@
-"""The triangle loop of a path kernel in its SASS: instructions a row.
+"""The triangle loop of a kernel in its SASS: instructions a row.
 
-    python -m software_rasterizer_tpu_torch.utils.sass [--csrc DIR] SOURCE KERNEL [SOURCE KERNEL ...]
+    python -m software_rasterizer_tpu_torch.utils.sass [--csrc DIR] [--rays N] SOURCE KERNEL [SOURCE KERNEL ...]
 
 builds each CUDA source of DIR (default: the package's csrc/) with the
 package's nvcc flags and prints, for the kernel whose mangled name
 contains KERNEL, its triangle loop's instructions a row (one row of the
-table tested against the shadow ray and the bounce ray) and their mix.
+table tested against N rays: the shadow ray and the bounce ray in the
+path kernels, the default; one ray in the Whitted kernel) and their mix.
 `chip_smoke.py` calls `row_loop` on the libraries it built, to turn the
 count into an issue floor: instructions x rows x lane-iterations over
 (SMs x 4 schedulers x 32 lanes x clock).
 
 The triangle loop is the innermost loop (a backward branch and the code
-it jumps over) that holds Moller-Trumbore's reciprocals (two MUFU.RCP a
-row) and no other MUFU function: the sphere loop holds square roots, the
+it jumps over) that holds Moller-Trumbore's reciprocals (a MUFU.RCP a
+ray and row) and no other MUFU function: the sphere loop holds square roots, the
 sampling code logarithms and sines. The count is static: every
 instruction of the loop body, a conditional block included, once. It
 needs the CUDA toolkit's cuobjdump; only the machine with the card has it.
@@ -70,11 +71,12 @@ def _opcode(instr: str) -> str:
     return words[0] if words else ""
 
 
-def row_loop(sass: List[Tuple[int, str]]) -> dict:
-    """The triangle loop of one function's SASS: "per_row" (instructions
-    a row, NOPs left out), "unroll" (rows an iteration), "span" (the
-    loop's instructions) and "mix" (instructions a row by opcode, without
-    its modifiers)."""
+def row_loop(sass: List[Tuple[int, str]], rays: int = 2) -> dict:
+    """The triangle loop of one function's SASS, a row tested against
+    `rays` rays (one MUFU.RCP each: two in the path kernels, one in the
+    Whitted kernel): "per_row" (instructions a row, NOPs left out),
+    "unroll" (rows an iteration), "span" (the loop's instructions) and
+    "mix" (instructions a row by opcode, without its modifiers)."""
     loops = []
     for k, (addr, instr) in enumerate(sass):
         if _opcode(instr).split(".")[0] != "BRA":
@@ -86,13 +88,13 @@ def row_loop(sass: List[Tuple[int, str]]) -> dict:
         body = [i for a, i in sass[:k + 1] if a >= target and _opcode(i) != "NOP"]
         ops = [_opcode(i) for i in body]
         n_rcp = ops.count("MUFU.RCP")
-        if n_rcp >= 2 and n_rcp % 2 == 0 and all(
+        if n_rcp >= rays and n_rcp % rays == 0 and all(
                 not o.startswith("MUFU") or o == "MUFU.RCP" for o in ops):
             loops.append((len(body), n_rcp, ops))
     if not loops:
         raise ValueError("no loop with Moller-Trumbore's reciprocals alone")
     span, n_rcp, ops = min(loops)
-    unroll = n_rcp // 2
+    unroll = n_rcp // rays
     mix = collections.Counter(o.split(".")[0] for o in ops)
     return {"per_row": span / unroll, "unroll": unroll, "span": span,
             "mix": {o: c / unroll for o, c in mix.most_common()}}
@@ -109,6 +111,8 @@ def build(source: pathlib.Path, out_dir: pathlib.Path) -> pathlib.Path:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--csrc", type=pathlib.Path, default=cuda_build.CSRC_DIR)
+    ap.add_argument("--rays", type=int, default=2,
+                    help="rays a row of the loop: 2 in the path kernels, 1 in whitted_uber.cu")
     ap.add_argument("pairs", nargs="+", metavar="SOURCE KERNEL")
     args = ap.parse_args(argv)
     if len(args.pairs) % 2:
@@ -116,7 +120,7 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         for src, kernel in zip(args.pairs[::2], args.pairs[1::2]):
             lib = build(args.csrc / src, pathlib.Path(tmp))
-            loop = row_loop(kernel_sass(lib, kernel))
+            loop = row_loop(kernel_sass(lib, kernel), args.rays)
             mix = ", ".join(f"{o} {c:g}" for o, c in loop["mix"].items())
             print(f"{os.path.join(str(args.csrc), src)} {kernel}: {loop['per_row']:g} "
                   f"instructions a row (loop of {loop['span']}, {loop['unroll']} rows an "
