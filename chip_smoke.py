@@ -41,7 +41,9 @@ Phases, one line each; any failure exits non-zero:
  13. raster main path: pipeline_from_config(cfg, "raster") on the default
      device -> TraditionalRasterizer.draw() -> save(), deferred and
      shaded, and draw_batch() of 8 turned frames; launch counts,
-     bin_dropped, coverage; then the batch against 8 draw()s;
+     bin_dropped, coverage; then the batch against 8 draw()s, and the
+     JAX default raster_tile (128, 128) and (64, 32), rendered in the
+     default kernel tile, against the (16, 32) frame bit for bit;
  14. raster times (CUDA events, median and range): the frame, the bare
      launch of each kernel, the stages around it, draw_batch per frame,
      and the plain versions;
@@ -70,7 +72,10 @@ Phases, one line each; any failure exits non-zero:
  20. large scenes: the tessellated Cornell boxes and their chunk tables
      on the card, camera rays and bounce rays from their hit points;
  21. the cull prepass kernel vs plain: the whole (ray block, chunk) mask
-     on both scenes and both ray sets, and the share that survives;
+     on both scenes and both ray sets, and the share that survives; the
+     streamed kernel (#6) on those masks' lists, its tally (warp-steps,
+     voted steps, tests, full tests, slab tests, (warp, listed chunk)
+     pairs and those skipped) against its plain model, s and w;
  22. the fused-cull, listed and streamed kernels: (hit, idx, t) bit for
      bit against the unculled trace kernel over the whole table and
      against their own plain versions, at every ray-block size (a ray that
@@ -82,11 +87,14 @@ Phases, one line each; any failure exits non-zero:
  24. large-scene times (CUDA events, median and range): each kernel bare
      and wrapped, the list build, the unculled kernel on the same rays,
      nearest_hit whole, the ray-block sizes, and the bounds from this
-     run's own masks;
+     run's own masks, for #6 also from its tally and its issue floor from
+     the SASS of its row loop (utils/sass.py);
  25. the unculled chunked sweep (kernel #8): (hit, idx, t) bit for bit
-     against kernel #2 and its plain version on 1M camera rays at 36 and
-     9,216 triangles and three ray-block sizes; nearest_hit(backend="mm")
-     by launch count, every field equal to backend="vpu"; times, bound;
+     against kernel #2 and its plain version on 1M camera and 1M bounce
+     rays at 36, 9,216 and 147,456 triangles and three ray-block sizes,
+     its tally against its plain model and s; nearest_hit(backend="mm")
+     by launch count, every field equal to backend="vpu"; times, the
+     bound, the bound from the tally, the issue floor;
  26. large-scene path tracing, the camera kernel: the culled walk (the
      warp walk: each (ray, chunk) pair tested by the whole warp) against
      the full sweep lane for lane at 1 spp (the whole frame at 9,216
@@ -123,15 +131,16 @@ their issue floor), the card's `nvidia-smi` name and power limit, and
 `{"ok": true, "device": ...}`. Images go to chiprun_out/ under the
 repository root.
 
-`whitted_ab` (not run by `main`) times Whitted kernels built from other
-sources against each other in turns, e.g. this tree's against an earlier
-commit's.
+`whitted_ab` and `trace_ab` (not run by `main`) time the Whitted kernel,
+and the trace kernels #6 and #8, built from other sources against each
+other in turns, e.g. this tree's against an earlier commit's.
 """
 
 from __future__ import annotations
 
 import json
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -191,7 +200,7 @@ LARGE_WINDOW = 1 << 16
 # large-scene path tracing: the lanes of a kernel against plain comparison,
 # kernel #8's ray blocks, and a Whitted depth beyond the old 8-entry stack
 PLAIN_PATH_LANES = 4096
-MM_BLOCKS = (256, 1024, 2048)
+MM_BLOCKS = (256, 512, 1024, 2048)
 DEEP_DEPTH = 12
 # the card's published peaks (H100 SXM data sheet): float32 outside the
 # tensor cores, and device memory
@@ -1023,13 +1032,27 @@ def raster_phases(dev, card: str) -> list:
             fail(f"draw_batch frame {i} differs from draw()")
     if np.array_equal(imgs[0], imgs[-1]):
         fail("the turned frames of draw_batch are all the same")
+    # any positive raster_tile: the JAX package's default (128, 128) and
+    # (64, 32) give way to the default kernel tile and the same frame
+    set_raster_cornell_angle(scene5, angles[0])
+    for tile in ((128, 128), (64, 32)):
+        r_t = pipeline_from_config(RenderConfig(width=W, height=H, raster_tile=tile), "raster")
+        r_t.add_scene(scene5)
+        r_t.draw()
+        if r_t.last_stats[scene5.name]["bin_dropped"] or not (
+                np.array_equal(r_t.frame, frame_d) and np.array_equal(r_t.zbuffer, zbuf_d)):
+            fail(f"raster_tile {tile}: bin_dropped "
+                 f"{r_t.last_stats[scene5.name]['bin_dropped']}, or the frame differs "
+                 f"from the (16, 32) frame")
     phase(13, f"pipeline_from_config(cfg, \"raster\") on {render.device} -> draw -> "
               f"{png5.name} / {png3.name}: coverage {cov_d:.4f} (>= "
               f"{RASTER_COVERAGE_MIN}), mean {frame_d.mean():.5f} / "
               f"{render_s.frame.mean():.5f}, launches fused {launches} shaded "
               f"{launches_s}, bin_dropped 0, equal to phases 10 and 11; "
               f"draw_batch of {RASTER_BATCH} turned frames bit-identical to "
-              f"{RASTER_BATCH} draws")
+              f"{RASTER_BATCH} draws; raster_tile (128, 128) and (64, 32) (kernel "
+              f"tile {rk.kernel_tile(128, 128)}) give the "
+              f"(16, 32) frame bit for bit, bin_dropped 0")
 
     # ---- 14. times
     set_raster_cornell_angle(scene5, angles[0])
@@ -1497,6 +1520,61 @@ def wavefront_phases(dev, card: str, cam_mean: float, cam_mpaths: float) -> list
     ]
 
 
+def bounce_rays(rt, o, d):
+    """Bounce rays from the hit points of the rays `o`, `d` on the scene `rt`,
+    as phase 15 makes them: a direction from a seeded generator turned into
+    the hemisphere of the hit's normal, the origin nudged off the surface; a
+    ray that misses keeps its camera ray. Returns (the hits, o2, d2)."""
+    import torch
+
+    from software_rasterizer_tpu_torch.ops import intersect as ti
+
+    hit = ti.nearest_hit(rt, o, d, backend="vpu")
+    gen = torch.Generator(device=o.device)
+    gen.manual_seed(SEED)
+    w = torch.randn((o.shape[0], 3), generator=gen, device=o.device)
+    w = w / torch.sqrt((w * w).sum(dim=1, keepdim=True))
+    w = torch.where(((w * hit.normal).sum(dim=1) < 0)[:, None], -w, w)
+    o2 = torch.where(hit.hit[:, None], hit.coords + 1e-6 * hit.normal, o).contiguous()
+    d2 = torch.where(hit.hit[:, None], w, d).contiguous()
+    return hit, o2, d2
+
+
+# float32 operations of stage 1 of the two-stage test (csrc/trace_culled.cu
+# mt_stage1): p 9, det 5, the |det| test and its select 2, the division 1,
+# tvec 3, u 6, u's two compares 2
+STAGE1_OPS = 28.0
+
+
+def vote_tally_bounds(table_bytes, work):
+    """Two bounds from a two-stage kernel's tally (trace_tiers.TALLY_NAMES),
+    each (ms, bound_by): the function's own work (every test's stage 1 at
+    STAGE1_OPS, the ~58 operations of a whole test only where the ray's own
+    stage 1 passed, slab tests at ~21), and the work of the kernel's warps
+    (~58 for every test of a voted warp-step)."""
+    tests, full, slabs, passes = work[2], work[3], work[4], work[7]
+    return (bound(table_bytes, STAGE1_OPS * (tests - passes) + 58.0 * passes + 21.0 * slabs),
+            bound(table_bytes, STAGE1_OPS * (tests - full) + 58.0 * full + 21.0 * slabs))
+
+
+def vote_floor(lib_path, kernel: str, rays: int, steps: int, voted: int):
+    """The issue floor of a row loop from its SASS (utils/sass.py): the
+    instructions of a warp-step (a row against one ray slot of every lane
+    of a warp) x the warp-steps, less the instructions a failed warp vote
+    skips x the steps whose vote failed (none in a loop without a vote),
+    over every scheduler of the card issuing one warp-instruction a cycle at
+    the highest SM clock. Returns (ms, the loop's count)."""
+    import torch
+
+    from software_rasterizer_tpu_torch.utils import sass
+
+    loop = sass.row_loop(sass.kernel_sass(lib_path, kernel), rays)
+    per, skip = loop["per_row"] / rays, loop["skip"] / rays
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rate = sms * SCHEDULERS_PER_SM * max_sm_clock_hz()
+    return (per * steps - skip * (steps - voted)) / rate * 1e3, loop
+
+
 def large_scene_phases(dev, card: str):
     """Phases 20-24: nearest hits of explicit rays on large scenes, the
     Cornell box tessellated to 9,216 and to 147,456 triangles. Returns
@@ -1534,15 +1612,7 @@ def large_scene_phases(dev, card: str):
                  f"{rt.cull_chunk} for {f_pad} rows")
         o, d = (x.contiguous() for x in camera_rays(
             rt.eye.cpu().numpy(), scene.fovy, WIDTH, HEIGHT, dev))
-        # bounce rays from the hit points, as phase 15 makes them
-        hit = ti.nearest_hit(rt, o, d, backend="vpu")
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(SEED)
-        w = torch.randn((n, 3), generator=gen, device=dev)
-        w = w / torch.sqrt((w * w).sum(dim=1, keepdim=True))
-        w = torch.where(((w * hit.normal).sum(dim=1) < 0)[:, None], -w, w)
-        o2 = torch.where(hit.hit[:, None], hit.coords + 1e-6 * hit.normal, o).contiguous()
-        d2 = torch.where(hit.hit[:, None], w, d).contiguous()
+        hit, o2, d2 = bounce_rays(rt, o, d)
         scenes[name] = dict(scene=scene, rt=rt, rays={"camera": (o, d), "bounce": (o2, d2)},
                             backend=ti._trace_backend(f_pad))
         lines.append(f"{name}: {rt.n_tri} triangles ({f_pad} rows), nc {rt.chunk_lo.shape[0]} "
@@ -1573,6 +1643,49 @@ def large_scene_phases(dev, card: str):
     if cull_bad:
         fail("cull prepass kernel disagrees with plain: " + "; ".join(lines))
     phase(21, f"cull prepass kernel vs plain, blocks of {block} rays: " + "; ".join(lines))
+
+    # ---- 21 (cont.): the streamed kernel's work (#6) on the masks' lists: its
+    # tally against the plain model (trace_tiers.listed_warp_plain), the whole
+    # frame or, where the model would take minutes, three windows of rays
+    def listed_tally(rt, o_, d_, counts_, lists_):
+        tally = torch.zeros(tt.TALLY_ENTRIES, dtype=torch.int64, device=dev)
+        k = tt.launch_trace_listed(rt.tri_table, counts_, lists_, o_, d_, rt.cull_chunk,
+                                   block, stream=True, chunk_lo=rt.chunk_lo,
+                                   chunk_hi=rt.chunk_hi, tally=tally)
+        return k, tuple(int(x) for x in tally.tolist())
+
+    lines, work6 = [], {}
+    for name, sc in scenes.items():
+        rt = sc["rt"]
+        for kind, (o_, d_) in sc["rays"].items():
+            mask = masks[name, kind]
+            k, work = listed_tally(rt, o_, d_, *tt.chunk_lists(mask))
+            work6[name, kind] = work
+            whole = float(mask.sum()) * rt.cull_chunk * block <= PLAIN_TESTS_LIMIT
+            starts = [0] if whole else [0, n // 2, n - LARGE_WINDOW]
+            bad = 0
+            for s0 in starts:
+                s1 = n if whole else s0 + LARGE_WINDOW
+                c_, l_ = tt.chunk_lists(mask[s0 // block:-(-s1 // block)])
+                kw_, work_w = (k, work) if whole else listed_tally(
+                    rt, o_[s0:s1], d_[s0:s1], c_, l_)
+                p_, want = tt.listed_warp_plain(rt.tri_table, rt.chunk_lo, rt.chunk_hi,
+                                                c_, l_, o_[s0:s1], d_[s0:s1],
+                                                rt.cull_chunk, block)
+                if work_w != want:
+                    fail(f"#6 tally on {name} {kind} rays [{s0}, {s1}): {work_w}, plain "
+                         f"model {want} ({tt.TALLY_NAMES})")
+                bad += int(((kw_[0] != p_[0]) | (kw_[1] != p_[1]) | (kw_[2] != p_[2])).sum())
+            if bad:
+                fail(f"#6 on {name} {kind} rays: {bad} rays differ from its plain model")
+            steps, voted, tests, full, slabs, pairs, skipped, passes = work
+            how = "whole frame" if whole else f"{len(starts)} windows of {LARGE_WINDOW} rays"
+            lines.append(f"{name} {kind}: s {voted / steps:.4f} ({voted}/{steps} warp-steps "
+                         f"voted), w {skipped / pairs:.4f} ({skipped}/{pairs} (warp, listed "
+                         f"chunk) pairs skipped), {full}/{tests} full tests, {passes} "
+                         f"passing stage 1, {slabs} slab tests; tally = plain model ({how})")
+    phase(21, "the streamed kernel (#6) on the masks' lists, its tally against its plain "
+              "model: " + "; ".join(lines))
 
     # ---- 22. every tier against kernel #2 over the whole table, and
     # against its own plain version
@@ -1757,7 +1870,8 @@ def large_scene_phases(dev, card: str):
                 rt.tri_table, counts_, lists_, o_, d_, **kw), reps),
             "mm2": cuda_times(lambda: tt.trace_nearest_mm2(*a, o_, d_, **kw), reps),
             "mm2s bare": cuda_times(lambda: tt.launch_trace_listed(
-                rt.tri_table, counts_, lists_, o_, d_, stream=True, **kw), reps),
+                rt.tri_table, counts_, lists_, o_, d_, stream=True, chunk_lo=rt.chunk_lo,
+                chunk_hi=rt.chunk_hi, **kw), reps),
             "mm2s": cuda_times(lambda: tt.trace_nearest_mm2_stream(*a, o_, d_, **kw), reps),
             "nearest_hit": cuda_times(lambda: ti.nearest_hit(rt, o_, d_), reps),
             "kernel #2": cuda_times(lambda: tk.trace_nearest_vpu(
@@ -1802,9 +1916,26 @@ def large_scene_phases(dev, card: str):
     b5, by5 = bound(tensor_bytes(large.chunk_lo, large.chunk_hi, o_, d_,
                                  masks["large", "camera"]),
                     21.0 * n * large.chunk_lo.shape[0])
+    # #6 from its own tally: stage-1-only and full tests and slab tests; its
+    # issue floor from the SASS of its row loop and the tally's warp-steps
+    from software_rasterizer_tpu_torch.utils.cuda_build import library_path
+
+    w6 = work6["large", "camera"]
+    (b6f, by6f), (b6w, by6w) = vote_tally_bounds(
+        tensor_bytes(large.tri_table, large.chunk_lo, large.chunk_hi, o_, d_) + 13 * n
+        + 4 * nb * (1 + large.chunk_lo.shape[0]), w6)
+    _, rays6 = tt.launch_shape(block)
+    floor6, loop6 = vote_floor(library_path("trace_culled"),
+                               f"trace_listed_stream_kernelILi{rays6}ELb0E", rays6, w6[0], w6[1])
     phase(24, f"bounds: mm2c (mid) {b4:.4f} ms by {by4} ({tests4:.3g} tests), cull "
-              f"prepass (large) {b5:.4f} ms by {by5}, mm2s (large) {b6:.4f} ms by {by6} "
-              f"({tests6:.3g} tests), mm2 (mid) {b7:.4f} ms by {by7}")
+              f"prepass (large) {b5:.4f} ms by {by5}, mm2s (large) from its tally "
+              f"{b6f:.4f} ms by {by6f} ({w6[2]} tests, {w6[7]} of them passing stage 1, "
+              f"{w6[4]} slab tests), {b6w:.4f} ms by {by6w} for its warps' work ({w6[3]} "
+              f"tests in voted warp-steps), {b6:.4f} ms by {by6} for every test of the mask "
+              f"({tests6:.3g}), issue floor "
+              f"{floor6:.4f} ms ({loop6['per_row'] / rays6:g} SASS instructions a row and "
+              f"ray, {loop6['skip'] / rays6:g} of them skipped by a failed vote, x "
+              f"{w6[0]} warp-steps, {w6[1]} voted), mm2 (mid) {b7:.4f} ms by {by7}")
 
     src = "software_rasterizer_tpu_torch/csrc/trace_culled.cu"
     jax_file = "software_rasterizer_tpu/ops/pallas_trace.py"
@@ -1821,8 +1952,16 @@ def large_scene_phases(dev, card: str):
               med(tm["mm2c bare"]), tier_plain_ms["mid", "camera", "mm2c"], b4, by4),
         entry("cull_prepass", 559, launches[1], float(cull_bad), med(tl["cull"]),
               med(tl["cull"]), cull_plain_ms["large", "camera"], b5, by5),
-        entry("trace_listed_stream", 801, launches[3], tier_err["mm2s"], med(tl["mm2s"]),
-              med(tl["mm2s bare"]), tier_plain_ms["large", "camera", "mm2s"], b6, by6),
+        {**entry("trace_listed_stream", 801, launches[3], tier_err["mm2s"], med(tl["mm2s"]),
+                 med(tl["mm2s bare"]), tier_plain_ms["large", "camera", "mm2s"], b6f, by6f),
+         "ms_range": [tl["mm2s"][0], tl["mm2s"][-1]],
+         "bare_ms_range": [tl["mm2s bare"][0], tl["mm2s bare"][-1]],
+         "bound_ms_voted_warps": b6w, "bound_ms_every_test": b6,
+         "issue_floor_ms": floor6,
+         "sass_per_row_and_ray": loop6["per_row"] / rays6,
+         "sass_skipped_per_row_and_ray": loop6["skip"] / rays6,
+         "tally": {f"{name} {kind}": dict(zip(tt.TALLY_NAMES, w))
+                   for (name, kind), w in work6.items()}},
         entry("trace_listed", 634, launches[2], tier_err["mm2"], med(tm["mm2"]),
               med(tm["mm2 bare"]), tier_plain_ms["mid", "camera", "mm2"], b7, by7),
     ], scenes
@@ -1878,42 +2017,77 @@ def culled_phases(dev, card: str, scenes: dict) -> dict:
 
     plain_off = n // 2 - PLAIN_PATH_LANES // 2
 
-    # ---- 25. kernel #8 against kernel #2 and against its plain version
+    # ---- 25. kernel #8 against kernel #2 and against its plain version, on
+    # camera and bounce rays of Cornell and both large scenes; its tally
+    # against the plain model
+    from software_rasterizer_tpu_torch.utils.cuda_build import library_path
+
     cornell = build_cornell_scene()
     cornell.set_ndc_matrix(WIDTH, HEIGHT)
     crt = ti.prepare_rt_scene(cornell.rt_geometry(), cornell.rt_frame(), dev)
     co, cd = (x.contiguous() for x in camera_rays(
         crt.eye.cpu().numpy(), cornell.fovy, WIDTH, HEIGHT, dev))
-    sets = {"cornell": (crt, co, cd), "mid": (scenes["mid"]["rt"], *scenes["mid"]["rays"]["camera"])}
-    mm_err, mm_plain_ms, lines, t25 = 0.0, {}, [], {}
-    for name, (rt, o_, d_) in sets.items():
-        ref = tk.trace_nearest_vpu(rt.tri_table, rt.n_tri, o_, d_)
-        for b in MM_BLOCKS:
-            k = tt.trace_nearest_mm(rt.tri_table, o_, d_, block=b)
-            bad = int(differing(k, ref).sum())
-            if bad:
-                fail(f"kernel #8 at block={b} on {name}: {bad} rays differ from kernel #2")
-        p_, mm_plain_ms[name] = wall_ms(lambda: tt.trace_nearest_mm_plain(rt.tri_table, o_, d_))
-        bad_p = int(differing(k, p_).sum())
-        mm_err = max(mm_err, float((k[2] - p_[2]).abs().max()))
-        if bad_p:
-            fail(f"kernel #8 on {name}: {bad_p} rays differ from its plain version")
-        chunk = tt._mm_chunk(rt.tri_table, tt.MM_MAX_CHUNK)
-        t = {"mm": cuda_times(lambda: tt.trace_nearest_mm(rt.tri_table, o_, d_), 10),
-             "mm bare": cuda_times(lambda: tt.launch_trace_unculled(
-                 rt.tri_table, o_, d_, chunk, tt.MM_BLOCK), 10),
-             "kernel #2": cuda_times(lambda: tk.trace_nearest_vpu(
-                 rt.tri_table, rt.n_tri, o_, d_), 3)}
-        for b in MM_BLOCKS:
-            t[f"mm block={b}"] = cuda_times(lambda: tt.trace_nearest_mm(
-                rt.tri_table, o_, d_, block=b), 3)
-        t25[name] = t
-        lines.append(f"{name} ({rt.n_tri} triangles, {rt.tri_table.shape[0]} rows, chunks of "
-                     f"{chunk}): 0/{n} rays differ from kernel #2 at blocks of {MM_BLOCKS}, "
-                     f"0 from the plain version (whole frame, {mm_plain_ms[name]:.0f} ms), "
-                     f"{int(k[0].sum())} hit; ms " + ", ".join(f"{a} {spread(v)}" for a, v in t.items()))
+    _, co2, cd2 = bounce_rays(crt, co, cd)
+    sets = {"cornell": (crt, {"camera": (co, cd), "bounce": (co2, cd2)})}
+    sets.update({name: (sc["rt"], sc["rays"]) for name, sc in scenes.items()})
+    mm_err, mm_plain_ms, lines, t25, work8 = 0.0, {}, [], {}, {}
+    for name, (rt, rays) in sets.items():
+        rows = rt.tri_table.shape[0]
+        for kind, (o_, d_) in rays.items():
+            ref = tk.trace_nearest_vpu(rt.tri_table, rt.n_tri, o_, d_)
+            for b in MM_BLOCKS:
+                k = tt.trace_nearest_mm(rt.tri_table, o_, d_, block=b)
+                bad = int(differing(k, ref).sum())
+                if bad:
+                    fail(f"kernel #8 at block={b} on {name} {kind}: {bad} rays differ from "
+                         f"kernel #2")
+            tally = torch.zeros(tt.TALLY_ENTRIES, dtype=torch.int64, device=dev)
+            k = tt.trace_nearest_mm(rt.tri_table, o_, d_, tally=tally)
+            work = tuple(int(x) for x in tally.tolist())
+            work8[name, kind] = work
+            whole = float(n) * rows <= PLAIN_TESTS_LIMIT
+            starts = [0] if whole else [0, n // 2, n - LARGE_WINDOW]
+            bad_p, ms = 0, 0.0
+            for s0 in starts:
+                s1 = n if whole else s0 + LARGE_WINDOW
+                p_, ms_w = wall_ms(lambda: tt.trace_nearest_mm_plain(
+                    rt.tri_table, o_[s0:s1], d_[s0:s1]))
+                ms += ms_w
+                bad_p += int(differing(tuple(x[s0:s1] for x in k), p_).sum())
+                mm_err = max(mm_err, float((k[2][s0:s1] - p_[2]).abs().max()))
+                if whole:
+                    work_w = work
+                else:
+                    tw = torch.zeros(tt.TALLY_ENTRIES, dtype=torch.int64, device=dev)
+                    tt.trace_nearest_mm(rt.tri_table, o_[s0:s1], d_[s0:s1], tally=tw)
+                    work_w = tuple(int(x) for x in tw.tolist())
+                want = tt.unculled_tally_plain(rt.tri_table, o_[s0:s1], d_[s0:s1])
+                if work_w != want:
+                    fail(f"kernel #8 tally on {name} {kind} rays [{s0}, {s1}): {work_w}, "
+                         f"plain model {want} ({tt.TALLY_NAMES})")
+            if bad_p:
+                fail(f"kernel #8 on {name} {kind}: {bad_p} rays differ from its plain version")
+            mm_plain_ms[name, kind] = ms
+            how = "whole frame" if whole else f"{len(starts)} windows of {LARGE_WINDOW} rays"
+            line = (f"{name} {kind} ({rt.n_tri} triangles, {rows} rows): 0/{n} rays differ "
+                    f"from kernel #2 at blocks of {MM_BLOCKS}, 0 from the plain version "
+                    f"({how}, {ms:.0f} ms), {int(k[0].sum())} hit; s {work[1] / work[0]:.4f} "
+                    f"({work[1]}/{work[0]} warp-steps voted), tally = plain model")
+            if name != "large":
+                t = {"mm": cuda_times(lambda: tt.trace_nearest_mm(rt.tri_table, o_, d_), 10),
+                     "mm bare": cuda_times(lambda: tt.launch_trace_unculled(
+                         rt.tri_table, o_, d_, tt.MM_BLOCK), 10),
+                     "kernel #2": cuda_times(lambda: tk.trace_nearest_vpu(
+                         rt.tri_table, rt.n_tri, o_, d_), 3)}
+                for b in MM_BLOCKS:
+                    t[f"mm block={b}"] = cuda_times(lambda: tt.trace_nearest_mm(
+                        rt.tri_table, o_, d_, block=b), 3)
+                t25[name, kind] = t
+                line += "; ms " + ", ".join(f"{a} {spread(v)}" for a, v in t.items())
+            lines.append(line)
     # the path: nearest_hit(backend="mm"), every field against backend="vpu"
-    rt, o_, d_ = sets["mid"]
+    rt = scenes["mid"]["rt"]
+    o_, d_ = scenes["mid"]["rays"]["camera"]
     want = ti.nearest_hit(rt, o_, d_, backend="vpu")
     vpu_before = tk.LAUNCHES
     tt.LAUNCHES_MM = 0
@@ -1926,12 +2100,22 @@ def culled_phases(dev, card: str, scenes: dict) -> dict:
     if mm_launches != 1 or tk.LAUNCHES != vpu_before or bool(off.any()):
         fail(f"nearest_hit(backend='mm'): {mm_launches} launches of kernel #8, "
              f"{tk.LAUNCHES - vpu_before} of kernel #2, {int(off.sum())} lanes differ")
-    b8, by8 = bound(tensor_bytes(rt.tri_table, o_, d_) + 13 * n,
-                    58.0 * n * rt.tri_table.shape[0])
-    phase(25, f"kernel #8 (trace_nearest_mm) on {n} camera rays, ms as median [min-max] "
+    table_bytes8 = tensor_bytes(rt.tri_table, o_, d_) + 13 * n
+    b8, by8 = bound(table_bytes8, 58.0 * n * rt.tri_table.shape[0])
+    w8 = work8["mid", "camera"]
+    (b8f, by8f), (b8w, by8w) = vote_tally_bounds(table_bytes8, w8)
+    _, rays8 = tt.launch_shape(tt.MM_BLOCK)
+    floor8, loop8 = vote_floor(library_path("trace_culled"),
+                               f"trace_unculled_kernelILi{rays8}ELb0E", rays8, w8[0], w8[1])
+    phase(25, f"kernel #8 (trace_nearest_mm) on {n} rays, ms as median [min-max] "
               f"on {card}: " + "; ".join(lines) + f"; nearest_hit(backend='mm') on the mid "
               f"scene: launches {mm_launches}, kernel #2 0, all {len(got._fields)} fields "
-              f"equal to backend='vpu'; bound (mid) {b8:.4f} ms by {by8}")
+              f"equal to backend='vpu'; bound (mid camera) from its tally {b8f:.4f} ms by "
+              f"{by8f} ({w8[7]} of {w8[2]} tests passing stage 1), {b8w:.4f} ms by {by8w} "
+              f"for its warps' work ({w8[3]} tests in voted warp-steps), {b8:.4f} ms by "
+              f"{by8} for every test, issue floor "
+              f"{floor8:.4f} ms ({loop8['per_row'] / rays8:g} SASS instructions a row and "
+              f"ray, {loop8['skip'] / rays8:g} of them skipped by a failed vote)")
 
     # ---- 26. the culled camera kernel against the full sweep and the plain
     # versions
@@ -2188,9 +2372,19 @@ def culled_phases(dev, card: str, scenes: dict) -> dict:
              "source": "software_rasterizer_tpu_torch/csrc/trace_culled.cu",
              "replaces": "software_rasterizer_tpu/ops/pallas_trace.py:120",
              "launches": mm_launches, "max_abs_err": mm_err,
-             "ms": med(t25[mid]["mm"]), "bare_ms": med(t25[mid]["mm bare"]),
-             "plain_ms": mm_plain_ms[mid], "bound_ms": b8, "bound_by": by8,
-             "library_ms": None},
+             "ms": med(t25[mid, "camera"]["mm"]), "bare_ms": med(t25[mid, "camera"]["mm bare"]),
+             "plain_ms": mm_plain_ms[mid, "camera"], "bound_ms": b8f, "bound_by": by8f,
+             "library_ms": None,
+             "ms_range": [t25[mid, "camera"]["mm"][0], t25[mid, "camera"]["mm"][-1]],
+             "bare_ms_range": [t25[mid, "camera"]["mm bare"][0],
+                               t25[mid, "camera"]["mm bare"][-1]],
+             "bare_ms_bounce": med(t25[mid, "bounce"]["mm bare"]),
+             "bound_ms_voted_warps": b8w, "bound_ms_every_test": b8,
+             "issue_floor_ms": floor8,
+             "sass_per_row_and_ray": loop8["per_row"] / rays8,
+             "sass_skipped_per_row_and_ray": loop8["skip"] / rays8,
+             "tally": {f"{name} {kind}": dict(zip(tt.TALLY_NAMES, w))
+                       for (name, kind), w in work8.items()}},
             {"name": "path_camera_culled", "route": "cuda",
              "source": "software_rasterizer_tpu_torch/csrc/path_camera.cu",
              "replaces": "software_rasterizer_tpu/ops/pallas_path.py:354",
@@ -2457,6 +2651,216 @@ def whitted_ab(csrc_dirs: dict, rounds: int = 4, repeats: int = 5) -> dict:
                   + f"; frames and ray counts equal to {names[0]}'s", flush=True)
     finally:
         wk._cuda_fn = own
+    return res
+
+
+def trace_ab(csrc_dirs: dict, rounds: int = 4, repeats: int = 5) -> dict:
+    """Times kernels #6 (trace_listed_stream_kernel) and #8
+    (trace_unculled_kernel) as built from other sources, in turns in one
+    process on one card:
+
+        python3 -c "import chip_smoke as c; c.trace_ab({'parent': 'DIR', 'this':
+            'software_rasterizer_tpu_torch/csrc'})"
+
+    `csrc_dirs` maps a name to a directory that holds a trace_culled.cu (and
+    the headers it includes). Sources without srt_trace_tally_entries are
+    called through the older interface (no boxes, no tally, #8 taking the
+    JAX chunk). Each is built with the package's nvcc flags; its bare launch is
+    timed on phase 20's camera and bounce rays (#6 at 147,456 triangles on
+    the prepass's lists, ray blocks of 64; #8 at 9,216 triangles and on
+    Cornell, blocks of MM_BLOCK), `rounds` rounds of `repeats` launches, the
+    order of the builds reversed every other round. Every build's (hit, idx,
+    t) must equal the first's and kernel #2's bit for bit. Prints a line a
+    case, each build's SASS instructions a row and ray of both row loops
+    (utils/sass.py) and its issue floor on this run's warp-steps, the plain
+    models' s and w, and the builds' ptxas register and spill lines; returns
+    {case: {build: sorted ms}}."""
+    import ctypes
+
+    import torch
+
+    from software_rasterizer_tpu_torch.ops import intersect as ti
+    from software_rasterizer_tpu_torch.ops import trace_kernel as tk
+    from software_rasterizer_tpu_torch.ops import trace_tiers as tt
+    from software_rasterizer_tpu_torch.ops.camera import camera_rays
+    from software_rasterizer_tpu_torch.scenes import build_cornell_scene
+    from software_rasterizer_tpu_torch.scenes.stress import subdivide_mesh
+    from software_rasterizer_tpu_torch.utils import cuda_build, sass
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_scenes import stress_cornell
+
+    card = card_line()
+    dev = torch.device("cuda")
+    n = WIDTH * HEIGHT
+    block = tt.DEFAULT_BLOCK
+    names = list(csrc_dirs)
+    cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, d in csrc_dirs.items():
+        out = cuda_build.BUILD_DIR / f"ab_trace_{name}.so"
+        procs[name] = (out, subprocess.Popen(
+            [cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS, "-o", str(out),
+             str(pathlib.Path(d) / "trace_culled.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs, newer = {}, {}
+    vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    own = tt._cuda_lib()
+    for name, (out, proc) in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            fail(f"nvcc failed on {csrc_dirs[name]}: {log}")
+        (OUT_DIR / f"ab_trace_{name}_build.log").write_text(log)
+        lib = ctypes.CDLL(str(out))
+        newer[name] = hasattr(lib, "srt_trace_tally_entries")
+        if newer[name]:
+            lib.srt_trace_listed.argtypes = own.srt_trace_listed.argtypes
+            lib.srt_trace_unculled.argtypes = own.srt_trace_unculled.argtypes
+        else:  # the interface before the boxes and the tally
+            lib.srt_trace_listed.argtypes = [vp, ci, ci, vp, vp, cl, vp, vp, ci, ci, ci, vp,
+                                             vp, vp, vp]
+            lib.srt_trace_unculled.argtypes = [vp, ci, ci, vp, vp, ci, ci, vp, vp, vp, vp]
+        lib.srt_trace_listed.restype = lib.srt_trace_unculled.restype = ci
+        libs[name] = lib
+
+    def call6(name, rt, counts, lists, o_, d_, out):
+        hit, idx, t = out
+        strm = torch.cuda.current_stream().cuda_stream
+        a = (rt.tri_table.data_ptr(), rt.tri_table.shape[0], rt.cull_chunk)
+        tail = (o_.data_ptr(), d_.data_ptr(), n, block, 1, hit.data_ptr(), idx.data_ptr(),
+                t.data_ptr())
+        if newer[name]:
+            rc = libs[name].srt_trace_listed(*a, rt.chunk_lo.data_ptr(), rt.chunk_hi.data_ptr(),
+                                             counts.data_ptr(), lists.data_ptr(),
+                                             lists.shape[1], *tail, None, strm)
+        else:
+            rc = libs[name].srt_trace_listed(*a, counts.data_ptr(), lists.data_ptr(),
+                                             lists.shape[1], *tail, strm)
+        if rc != 0:
+            fail(f"ab {name}: trace_listed launch failed: cudaError {rc}")
+
+    def call8(name, rt, o_, d_, out):
+        hit, idx, t = out
+        strm = torch.cuda.current_stream().cuda_stream
+        tail = [o_.data_ptr(), d_.data_ptr(), n, tt.MM_BLOCK, hit.data_ptr(), idx.data_ptr(),
+                t.data_ptr()]
+        if newer[name]:
+            rc = libs[name].srt_trace_unculled(rt.tri_table.data_ptr(), rt.tri_table.shape[0],
+                                               *tail, None, strm)
+        else:
+            rc = libs[name].srt_trace_unculled(rt.tri_table.data_ptr(), rt.tri_table.shape[0],
+                                               tt._mm_chunk(rt.tri_table, tt.MM_MAX_CHUNK),
+                                               *tail, strm)
+        if rc != 0:
+            fail(f"ab {name}: trace_unculled launch failed: cudaError {rc}")
+
+    # the cases: (kernel, scene, rays)
+    scenes = {}
+    for sname, make in (("cornell", build_cornell_scene),
+                        ("mid", lambda: stress_cornell(build_cornell_scene, subdivide_mesh,
+                                                       LARGE_LEVELS[0])),
+                        ("large", lambda: stress_cornell(build_cornell_scene, subdivide_mesh,
+                                                         LARGE_LEVELS[1]))):
+        scene = make()
+        scene.set_ndc_matrix(WIDTH, HEIGHT)
+        rt = ti.prepare_rt_scene(scene.rt_geometry(), scene.rt_frame(), dev)
+        o, d = (x.contiguous() for x in camera_rays(
+            rt.eye.cpu().numpy(), scene.fovy, WIDTH, HEIGHT, dev))
+        _, o2, d2 = bounce_rays(rt, o, d)
+        scenes[sname] = (rt, {"camera": (o, d), "bounce": (o2, d2)})
+    cases = [("#6", "large", k) for k in ("camera", "bounce")]
+    cases += [("#8", s_, k) for s_ in ("mid", "cornell") for k in ("camera", "bounce")]
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rate = sms * SCHEDULERS_PER_SM * max_sm_clock_hz()
+    loops = {}
+    for name in names:
+        lib_path = cuda_build.BUILD_DIR / f"ab_trace_{name}.so"
+        for kern, pat, rays in (("#6", "trace_listed_stream_kernelILi1E", 1),
+                                ("#8", "trace_unculled_kernelILi4E", 4)):
+            fn_sass = None
+            for p_ in (pat + "Lb0E", pat + "E"):
+                try:
+                    fn_sass = sass.kernel_sass(lib_path, p_)
+                    break
+                except ValueError:
+                    continue
+            if fn_sass is None:
+                fail(f"ab {name}: no single {pat} in the SASS")
+            loops[name, kern] = sass.row_loop(fn_sass, rays)
+            lp = loops[name, kern]
+            print(f"[ab] {name} {kern}: {lp['per_row'] / rays:g} SASS instructions a row and "
+                  f"ray, {lp['skip'] / rays:g} of them skipped by a failed vote (loop of "
+                  f"{lp['span']}, {lp['unroll']} rows an iteration)", flush=True)
+    for name in names:
+        # ptxas's lines for the kernels #6 and #8 of 1 and 4 rays a thread,
+        # without the tally
+        kern, regs = None, []
+        for ln in (OUT_DIR / f"ab_trace_{name}_build.log").read_text().splitlines():
+            m = re.search(r"Compiling entry function '[^']*?(trace_listed_stream_kernel"
+                          r"ILi1ELb0E|trace_unculled_kernelILi4ELb0E|trace_listed_stream_"
+                          r"kernelILi1EE|trace_unculled_kernelILi4EE)", ln)
+            if "Compiling entry function" in ln:
+                kern = m.group(1) if m else None
+            elif kern and ("registers" in ln or "spill" in ln):
+                regs.append(f"{kern}: {ln.split(':', 1)[-1].strip()}")
+        print(f"[ab] {name} ptxas: " + "; ".join(regs), flush=True)
+
+    res = {}
+    for kern, sname, kind in cases:
+        rt, rays = scenes[sname]
+        o_, d_ = rays[kind]
+        ref = tk.trace_nearest_vpu(rt.tri_table, rt.n_tri, o_, d_)
+        if kern == "#6":
+            mask = tt.cull_prepass(rt.chunk_lo, rt.chunk_hi, o_, d_, block)
+            counts, lists = tt.chunk_lists(mask)
+            _, work = tt.listed_warp_plain(rt.tri_table, rt.chunk_lo, rt.chunk_hi, counts,
+                                           lists, o_, d_, rt.cull_chunk, block)
+            threads, r_ = tt.launch_shape(block)
+            rows_c = torch.clamp(rt.tri_table.shape[0] - rt.cull_chunk * torch.arange(
+                rt.chunk_lo.shape[0], device=dev), max=rt.cull_chunk)
+            all_steps = int((mask.long() * rows_c[None]).sum()) * (threads // 32) * r_
+
+            def run(b, out):
+                call6(b, rt, counts, lists, o_, d_, out)
+        else:
+            work = tt.unculled_tally_plain(rt.tri_table, o_, d_, tt.MM_BLOCK)
+            all_steps = work[0]
+
+            def run(b, out):
+                call8(b, rt, o_, d_, out)
+        outs = {}
+        for b in names:
+            outs[b] = (torch.empty(n, dtype=torch.bool, device=dev),
+                       torch.empty(n, dtype=torch.int64, device=dev),
+                       torch.empty(n, dtype=torch.float32, device=dev))
+            run(b, outs[b])
+        torch.cuda.synchronize()
+        for b in names:
+            if not all(torch.equal(x, y) for x, y in zip(outs[b], ref)):
+                fail(f"ab {kern} {sname} {kind}: {b}'s (hit, idx, t) differ from kernel #2")
+        times = {b: [] for b in names}
+        for rnd in range(rounds):
+            for b in (names if rnd % 2 == 0 else names[::-1]):
+                times[b] += cuda_times(lambda: run(b, outs[b]), repeats)
+        key = f"{kern} {sname} {kind}"
+        res[key] = {b: sorted(t) for b, t in times.items()}
+        steps, voted = work[0], work[1]
+        floors = []
+        for b in names:
+            lp = loops[b, kern]
+            rays = 1 if kern == "#6" else 4
+            per, skip = lp["per_row"] / rays, lp["skip"] / rays
+            # a build without the per-warp vote sweeps every listed chunk with
+            # every warp of the block
+            st = steps if newer[b] else all_steps
+            floors.append(f"{b} {(per * st - skip * (st - voted if newer[b] else 0)) / rate * 1e3:.4f}")
+        extra = (f", w {work[6] / work[5]:.4f} ({work[6]}/{work[5]})" if kern == "#6" else "")
+        print(f"[ab] {key} ({rt.n_tri} triangles, {n} rays, bare launch, ms as median "
+              f"[min-max] of {rounds * repeats} in turns, on {card}): "
+              + ", ".join(f"{b} {spread(res[key][b])}" for b in names)
+              + f"; (hit, idx, t) equal to kernel #2's; plain model s {voted / steps:.4f} "
+              f"({voted}/{steps}){extra}; issue floor ms " + ", ".join(floors), flush=True)
     return res
 
 

@@ -354,7 +354,10 @@ def render_raster_frame(
     `active_types`: tuple of the ShaderType values used by the scene's
     meshes (None evaluates all five). `shaded` asks for the in-kernel
     Blinn-Phong tile kernel; see `shaded_kernel_applies`. `tile` is the
-    kernels' (rows, cols) tile; no output depends on it.
+    (rows, cols) tile; on the card one of more than
+    `raster_kernel.MAX_TILE_PIXELS` pixels gives way to the default kernel
+    tile (`raster_kernel.kernel_tile`), the unit `bin_dropped` counts
+    against there; no other output depends on it.
     """
     if not isinstance(frame, DeviceRasterFrame):
         frame = prepare_raster_frame(frame, geom.device)

@@ -20,7 +20,11 @@ shaders in the kernel and returns the terms of
     computation in plain PyTorch over the same tile lists, in the
     kernels' operation order.
 
-Triangles beyond a tile's list capacity `cap` are counted in
+Any positive tile is taken. On the card one larger than
+`MAX_TILE_PIXELS` (a thread a pixel) is binned and rendered in the
+default (TILE_H, TILE_W) kernel tiles instead (`kernel_tile`); the
+plain versions bin the tile as asked, as the JAX package does.
+Triangles beyond a binned tile's list capacity `cap` are counted in
 `bin_dropped`, never lost silently. No output depends on the tile size
 as long as nothing is dropped.
 """
@@ -46,6 +50,19 @@ MAX_TILE_PIXELS = 1024  # threads of a block
 # plain versions are not counted); a caller may reset them to 0
 LAUNCHES = 0
 LAUNCHES_SHADED = 0
+
+
+def kernel_tile(tile_h: int, tile_w: int) -> Tuple[int, int]:
+    """The kernels' tile for a requested (tile_h, tile_w) tile: the tile
+    itself if it has at most `MAX_TILE_PIXELS` pixels, else (TILE_H,
+    TILE_W). No output but `bin_dropped` depends on the tile. Non-positive
+    sides raise ValueError."""
+    tile_h, tile_w = int(tile_h), int(tile_w)
+    if tile_h < 1 or tile_w < 1:
+        raise ValueError(f"tile {tile_h}x{tile_w}: each side must be at least 1")
+    if tile_h * tile_w <= MAX_TILE_PIXELS:
+        return tile_h, tile_w
+    return TILE_H, TILE_W
 
 
 def pack_raster_tables(coef, zrow, tri_nrm, tri_uv, tri_col, shader_type_f,
@@ -301,12 +318,15 @@ def _raster_tiles(geo, attr, tri_bbox, keep, lights, height, width, tile_h,
     device = geo.device
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {device}")
+    launch = not plain and device.type == "cuda"
+    if launch:
+        tile_h, tile_w = kernel_tile(tile_h, tile_w)
     gh = -(-height // tile_h)
     gw = -(-width // tile_w)
     cap = min(cap, max(256, ((geo.shape[0] + 127) // 128) * 128))
     lists, counts, dropped = bin_triangles(
         tri_bbox, keep, gh, gw, tile_h, tile_w, cap, row0=row0)
-    if plain or device.type == "cpu":
+    if not launch:
         out = _tiles_plain(geo, attr, lists, counts, lights, height, width,
                            gw, tile_h, tile_w, row0)
     else:
@@ -352,8 +372,10 @@ def raster_tiles_fused(geo, attr, tri_bbox, keep, height: int, width: int,
     geo (F,12), attr (F,28): see `pack_raster_tables`; tri_bbox (F,4);
     keep (F,) bool. Returns dict: best_z (H,W) f32 (inf uncovered),
     best_idx (H,W) i32 (-1 uncovered), normal/uv/color (H,W,3|2) f32,
-    shader_type/tex_id (H,W) i32, bin_dropped () i32. `row0` rasterizes
-    the absolute screen rows [row0, row0+height): bit-exact row-sharding.
+    shader_type/tex_id (H,W) i32, bin_dropped () i32: the triangles over
+    the `cap` of the tiles actually binned (on the card the kernel tiles,
+    `kernel_tile` of the requested tile). `row0` rasterizes the absolute screen rows [row0,
+    row0+height): bit-exact row-sharding.
     CUDA tensors run the kernel; CPU tensors run the plain version."""
     return _fused_dict(*_raster_tiles(geo, attr, tri_bbox, keep, None, height,
                                       width, tile_h, tile_w, cap, row0, False))

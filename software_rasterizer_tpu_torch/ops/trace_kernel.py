@@ -156,12 +156,10 @@ def trace_nearest_vpu_plain(tri_table: torch.Tensor, n_tri: int,
     return hit, torch.where(hit, best_f, -1), best_t
 
 
-def mt_plane(orig: torch.Tensor, d: torch.Tensor, rows: torch.Tensor,
-             uv: bool = False):
-    """(N, C) t of the rays `orig`, `d` (N,3) against the table rows
-    `rows` (C,12), BIG where rejected: the test of
-    `trace_nearest_vpu_plain`, expression for expression, on whole planes.
-    What the chunked plain sweeps share. With `uv`, (t, u, v) planes."""
+def _mt_stage1(orig: torch.Tensor, d: torch.Tensor, rows: torch.Tensor):
+    """Stage 1 of the test on (N, C) planes: (pass, u, inv, tvec, d, rows'
+    e1 and e2), `pass` being |det| >= 1e-6 and u in [0, 1], the first
+    three terms of the test's `ok`."""
     ox, oy, oz = orig[:, 0:1], orig[:, 1:2], orig[:, 2:3]
     dx, dy, dz = d[:, 0:1], d[:, 1:2], d[:, 2:3]
     v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = (rows[None, :, k] for k in range(9))
@@ -172,15 +170,49 @@ def mt_plane(orig: torch.Tensor, d: torch.Tensor, rows: torch.Tensor,
     inv = 1.0 / torch.where(det.abs() < 1e-6, 1.0, det)
     tx, ty, tz = ox - v0x, oy - v0y, oz - v0z
     u = (tx * px + ty * py + tz * pz) * inv
+    ok1 = (det.abs() >= 1e-6) & (u >= 0.0) & (u <= 1.0)
+    return ok1, u, inv, (tx, ty, tz), (dx, dy, dz), (e1x, e1y, e1z), (e2x, e2y, e2z)
+
+
+def _mt_stage2(stage1):
+    """The rest of the test after `_mt_stage1`: (t plane, BIG where
+    rejected, u, v)."""
+    ok1, u, inv, (tx, ty, tz), (dx, dy, dz), (e1x, e1y, e1z), (e2x, e2y, e2z) = stage1
     qx = ty * e1z - tz * e1y
     qy = tz * e1x - tx * e1z
     qz = tx * e1y - ty * e1x
     v = (dx * qx + dy * qy + dz * qz) * inv
     t = (e2x * qx + e2y * qy + e2z * qz) * inv
-    ok = ((det.abs() >= 1e-6) & (u >= 0.0) & (u <= 1.0) & (v >= 0.0)
-          & (u + v <= 1.0) & (t >= 1e-6))
-    tm = torch.where(ok, t, BIG)
+    ok = ok1 & (v >= 0.0) & (u + v <= 1.0) & (t >= 1e-6)
+    return torch.where(ok, t, BIG), u, v
+
+
+def mt_plane(orig: torch.Tensor, d: torch.Tensor, rows: torch.Tensor,
+             uv: bool = False):
+    """(N, C) t of the rays `orig`, `d` (N,3) against the table rows
+    `rows` (C,12), BIG where rejected: the test of
+    `trace_nearest_vpu_plain`, expression for expression, on whole planes.
+    What the chunked plain sweeps share. With `uv`, (t, u, v) planes."""
+    tm, u, v = _mt_stage2(_mt_stage1(orig, d, rows))
     return (tm, u, v) if uv else tm
+
+
+def mt_stage1_plane(orig: torch.Tensor, d: torch.Tensor,
+                    rows: torch.Tensor) -> torch.Tensor:
+    """(N, C) bool: stage 1 of the two-stage test of kernels #6 and #8
+    (csrc/trace_culled.cu mt_stage1), |det| >= 1e-6 and u in [0, 1] with
+    `mt_plane`'s expressions; what each warp votes on."""
+    return _mt_stage1(orig, d, rows)[0]
+
+
+def mt_plane_two_stage(orig: torch.Tensor, d: torch.Tensor,
+                       rows: torch.Tensor) -> torch.Tensor:
+    """The two-stage test's plain form: stage 1, then stage 2 on the
+    pairs whose stage 1 passed, BIG elsewhere (csrc/trace_culled.cu
+    mt_stage1 / mt_stage2). Equal to `mt_plane` bit for bit: its `ok`
+    begins with stage 1's predicate."""
+    st = _mt_stage1(orig, d, rows)
+    return torch.where(st[0], _mt_stage2(st)[0], BIG)
 
 
 def plane_winner(tm: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

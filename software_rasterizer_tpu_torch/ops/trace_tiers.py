@@ -20,11 +20,18 @@ t. `block` and `chunk` change the work, never a result.
   * `cull_prepass` + `chunk_lists` + `trace_nearest_mm2`: the (nb, nc)
     mask as a tensor, its ascending lists of surviving chunks, and the
     sweep over each block's list; `cull=False` lists every chunk.
-  * `trace_nearest_mm2_stream`: the same sweep with the next chunk's rows
-    fetched asynchronously while the current chunk is swept. The tier
-    above 16K triangles.
+  * `trace_nearest_mm2_stream`: the same lists, each warp of a ray
+    block voting on each listed chunk's box and sweeping only the chunks
+    some ray of it enters, its rows streamed while the last slice is
+    swept. The tier above 16K triangles.
   * `trace_nearest_mm`: no boxes and no lists, every chunk of the table
     staged in turn for every ray block (`nearest_hit(backend="mm")`).
+
+The last two test each (ray, row) pair in two stages with a warp vote
+(`trace_kernel.mt_plane_two_stage`), and take a `tally`: an
+(`TALLY_ENTRIES`,) int64 tensor that gets the work they did
+(`TALLY_NAMES`). `listed_warp_plain` and `unculled_tally_plain` are the
+plain models of that work, and of the per-warp sweep's result.
 
 `walk_nearest_plain` is the per-ray form of the cull: each ray tests the
 rows of the chunks whose boxes it enters itself, the tests the culled
@@ -54,6 +61,7 @@ from software_rasterizer_tpu_torch.ops.trace_kernel import (
     BIG,
     _check,
     mt_plane,
+    mt_stage1_plane,
     plane_winner,
 )
 
@@ -62,9 +70,10 @@ MAX_CHUNK = 256     # rows of a chunk the kernels stage in shared memory
 MAX_BLOCK = 2048    # rays of a ray block (8 a thread, 256 threads)
 MM_MAX_CHUNK = 512  # rows of a chunk the unculled kernel stages
 # rays a ray block of the unculled kernel, a tuning value that changes no
-# result: of 256, 1024 and 2048, 1,048,576 camera rays against the
-# 9,216-triangle tessellated Cornell box took the least time at 1024 on
-# an H100 (chip_smoke.py phase 25 measures it anew)
+# result: of 256, 512, 1024 and 2048, 1,048,576 camera rays and as many
+# bounce rays against the 9,216-triangle tessellated Cornell box took the
+# least time at 1024 on an H100, with the two-stage test as before it
+# (chip_smoke.py phase 25 measures it anew)
 MM_BLOCK = 1024
 # rays a ray block. A tuning value that changes no result: of 32, 64, 128,
 # 512, 1024 and 2048, 1,048,576 camera rays in image order against the
@@ -78,6 +87,20 @@ _PLAIN_STEP = 1 << 22
 # of a chunk (csrc/trace_common.cuh kSlice)
 WARP = 32
 WALK_SLICE = 128
+# threads of a CUDA block of the tier kernels (csrc/trace_culled.cu
+# kMaxThreads)
+MAX_THREADS = 256
+# The tally of the two-stage kernels #6 and #8 (csrc/trace_culled.cu
+# VoteTally), in order: warp-steps (a warp, a row, a ray slot j of its
+# threads), the warp-steps whose stage-1 vote passed (stage 2 ran), the
+# active rays' (ray, row) tests, those of them in voted steps (full
+# tests), the active rays' slab tests on listed chunks' boxes (#6), the
+# (warp, listed chunk) pairs (#6) and those the warp skipped (none of its
+# rays enters the box), and the tests whose own ray passed stage 1.
+# s = voted / steps, w = skipped / warp_chunks.
+TALLY_NAMES = ("steps", "voted", "tests", "full_tests", "slab_tests", "warp_chunks",
+               "warp_chunks_skipped", "stage1_passes")
+TALLY_ENTRIES = len(TALLY_NAMES)
 
 # kernel launches (the plain versions are not counted); a caller may
 # reset them to 0 to count one run
@@ -229,15 +252,20 @@ def _cuda_lib():
     if lib.srt_cull_prepass.argtypes is None:
         vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.srt_cull_prepass.argtypes = [vp, vp, ci, vp, vp, ci, ci, vp, vp]
-        lib.srt_trace_listed.argtypes = [vp, ci, ci, vp, vp, cl, vp, vp, ci, ci,
-                                         ci, vp, vp, vp, vp]
+        lib.srt_trace_listed.argtypes = [vp, ci, ci, vp, vp, vp, vp, cl, vp, vp,
+                                         ci, ci, ci, vp, vp, vp, vp, vp]
         lib.srt_trace_fused_cull.argtypes = [vp, ci, ci, vp, vp, ci, vp, vp, ci,
                                              vp, vp, ci, ci, vp, vp, vp, vp]
-        lib.srt_trace_unculled.argtypes = [vp, ci, ci, vp, vp, ci, ci, vp, vp,
+        lib.srt_trace_unculled.argtypes = [vp, ci, vp, vp, ci, ci, vp, vp, vp,
                                            vp, vp]
+        lib.srt_trace_tally_entries.argtypes = []
         for fn in (lib.srt_cull_prepass, lib.srt_trace_listed,
-                   lib.srt_trace_fused_cull, lib.srt_trace_unculled):
+                   lib.srt_trace_fused_cull, lib.srt_trace_unculled,
+                   lib.srt_trace_tally_entries):
             fn.restype = ci
+        if lib.srt_trace_tally_entries() != TALLY_ENTRIES:
+            raise RuntimeError(f"trace_culled.cu counts {lib.srt_trace_tally_entries()} "
+                               f"tally entries, trace_tiers.py {TALLY_ENTRIES}")
     return lib
 
 
@@ -264,6 +292,17 @@ def _aligned(tri_table: torch.Tensor) -> torch.Tensor:
     return tri_table if tri_table.data_ptr() % 16 == 0 else tri_table.clone()
 
 
+def _check_tally(tally, device) -> None:
+    """A tally of kernels #6 and #8: (TALLY_ENTRIES,) int64, contiguous,
+    on the rays' device (or None)."""
+    if tally is None:
+        return
+    _check("tally", tally.reshape(1, -1), torch.int64, TALLY_ENTRIES, device)
+    if tally.shape != (TALLY_ENTRIES,) or not tally.is_contiguous():
+        raise ValueError(f"tally must be a contiguous ({TALLY_ENTRIES},) tensor, got "
+                         f"{tuple(tally.shape)}")
+
+
 def launch_cull_prepass(chunk_lo, chunk_hi, orig, d, block: int) -> torch.Tensor:
     """Launch `cull_prepass_kernel` on the current stream: the (nb, nc)
     uint8 mask. Checks every operand and raises on a launch error."""
@@ -287,11 +326,14 @@ def launch_cull_prepass(chunk_lo, chunk_hi, orig, d, block: int) -> torch.Tensor
 
 
 def launch_trace_listed(tri_table, counts, lists, orig, d, chunk: int,
-                        block: int, stream: bool = False) -> Trace:
-    """Launch `trace_listed_kernel` (or, with `stream`, the double-buffered
-    `trace_listed_stream_kernel`) on the current stream. `lists` is
-    (nb, nc) or one shared row (1, nc). Checks every operand and raises on
-    a launch error."""
+                        block: int, stream: bool = False, chunk_lo=None,
+                        chunk_hi=None, tally=None) -> Trace:
+    """Launch `trace_listed_kernel` or, with `stream`,
+    `trace_listed_stream_kernel` on the current stream. `lists` is (nb, nc)
+    or one shared row (1, nc). The streamed kernel also takes the chunk
+    boxes `chunk_lo/hi` (nc,3), on which each warp votes, and adds its
+    work to `tally` ((TALLY_ENTRIES,) int64) if given. Checks every operand
+    and raises on a launch error."""
     global LAUNCHES_MM2, LAUNCHES_MM2S
     device = orig.device
     _need_cuda("launch_trace_listed", device)
@@ -301,17 +343,29 @@ def launch_trace_listed(tri_table, counts, lists, orig, d, chunk: int,
     _check_table(tri_table, chunk, nc, device)
     nb = -(-n // block)
     _check_lists(counts, lists, nb, nc, device)
+    if stream:
+        if chunk_lo is None or chunk_hi is None:
+            raise ValueError("the streamed kernel needs the chunk boxes chunk_lo / chunk_hi")
+        if _check_boxes(chunk_lo, chunk_hi, device) != nc:
+            raise ValueError(f"{chunk_lo.shape[0]} chunk boxes for {nc} chunks")
+        _check_tally(tally, device)
+    elif chunk_lo is not None or chunk_hi is not None or tally is not None:
+        raise ValueError("chunk boxes and tally are the streamed kernel's")
     hit, idx, t = _outputs(n, device)
     if n == 0:
         return hit, idx, t
     tri_table = _aligned(tri_table)
     counts, lists, orig, d = (x.contiguous() for x in (counts, lists, orig, d))
+    lo = hi = None
+    if stream:
+        lo, hi = chunk_lo.contiguous(), chunk_hi.contiguous()
     stride = 0 if lists.shape[0] == 1 else lists.shape[1]
     rc = _cuda_lib().srt_trace_listed(
-        tri_table.data_ptr(), tri_table.shape[0], chunk, counts.data_ptr(),
-        lists.data_ptr(), stride, orig.data_ptr(), d.data_ptr(), n, block,
-        int(stream), hit.data_ptr(), idx.data_ptr(), t.data_ptr(),
-        torch.cuda.current_stream(device).cuda_stream)
+        tri_table.data_ptr(), tri_table.shape[0], chunk,
+        None if lo is None else lo.data_ptr(), None if hi is None else hi.data_ptr(),
+        counts.data_ptr(), lists.data_ptr(), stride, orig.data_ptr(), d.data_ptr(), n,
+        block, int(stream), hit.data_ptr(), idx.data_ptr(), t.data_ptr(),
+        None if tally is None else tally.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"trace_listed kernel launch failed: cudaError {rc}")
     if stream:
@@ -352,26 +406,27 @@ def launch_trace_fused_cull(tri_table, chunk_lo, chunk_hi, lo2, hi2, orig, d,
     return hit, idx, t
 
 
-def launch_trace_unculled(tri_table, orig, d, chunk: int, block: int) -> Trace:
+def launch_trace_unculled(tri_table, orig, d, block: int, tally=None) -> Trace:
     """Launch `trace_unculled_kernel` on the current stream: every ray
-    block sweeps every chunk of `chunk` rows. Checks every operand and
-    raises on a launch error."""
+    block sweeps every row, staged in the kernel's own slices; its work
+    goes into `tally` ((TALLY_ENTRIES,) int64) if given. Checks every
+    operand and raises on a launch error."""
     global LAUNCHES_MM
     device = orig.device
     _need_cuda("launch_trace_unculled", device)
     n = _check_rays(orig, d)
     _check_block(block)
-    nc = -(-tri_table.shape[0] // chunk) if chunk >= 1 else 0
-    _check_table(tri_table, chunk, nc, device, MM_MAX_CHUNK)
+    _check("tri_table", tri_table, torch.float32, 12, device)
+    _check_tally(tally, device)
     hit, idx, t = _outputs(n, device)
     if n == 0:
         return hit, idx, t
     tri_table = _aligned(tri_table)
     orig, d = orig.contiguous(), d.contiguous()
     rc = _cuda_lib().srt_trace_unculled(
-        tri_table.data_ptr(), tri_table.shape[0], chunk, orig.data_ptr(),
+        tri_table.data_ptr(), tri_table.shape[0], orig.data_ptr(),
         d.data_ptr(), n, block, hit.data_ptr(), idx.data_ptr(), t.data_ptr(),
-        torch.cuda.current_stream(device).cuda_stream)
+        None if tally is None else tally.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"trace_unculled kernel launch failed: cudaError {rc}")
     LAUNCHES_MM += 1
@@ -417,20 +472,34 @@ def _mm_chunk(tri_table, chunk: int) -> int:
     return min(chunk, max(tri_table.shape[0], 1))
 
 
+def _check_mm_table(tri_table, chunk: int, device) -> None:
+    """The checks of the JAX wrapper's chunk on the (F,12) table."""
+    chunk = _mm_chunk(tri_table, chunk)
+    _check_table(tri_table, chunk, -(-tri_table.shape[0] // chunk), device, MM_MAX_CHUNK)
+
+
 def trace_nearest_mm(tri_table, orig, d, chunk: int = MM_MAX_CHUNK,
-                     block: int = MM_BLOCK) -> Trace:
+                     block: int = MM_BLOCK, tally=None) -> Trace:
     """Nearest triangle over every row of `tri_table` (F,12): no boxes,
-    no lists; each ray block sweeps every chunk of `chunk` rows (at most
-    `MM_MAX_CHUNK`). Equal to `trace_nearest_vpu` over the table's rows
-    bit for bit. CUDA rays run the kernel, CPU rays
-    `trace_nearest_mm_plain`."""
+    no lists; each ray block sweeps every row. `chunk` (the JAX kernel's,
+    at most `MM_MAX_CHUNK`) is checked and changes no result: the kernel
+    stages its own slices. Equal to `trace_nearest_vpu` over the table's
+    rows bit for bit. CUDA rays run the kernel, CPU rays
+    `trace_nearest_mm_plain`; `tally` ((TALLY_ENTRIES,) int64) gets the
+    kernel's work, or on the CPU its model's (`unculled_tally_plain`)."""
     if _on_cpu(orig.device):
-        return trace_nearest_mm_plain(tri_table, orig, d, chunk, block)
-    return launch_trace_unculled(tri_table, orig, d, _mm_chunk(tri_table, chunk),
-                                 block)
+        out = trace_nearest_mm_plain(tri_table, orig, d, chunk, block)
+        if tally is not None:
+            _check_tally(tally, orig.device)
+            tally += torch.tensor(unculled_tally_plain(tri_table, orig, d, block),
+                                  dtype=torch.int64)
+        return out
+    _check_mm_table(tri_table, chunk, orig.device)
+    return launch_trace_unculled(tri_table, orig, d, block, tally=tally)
 
 
-def _listed(tri_table, chunk_lo, chunk_hi, orig, d, chunk, block, cull, stream):
+def _listed(tri_table, chunk_lo, chunk_hi, orig, d, chunk, block, cull, stream,
+            tally=None):
     n = _check_rays(orig, d)
     _check_block(block)
     nc = _check_boxes(chunk_lo, chunk_hi, orig.device)
@@ -440,9 +509,18 @@ def _listed(tri_table, chunk_lo, chunk_hi, orig, d, chunk, block, cull, stream):
     else:
         counts, lists = _all_chunks(-(-n // block), nc, orig.device)
     if _on_cpu(orig.device):
-        return trace_listed_plain(tri_table, counts, lists, orig, d, chunk, block)
-    return launch_trace_listed(tri_table, counts, lists, orig, d, chunk, block,
-                               stream=stream)
+        if tally is None:
+            return trace_listed_plain(tri_table, counts, lists, orig, d, chunk, block)
+        _check_tally(tally, orig.device)
+        out, work = listed_warp_plain(tri_table, chunk_lo, chunk_hi, counts, lists,
+                                      orig, d, chunk, block)
+        tally += torch.tensor(work, dtype=torch.int64)
+        return out
+    if stream:
+        return launch_trace_listed(tri_table, counts, lists, orig, d, chunk, block,
+                                   stream=True, chunk_lo=chunk_lo, chunk_hi=chunk_hi,
+                                   tally=tally)
+    return launch_trace_listed(tri_table, counts, lists, orig, d, chunk, block)
 
 
 def trace_nearest_mm2(tri_table, chunk_lo, chunk_hi, orig, d, chunk: int = 128,
@@ -455,11 +533,13 @@ def trace_nearest_mm2(tri_table, chunk_lo, chunk_hi, orig, d, chunk: int = 128,
 
 def trace_nearest_mm2_stream(tri_table, chunk_lo, chunk_hi, orig, d,
                              chunk: int = 256, block: int = DEFAULT_BLOCK,
-                             cull: bool = True) -> Trace:
-    """`trace_nearest_mm2` with the listed chunks' rows double-buffered:
-    the next chunk is fetched while the current one is swept."""
+                             cull: bool = True, tally=None) -> Trace:
+    """`trace_nearest_mm2`'s lists, each warp sweeping only the listed
+    chunks some ray of it enters, the rows of the next slice fetched while
+    the current one is swept. `tally` ((TALLY_ENTRIES,) int64) gets the
+    kernel's work, or on the CPU its model's (`listed_warp_plain`)."""
     return _listed(tri_table, chunk_lo, chunk_hi, orig, d, chunk, block, cull,
-                   stream=True)
+                   stream=True, tally=tally)
 
 
 # ------------------------------------------------------- plain versions
@@ -564,11 +644,138 @@ def trace_nearest_mm_plain(tri_table, orig, d, chunk: int = MM_MAX_CHUNK,
     every row (`chunk` and `block` change no result)."""
     _check_rays(orig, d)
     _check_block(block)
-    chunk = _mm_chunk(tri_table, chunk)
-    _check_table(tri_table, chunk, -(-tri_table.shape[0] // chunk), orig.device,
-                 MM_MAX_CHUNK)
+    _check_mm_table(tri_table, chunk, orig.device)
     t, idx, _, _ = walk_nearest_plain(tri_table, tri_table.shape[0], orig, d)
     return idx >= 0, idx, t
+
+
+# ------------------------------- the two-stage kernels' warps and tallies
+
+
+def launch_shape(block: int) -> Tuple[int, int]:
+    """(threads, rays a thread) of a CUDA block of the tier kernels for a
+    ray block of `block` rays (csrc/trace_culled.cu launch_shape): thread
+    k of the block holds rays k + j * threads of it, j < rays."""
+    _check_block(block)
+    threads = min(block, MAX_THREADS)
+    r = -(-block // threads)
+    return threads, 1 if r <= 1 else 2 if r <= 2 else 4 if r <= 4 else 8
+
+
+def warp_rays(n: int, block: int, device) -> torch.Tensor:
+    """(nb, warps, R, WARP) int64: the ray each lane of each warp holds in
+    slot j (ray block b's warp w, lane l: ray b * block + w * WARP + l +
+    j * threads), -1 where the lane holds no ray (past the block or N)."""
+    threads, rays = launch_shape(block)
+    nb = -(-n // block)
+    local = (torch.arange(threads // WARP, device=device)[:, None, None] * WARP
+             + torch.arange(rays, device=device)[None, :, None] * threads
+             + torch.arange(WARP, device=device)[None, None, :])
+    ids = torch.arange(nb, device=device)[:, None, None, None] * block + local[None]
+    return torch.where((local[None] < block) & (ids < n), ids, -1)
+
+
+def _lane_rays(orig, d, ids):
+    """The rays of the lanes `ids` (any shape, -1: none) flattened, a lane
+    without a ray holding the zero ray the kernels load for it."""
+    flat = ids.reshape(-1)
+    valid = flat >= 0
+    safe = flat.clamp(min=0)
+    zero = torch.zeros((), dtype=orig.dtype, device=orig.device)
+    return (torch.where(valid[:, None], orig[safe], zero),
+            torch.where(valid[:, None], d[safe], zero), valid)
+
+
+def _vote_counts(o_, d_, valid, rows) -> Tuple[int, int, int, int, int]:
+    """(steps, voted steps, tests, full tests, stage-1 passes) of warps
+    sweeping `rows`: the lanes' rays `o_`, `d_` in (warp, slot j, lane)
+    order, `valid` the lanes that hold a ray. Steps over lanes to bound
+    the planes."""
+    n_rows = rows.shape[0]
+    n_slots = o_.shape[0] // WARP
+    active = valid.reshape(n_slots, WARP).sum(dim=1)
+    voted = full = passes = 0
+    step = max(1, _PLAIN_STEP // max(n_rows * WARP, 1)) * WARP
+    for s0 in range(0, o_.shape[0], step):
+        ok1 = mt_stage1_plane(o_[s0:s0 + step], d_[s0:s0 + step], rows)
+        anyp = ok1.reshape(-1, WARP, n_rows).any(dim=1)       # (slots, rows)
+        voted += int(anyp.sum())
+        full += int((anyp.sum(dim=1) * active[s0 // WARP:(s0 + step) // WARP]).sum())
+        passes += int((ok1 & valid[s0:s0 + step, None]).sum())
+    return n_slots * n_rows, voted, int(active.sum()) * n_rows, full, passes
+
+
+def unculled_tally_plain(tri_table, orig, d, block: int = MM_BLOCK) -> Tuple[int, ...]:
+    """The work kernel #8 adds to its tally on these rays (`TALLY_NAMES`
+    order): every warp of every ray block sweeps every row of the table,
+    each (row, ray slot) a warp-step, voted when some lane's ray passes
+    stage 1 (`mt_stage1_plane`); a lane without a ray holds the zero ray
+    and never passes. No slab tests, no listed chunks."""
+    n = _check_rays(orig, d)
+    o_, d_, valid = _lane_rays(orig, d, warp_rays(n, block, orig.device))
+    work = [0] * TALLY_ENTRIES
+    span = max(1, _PLAIN_STEP // max(o_.shape[0], 1))
+    for r0 in range(0, tri_table.shape[0], span):
+        steps, voted, tests, full, passes = _vote_counts(o_, d_, valid,
+                                                         tri_table[r0:r0 + span])
+        for k, x in ((0, steps), (1, voted), (2, tests), (3, full), (7, passes)):
+            work[k] += x
+    return tuple(work)
+
+
+def listed_warp_plain(tri_table, chunk_lo, chunk_hi, counts, lists, orig, d,
+                      chunk: int, block: int):
+    """A plain model of kernel #6 (trace_listed_stream_kernel): ray block b's
+    listed chunks lists[b, :counts[b]] (ascending), each warp of the block
+    voting on each one's box (`slab_test` of each of its rays) and sweeping
+    its rows only if some ray of the warp enters it. Returns (hit, idx, t),
+    equal to `trace_listed_plain` bit for bit (a warp skips only chunks
+    none of its rays can hit), and the work the kernel adds to its tally,
+    in `TALLY_NAMES` order."""
+    n = _check_rays(orig, d)
+    _check_block(block)
+    nc = _check_boxes(chunk_lo, chunk_hi, orig.device)
+    _check_table(tri_table, chunk, nc, orig.device)
+    nb = -(-n // block)
+    _check_lists(counts, lists, nb, nc, orig.device)
+    dev, n_rows = orig.device, tri_table.shape[0]
+    _, rays = launch_shape(block)
+    listed = torch.arange(lists.shape[1], device=dev)[None] < counts[:, None]
+    visit = torch.zeros((nb, nc + 1), dtype=torch.bool, device=dev)
+    visit.scatter_(1, torch.where(listed, lists.expand(nb, -1), nc).long(), listed)
+    visit = visit[:, :nc]
+    lanes = warp_rays(n, block, dev)                          # (nb, W, R, 32)
+    best_t = torch.full((n,), BIG, dtype=torch.float32, device=dev)
+    best_f = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    work = [0] * TALLY_ENTRIES
+    for c in torch.nonzero(visit.any(dim=0)).flatten().tolist():
+        ids = lanes[torch.nonzero(visit[:, c]).flatten()].reshape(-1, rays, WARP)
+        o_, d_, valid = _lane_rays(orig, d, ids)
+        enter = torch.zeros_like(valid)
+        enter[valid] = slab_test(o_[valid], d_[valid], chunk_lo[c:c + 1],
+                                 chunk_hi[c:c + 1])[:, 0]
+        warp_in = enter.reshape(-1, rays * WARP).any(dim=1)
+        work[4] += int(valid.sum())
+        work[5] += ids.shape[0]
+        work[6] += int((~warp_in).sum())
+        g = tri_table[c * chunk:min((c + 1) * chunk, n_rows)]
+        if g.shape[0] == 0 or not bool(warp_in.any()):
+            continue
+        ids = ids[warp_in]
+        o_, d_, valid = _lane_rays(orig, d, ids)
+        steps, voted, tests, full, passes = _vote_counts(o_, d_, valid, g)
+        for k, x in ((0, steps), (1, voted), (2, tests), (3, full), (7, passes)):
+            work[k] += x
+        r = ids.reshape(-1)[valid]
+        step = max(1, _PLAIN_STEP // g.shape[0])
+        for s0 in range(0, r.shape[0], step):
+            rr = r[s0:s0 + step]
+            ct, cf = plane_winner(mt_plane(orig[rr], d[rr], g))
+            better = ct < best_t[rr]
+            best_t[rr] = torch.where(better, ct, best_t[rr])
+            best_f[rr] = torch.where(better, cf + c * chunk, best_f[rr])
+    hit = best_t < BIG
+    return (hit, torch.where(hit, best_f, -1), best_t), tuple(work)
 
 
 # -------------------------------------------------- the per-ray chunk walk

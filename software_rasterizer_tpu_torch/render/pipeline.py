@@ -65,16 +65,13 @@ class RenderingPipeline:
 
 
 def check_raster_tile(tile) -> tuple:
-    """`tile` as (rows, cols) if the CUDA tile kernels take it (one thread
-    a pixel: at most `raster_kernel.MAX_TILE_PIXELS` pixels, each side at
-    least 1), else ValueError."""
-    from software_rasterizer_tpu_torch.ops.raster_kernel import MAX_TILE_PIXELS
-
+    """`tile` as (rows, cols) if each side is at least 1, else
+    ValueError. The tile kernels take any such tile: one of more than
+    `raster_kernel.MAX_TILE_PIXELS` pixels gives way to the default
+    kernel tile (`raster_kernel.kernel_tile`)."""
     th, tw = (int(x) for x in tile)
-    if th < 1 or tw < 1 or th * tw > MAX_TILE_PIXELS:
-        raise ValueError(f"raster_tile {tuple(tile)}: the CUDA tile kernels take "
-                         f"tiles of at most {MAX_TILE_PIXELS} pixels (one thread a "
-                         f"pixel), each side at least 1")
+    if th < 1 or tw < 1:
+        raise ValueError(f"raster_tile {tuple(tile)}: each side must be at least 1")
     return th, tw
 
 
@@ -82,7 +79,7 @@ def pipeline_from_config(cfg, kind: str = "path", device="cuda"):
     """Construct a render pipeline from a RenderConfig (config.py) on a
     torch device: the card unless the caller asks for "cpu". kind:
     "raster" | "whitted" | "path". `cfg.raster_tile` is the raster tile
-    kernels' tile; one they cannot take raises (`check_raster_tile`). No
+    kernels' tile; a non-positive side raises (`check_raster_tile`). No
     output depends on it."""
     if kind == "raster":
         from software_rasterizer_tpu_torch.render.rasterizer import (

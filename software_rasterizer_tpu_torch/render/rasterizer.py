@@ -28,17 +28,21 @@ from software_rasterizer_tpu_torch.render.pipeline import Primitive, RenderingPi
 
 
 class TraditionalRasterizer(RenderingPipeline):
-    """`tile` is the tile kernels' (rows, cols) block of pixels; `shaded`
-    (also an attribute, read at every draw) asks for the tile kernel with
-    in-kernel Blinn-Phong where the scene's shaders allow it
-    (ops/raster.shaded_kernel_applies), else the deferred-shading kernel
-    runs."""
+    """The JAX class's arguments in its order, then `shaded` and `device`.
+    `tile` is the tile kernels' (rows, cols) block of pixels, any positive
+    size (one above `raster_kernel.MAX_TILE_PIXELS` pixels gives way to
+    the default kernel tile); `chunk` (the JAX XLA path's triangle chunk) is kept and
+    not read; `shaded` (also an attribute, read at every draw) asks for
+    the tile kernel with in-kernel Blinn-Phong where the scene's shaders
+    allow it (ops/raster.shaded_kernel_applies), else the deferred-shading
+    kernel runs."""
 
     def __init__(self, width: int, height: int,
-                 tile: Tuple[int, int] = (TILE_H, TILE_W),
+                 tile: Tuple[int, int] = (TILE_H, TILE_W), chunk: int = 512,
                  shaded: bool = False, device="cuda"):
         super().__init__(width, height)
         self.tile = tuple(tile)
+        self.chunk = chunk
         self.shaded = bool(shaded)
         self.device = check_device(device)
         self._geom_cache: Dict[str, Tuple[DeviceRasterGeometry, tuple]] = {}

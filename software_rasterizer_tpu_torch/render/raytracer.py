@@ -23,11 +23,18 @@ from software_rasterizer_tpu_torch.utils.rng import prng_key, split
 
 
 class RayTracing(RenderingPipeline):
+    """The JAX class's arguments in its order; `block` and `chunk` (the
+    JAX integrator's lane block and triangle chunk) are kept and not read:
+    the kernel walks every pixel's tree whole and picks its own chunks."""
+
     def __init__(self, width: int, height: int, spp: int = 1,
-                 max_depth: int = 5, seed: int = 0, device="cuda"):
+                 max_depth: int = 5, block: int = 8192, chunk: int = 512,
+                 seed: int = 0, device="cuda"):
         super().__init__(width, height)
         self.spp = spp
         self.max_depth = max_depth
+        self.block = block
+        self.chunk = chunk
         self.seed = seed
         self.key = prng_key(seed)
         self.device = check_device(device)

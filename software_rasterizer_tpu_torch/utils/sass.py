@@ -17,6 +17,10 @@ ray and row) and no other MUFU function: the sphere loop holds square roots, the
 sampling code logarithms and sines. The count is static: every
 instruction of the loop body, a conditional block included, once. It
 needs the CUDA toolkit's cuobjdump; only the machine with the card has it.
+For the two-stage test of kernels #6 and #8 it also counts the
+instructions a warp skips when its stage-1 vote fails (`--rays 1` for
+trace_listed_stream_kernel, 4 for trace_unculled_kernel at its blocks of
+1024 rays).
 """
 
 from __future__ import annotations
@@ -75,8 +79,11 @@ def row_loop(sass: List[Tuple[int, str]], rays: int = 2) -> dict:
     """The triangle loop of one function's SASS, a row tested against
     `rays` rays (one MUFU.RCP each: two in the path kernels, one in the
     Whitted kernel): "per_row" (instructions a row, NOPs left out),
-    "unroll" (rows an iteration), "span" (the loop's instructions) and
-    "mix" (instructions a row by opcode, without its modifiers)."""
+    "unroll" (rows an iteration), "span" (the loop's instructions), "mix"
+    (instructions a row by opcode, without its modifiers) and "skip" (the
+    instructions a row that a warp vote jumps over when no lane passes: the
+    forward branch on a VOTE.ANY's predicate inside the loop, over the
+    second stage of the two-stage test; 0 where the loop has none)."""
     loops = []
     for k, (addr, instr) in enumerate(sass):
         if _opcode(instr).split(".")[0] != "BRA":
@@ -85,19 +92,41 @@ def row_loop(sass: List[Tuple[int, str]], rays: int = 2) -> dict:
         if m is None or int(m.group(1), 16) > addr:
             continue
         target = int(m.group(1), 16)
-        body = [i for a, i in sass[:k + 1] if a >= target and _opcode(i) != "NOP"]
-        ops = [_opcode(i) for i in body]
+        body = [(a, i) for a, i in sass[:k + 1] if a >= target and _opcode(i) != "NOP"]
+        ops = [_opcode(i) for _, i in body]
         n_rcp = ops.count("MUFU.RCP")
         if n_rcp >= rays and n_rcp % rays == 0 and all(
                 not o.startswith("MUFU") or o == "MUFU.RCP" for o in ops):
-            loops.append((len(body), n_rcp, ops))
+            loops.append((len(body), n_rcp, ops, body))
     if not loops:
         raise ValueError("no loop with Moller-Trumbore's reciprocals alone")
-    span, n_rcp, ops = min(loops)
+    span, n_rcp, ops, body = min(loops, key=lambda x: x[:2])
     unroll = n_rcp // rays
     mix = collections.Counter(o.split(".")[0] for o in ops)
     return {"per_row": span / unroll, "unroll": unroll, "span": span,
-            "mix": {o: c / unroll for o, c in mix.most_common()}}
+            "mix": {o: c / unroll for o, c in mix.most_common()},
+            "skip": _vote_skip(body) / unroll}
+
+
+def _vote_skip(body: List[Tuple[int, str]]) -> int:
+    """Instructions of a loop body that a failed warp vote jumps over: for
+    each VOTE.ANY, the first later branch taken when its predicate is false
+    (`@!P<vote's predicate> BRA`), forward to a target inside the body,
+    skips the instructions between the two."""
+    end = body[-1][0]
+    skip = 0
+    for k, (_, instr) in enumerate(body):
+        if not _opcode(instr).startswith("VOTE.ANY"):
+            continue
+        pred = [w.strip(",") for w in instr.split()[1:]][-2]
+        for a, i in body[k + 1:]:
+            m = _BRA.search(i)
+            if i.startswith(f"@!{pred} ") and _opcode(i).split(".")[0] == "BRA" and m:
+                target = int(m.group(1), 16)
+                if a < target <= end:
+                    skip += sum(1 for b, _ in body if a < b < target)
+                break
+    return skip
 
 
 def build(source: pathlib.Path, out_dir: pathlib.Path) -> pathlib.Path:
@@ -124,7 +153,8 @@ def main(argv=None) -> int:
             mix = ", ".join(f"{o} {c:g}" for o, c in loop["mix"].items())
             print(f"{os.path.join(str(args.csrc), src)} {kernel}: {loop['per_row']:g} "
                   f"instructions a row (loop of {loop['span']}, {loop['unroll']} rows an "
-                  f"iteration): {mix}", flush=True)
+                  f"iteration, {loop['skip']:g} a row skipped by a failed warp vote): "
+                  f"{mix}", flush=True)
     return 0
 
 

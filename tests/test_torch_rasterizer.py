@@ -215,23 +215,86 @@ def test_entry_points_default_to_the_card(entry):
 
 
 def test_raster_tile_from_the_config():
-    """`cfg.raster_tile` reaches the tile kernels where they can take it
-    (at most 1024 pixels, one thread each) and raises otherwise; the
-    frame does not depend on it."""
+    """`cfg.raster_tile` reaches the tile kernels, any positive size: a
+    tile above 1024 pixels (one thread each) is cut into kernel tiles, and
+    the frame does not depend on it; a non-positive side raises."""
     frames = []
-    for tile in ((16, 32), (8, 64), (32, 32)):
+    for tile in ((16, 32), (8, 64), (32, 32), (128, 128), (64, 32)):
         render = pipeline_from_config(RenderConfig(width=SIZE, height=SIZE,
                                                    raster_tile=tile), "raster",
                                       device="cpu")
         assert render.tile == tile
         render.add_scene(_tscene("three"))
         render.draw(Primitive.TRIANGLES)
-        frames.append(render.frame.copy())
-    assert all(np.array_equal(f, frames[0]) for f in frames[1:])
+        assert render.last_stats["CornellBox"]["bin_dropped"] == 0
+        frames.append((render.frame.copy(), render.zbuffer.copy()))
+    for frame, zbuf in frames[1:]:
+        assert np.array_equal(frame, frames[0][0])
+        assert np.array_equal(zbuf, frames[0][1])
     assert RenderConfig().raster_tile == (16, 32)
-    for bad in ((128, 128), (0, 32), (64, 32)):
+    for bad in ((0, 32), (16, -1)):
         with pytest.raises(ValueError, match="raster_tile"):
             pipeline_from_config(RenderConfig(raster_tile=bad), "raster", device="cpu")
+
+
+@pytest.mark.parametrize("tile,want", [((16, 32), (16, 32)), ((32, 32), (32, 32)),
+                                       ((128, 128), (16, 32)), ((64, 32), (16, 32)),
+                                       ((1, 4096), (16, 32)), ((1031, 1), (16, 32))])
+def test_kernel_tile(tile, want):
+    """A tile the kernels cannot take whole (more than MAX_TILE_PIXELS
+    pixels) gives way to the default kernel tile; non-positive sides
+    raise."""
+    from software_rasterizer_tpu_torch.ops.raster_kernel import MAX_TILE_PIXELS, kernel_tile
+
+    got = kernel_tile(*tile)
+    assert got == want and got[0] * got[1] <= MAX_TILE_PIXELS
+    with pytest.raises(ValueError):
+        kernel_tile(0, tile[1])
+    with pytest.raises(ValueError):
+        kernel_tile(tile[0], -1)
+
+
+@pytest.mark.parametrize("shaded", [False, True])
+def test_jax_default_tile_renders_the_frame_bit_for_bit(shaded):
+    """The JAX RenderConfig's default raster_tile (128, 128) renders the
+    (16, 32) frame bit for bit on raster_cornell, deferred and shaded;
+    nothing is dropped, and bin_dropped counts against the kernel tiles."""
+    from software_rasterizer_tpu.config import RenderConfig as JRenderConfig
+
+    tile = JRenderConfig().raster_tile
+    assert tile == (128, 128)
+    out = {}
+    for t in (tile, (16, 32)):
+        render = pipeline_from_config(RenderConfig(width=SIZE, height=SIZE, raster_tile=t),
+                                      "raster", device="cpu")
+        render.shaded = shaded
+        render.add_scene(_tscene("three", levels=2))
+        render.draw(Primitive.TRIANGLES)
+        assert render.last_stats["CornellBox"]["bin_dropped"] == 0
+        out[t] = (render.frame.copy(), render.zbuffer.copy())
+    assert np.array_equal(out[tile][0], out[(16, 32)][0])
+    assert np.array_equal(out[tile][1], out[(16, 32)][1])
+    assert np.isfinite(out[tile][1]).mean() > 0.4
+
+
+def test_constructor_takes_the_jax_positions():
+    """TraditionalRasterizer(w, h, tile, chunk) as the JAX class is called:
+    the fourth argument is the chunk (kept, unread), not `shaded`, and the
+    frame is the default one's."""
+    jr = JRasterizer(SIZE, SIZE, (16, 32), 512)
+    render = TraditionalRasterizer(SIZE, SIZE, (16, 32), 512, device="cpu")
+    assert render.shaded is False
+    assert render.chunk == jr.chunk == 512 and render.tile == jr.tile == (16, 32)
+    other = TraditionalRasterizer(SIZE, SIZE, (16, 32), 7, device="cpu")
+    frames = []
+    for r in (render, other):
+        r.add_scene(_tscene("three"))
+        r.draw(Primitive.TRIANGLES)
+        frames.append(r.frame.copy())
+    assert np.array_equal(frames[0], frames[1])
+    params = list(inspect.signature(TraditionalRasterizer).parameters)
+    assert params[:4] == list(inspect.signature(JRasterizer).parameters)
+    assert params[4:] == ["shaded", "device"]
 
 
 @pytest.mark.parametrize("kind", ["raster", "whitted", "path"])

@@ -153,3 +153,24 @@ def test_whitted_build_without_nvcc_raises(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         wk.build_kernel()
 
+
+
+def test_constructor_takes_the_jax_positions():
+    """RayTracing(w, h, spp, max_depth, block, chunk, seed) as the JAX class
+    is called: the fifth argument is the block (kept, unread), not the
+    seed; block= and chunk= change no pixel."""
+    import inspect
+
+    render = RayTracing(8, 8, 1, 5, 8192, device="cpu")
+    assert render.seed == 0 and render.block == 8192 and render.chunk == 512
+    params = list(inspect.signature(RayTracing).parameters)
+    assert params[:7] == list(inspect.signature(JRayTracing).parameters)
+    assert params[7:] == ["device"]
+    frames = []
+    for kw in ({}, {"block": 256, "chunk": 64}):
+        r = RayTracing(16, 16, 1, 5, seed=3, device="cpu", **kw)
+        assert r.seed == 3
+        r.add_scene(build_cornell_scene())
+        r.draw()
+        frames.append(r.frame.copy())
+    assert np.array_equal(frames[0], frames[1])

@@ -79,7 +79,7 @@ def test_no_rays_and_bad_operands():
     with pytest.raises(ValueError, match="multiple of 32"):
         tt.trace_nearest_mm(table, orig, d, block=100)
     with pytest.raises(ValueError, match="needs CUDA"):
-        tt.launch_trace_unculled(table, orig, d, 512, 2048)
+        tt.launch_trace_unculled(table, orig, d, 2048)
     with pytest.raises(ValueError, match="chunk=1024"):
         tt.trace_nearest_mm_plain(torch.zeros((2048, 12)), orig, d, chunk=1024)
 
