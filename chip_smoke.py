@@ -71,24 +71,29 @@ Phases, one line each; any failure exits non-zero:
      differ, times beside the one-emitter frame;
  20. large scenes: the tessellated Cornell boxes and their chunk tables
      on the card, camera rays and bounce rays from their hit points;
- 21. the cull prepass kernel vs plain: the whole (ray block, chunk) mask
-     on both scenes and both ray sets, and the share that survives; the
-     streamed kernel (#6) on those masks' lists, its tally (warp-steps,
-     voted steps, tests, full tests, slab tests, (warp, listed chunk)
-     pairs and those skipped) against its plain model, s and w;
+ 21. the cull prepass kernel (#5) vs plain: the whole (ray block, chunk)
+     mask on both scenes and both ray sets, the share that survives, and
+     its tally (slab tests on super and chunk boxes, (warp, super) pairs,
+     those skipped and those taken child by child, chunk votes) against its
+     plain model; the streamed kernel (#6) on those masks' lists, its tally
+     (warp-steps, voted steps, tests, full tests, slab tests, (warp, listed
+     chunk) pairs and those skipped) against its plain model, s and w;
  22. the fused-cull, listed and streamed kernels: (hit, idx, t) bit for
      bit against the unculled trace kernel over the whole table and
      against their own plain versions, at every ray-block size (a ray that
      differs must be a proven knife edge of the slab test, and is printed);
+     the fused cull's (#4) tally over the whole frame, and tally and (hit,
+     idx, t) against its plain model on three windows of rays;
  23. large-scene main path: nearest_hit, nearest_emit_hit and classify_hit
      with no backend named take the fused-cull kernel at 9,216 triangles
      and the prepass + streamed kernel at 147,456 (launch counts), every
      field equal to backend="vpu"; backend="mm2" takes the listed kernel;
  24. large-scene times (CUDA events, median and range): each kernel bare
-     and wrapped, the list build, the unculled kernel on the same rays,
-     nearest_hit whole, the ray-block sizes, and the bounds from this
-     run's own masks, for #6 also from its tally and its issue floor from
-     the SASS of its row loop (utils/sass.py);
+     and wrapped (#4 and #5 bare on bounce rays too), the list build, the
+     unculled kernel on the same rays, nearest_hit whole, the ray-block
+     sizes, and the bounds from this run's own masks, for #4, #5 and #6
+     also from their tallies, with their issue floors from the SASS of
+     their row loops and of #5's box loop (utils/sass.py);
  25. the unculled chunked sweep (kernel #8): (hit, idx, t) bit for bit
      against kernel #2 and its plain version on 1M camera and 1M bounce
      rays at 36, 9,216 and 147,456 triangles and three ray-block sizes,
@@ -132,8 +137,8 @@ their issue floor), the card's `nvidia-smi` name and power limit, and
 repository root.
 
 `whitted_ab` and `trace_ab` (not run by `main`) time the Whitted kernel,
-and the trace kernels #6 and #8, built from other sources against each
-other in turns, e.g. this tree's against an earlier commit's.
+and the trace kernels #4, #5, #6 and #8, built from other sources against
+each other in turns, e.g. this tree's against an earlier commit's.
 """
 
 from __future__ import annotations
@@ -1623,26 +1628,42 @@ def large_scene_phases(dev, card: str):
     phase(20, "stress_cornell -> prepare_rt_scene on the card, 1,048,576 camera rays "
               "and as many bounce rays: " + "; ".join(lines))
 
-    # ---- 21. the cull prepass against its plain version
-    lines, cull_bad, cull_plain_ms, masks = [], 0, {}, {}
+    # ---- 21. the cull prepass against its plain version, and its tally
+    # against its plain model (trace_tiers.cull_prepass_warp_plain)
+    lines, cull_bad, cull_plain_ms, masks, work5 = [], 0, {}, {}, {}
     for name, sc in scenes.items():
         rt = sc["rt"]
         for kind, (o_, d_) in sc["rays"].items():
             k = tt.cull_prepass(rt.chunk_lo, rt.chunk_hi, o_, d_, block)
+            tally = torch.zeros(tt.CULL_TALLY_ENTRIES, dtype=torch.int64, device=dev)
+            k_t = tt.launch_cull_prepass(rt.chunk_lo, rt.chunk_hi, o_, d_, block, tally=tally)
             torch.cuda.synchronize()
             p_, cull_plain_ms[name, kind] = wall_ms(lambda: tt.cull_prepass_plain(
                 rt.chunk_lo, rt.chunk_hi, o_, d_, block))
             if k.shape != (-(-n // block), rt.chunk_lo.shape[0]) or k.dtype != torch.uint8:
                 fail(f"cull mask has shape {tuple(k.shape)} and type {k.dtype}")
-            bad = int((k != p_).sum())
+            bad = int((k != p_).sum()) + int((k_t != p_).sum())
             cull_bad += bad
             masks[name, kind] = k
+            m_, want = tt.cull_prepass_warp_plain(rt.chunk_lo, rt.chunk_hi, o_, d_, block)
+            work = work5[name, kind] = tuple(int(x) for x in tally.tolist())
+            if work != want or not torch.equal(m_, p_):
+                fail(f"#5 tally on {name} {kind} rays: {work}, plain model {want} "
+                     f"({tt.CULL_TALLY_NAMES}); model mask off the plain one in "
+                     f"{int((m_ != p_).sum())} entries")
+            w = dict(zip(tt.CULL_TALLY_NAMES, work))
+            proven = w["warp_supers"] - w["warp_supers_unproven"]
             lines.append(f"{name} {kind}: {bad}/{k.numel()} mask entries differ, "
                          f"{float(k.float().mean()):.4f} of the (block, chunk) pairs "
-                         f"survive, plain {cull_plain_ms[name, kind]:.0f} ms")
+                         f"survive, {(proven - w['warp_supers_skipped']) / proven:.4f} of the "
+                         f"proven (warp, super) pairs ({proven - w['warp_supers_skipped']}/"
+                         f"{proven}), {w['warp_supers_unproven']} taken child by child, "
+                         f"{(w['super_tests'] + w['chunk_tests']) / n:.2f} slab tests a ray "
+                         f"(flat {rt.chunk_lo.shape[0]}); tally = plain model; plain "
+                         f"{cull_plain_ms[name, kind]:.0f} ms")
     if cull_bad:
         fail("cull prepass kernel disagrees with plain: " + "; ".join(lines))
-    phase(21, f"cull prepass kernel vs plain, blocks of {block} rays: " + "; ".join(lines))
+    phase(21, f"cull prepass kernel (#5) vs plain, blocks of {block} rays: " + "; ".join(lines))
 
     # ---- 21 (cont.): the streamed kernel's work (#6) on the masks' lists: its
     # tally against the plain model (trace_tiers.listed_warp_plain), the whole
@@ -1791,6 +1812,38 @@ def large_scene_phases(dev, card: str):
               f"(hit, idx, t) bit for bit, blocks of {block} rays: " + "; ".join(lines)
               + f"; blocks of {BLOCK_SIZES} rays give the same on the mid scene")
 
+    # the fused cull's work (#4): its tally on the whole frame, and on three
+    # windows of rays against its plain model (trace_tiers.fused_warp_plain),
+    # whose (hit, idx, t) the kernel's must equal too
+    rt = scenes["mid"]["rt"]
+    lo2, hi2 = tt.super_bounds(rt.chunk_lo, rt.chunk_hi)
+    work4, lines = {}, []
+
+    def fused_tally(o_, d_):
+        tally = torch.zeros(tt.TALLY_ENTRIES, dtype=torch.int64, device=dev)
+        k = tt.launch_trace_fused_cull(rt.tri_table, rt.chunk_lo, rt.chunk_hi, lo2, hi2,
+                                       o_, d_, rt.cull_chunk, block, tally=tally)
+        return k, tuple(int(x) for x in tally.tolist())
+
+    for kind, (o_, d_) in scenes["mid"]["rays"].items():
+        _, work4[kind] = fused_tally(o_, d_)
+        for s0 in (0, n // 2, n - LARGE_WINDOW):
+            ow, dw = o_[s0:s0 + LARGE_WINDOW], d_[s0:s0 + LARGE_WINDOW]
+            k, work_w = fused_tally(ow, dw)
+            p_, want = tt.fused_warp_plain(rt.tri_table, rt.chunk_lo, rt.chunk_hi, ow, dw,
+                                           rt.cull_chunk, block)
+            if work_w != want or bool(differing(k, p_).any()):
+                fail(f"#4 on mid {kind} rays [{s0}, {s0 + LARGE_WINDOW}): tally {work_w}, "
+                     f"plain model {want} ({tt.TALLY_NAMES}); "
+                     f"{int(differing(k, p_).sum())} rays differ from the model")
+        steps, voted, tests, full, slabs, pairs, skipped, passes = work4[kind]
+        lines.append(f"mid {kind}: s {voted / steps:.4f} ({voted}/{steps} warp-steps voted), "
+                     f"w {skipped / pairs:.4f} ({skipped}/{pairs} (warp, chunk) votes "
+                     f"skipped), {full}/{tests} full tests, {passes} passing stage 1, {slabs} "
+                     f"slab tests")
+    phase(22, "the fused cull (#4), its tally over the whole frame; tally and (hit, idx, t) "
+              f"= its plain model on 3 windows of {LARGE_WINDOW} rays: " + "; ".join(lines))
+
     # ---- 23. the path: nearest_hit and its relatives pick the tier
     want = {"mid": (3, 0, 0, 0), "large": (0, 3, 0, 3)}
     lines = []
@@ -1859,12 +1912,19 @@ def large_scene_phases(dev, card: str):
         lo2, hi2 = tt.super_bounds(rt.chunk_lo, rt.chunk_hi)
         mask = masks[name, "camera"]
         counts_, lists_ = tt.chunk_lists(mask)
+        o2, d2 = sc["rays"]["bounce"]
         t = {
             "mm2c bare": cuda_times(lambda: tt.launch_trace_fused_cull(
                 *a, lo2, hi2, o_, d_, **kw), reps),
+            "mm2c bare bounce": cuda_times(lambda: tt.launch_trace_fused_cull(
+                *a, lo2, hi2, o2, d2, **kw), reps),
             "mm2c": cuda_times(lambda: tt.trace_nearest_mm2c(*a, o_, d_, **kw), reps),
             "cull": cuda_times(lambda: tt.cull_prepass(
                 rt.chunk_lo, rt.chunk_hi, o_, d_, block), reps),
+            "cull bare": cuda_times(lambda: tt.launch_cull_prepass(
+                rt.chunk_lo, rt.chunk_hi, o_, d_, block, supers=(lo2, hi2)), reps),
+            "cull bare bounce": cuda_times(lambda: tt.launch_cull_prepass(
+                rt.chunk_lo, rt.chunk_hi, o2, d2, block, supers=(lo2, hi2)), reps),
             "lists": cuda_times(lambda: tt.chunk_lists(mask), reps),
             "mm2 bare": cuda_times(lambda: tt.launch_trace_listed(
                 rt.tri_table, counts_, lists_, o_, d_, **kw), reps),
@@ -1913,12 +1973,34 @@ def large_scene_phases(dev, card: str):
     (b7, by7), _ = tier_bound("mid", 4 * nb * (1 + mid.chunk_lo.shape[0]), 0.0)
     (b6, by6), tests6 = tier_bound("large", 4 * nb * (1 + large.chunk_lo.shape[0]), 0.0)
     o_, d_ = scenes["large"]["rays"]["camera"]
-    b5, by5 = bound(tensor_bytes(large.chunk_lo, large.chunk_hi, o_, d_,
-                                 masks["large", "camera"]),
-                    21.0 * n * large.chunk_lo.shape[0])
+    bytes5 = tensor_bytes(large.chunk_lo, large.chunk_hi, o_, d_, masks["large", "camera"])
+    b5, by5 = bound(bytes5, 21.0 * n * large.chunk_lo.shape[0])
+    # #5 from its own tally: the slab tests it made (the function's work, its
+    # super-chunk skip proven exact), beside every ray x every chunk box
+    # above; its issue floor from the SASS of its box loop (utils/sass.py
+    # box_loop) x its warp votes on super and chunk boxes
+    from software_rasterizer_tpu_torch.utils import sass
+    from software_rasterizer_tpu_torch.utils.cuda_build import library_path
+
+    w5 = dict(zip(tt.CULL_TALLY_NAMES, work5["large", "camera"]))
+    b5t, by5t = bound(bytes5 + tensor_bytes(*tt.super_bounds(large.chunk_lo, large.chunk_hi)),
+                      21.0 * (w5["super_tests"] + w5["chunk_tests"]))
+    _, rays5 = tt.launch_shape(block)
+    loop5 = sass.box_loop(sass.kernel_sass(library_path("trace_culled"),
+                                           f"cull_prepass_kernelILi{rays5}ELb0E"), rays5)
+    votes5 = w5["warp_supers"] - w5["warp_supers_unproven"] + w5["warp_chunk_votes"]
+    floor5 = loop5["per_vote"] * votes5 / (
+        torch.cuda.get_device_properties(0).multi_processor_count * SCHEDULERS_PER_SM
+        * max_sm_clock_hz()) * 1e3
+    # #4 from its own tally, as #6; its floor from its row loop
+    w4 = work4["camera"]
+    o4, d4 = scenes["mid"]["rays"]["camera"]
+    (b4t, by4t), (b4w, by4w) = vote_tally_bounds(
+        tensor_bytes(mid.tri_table, mid.chunk_lo, mid.chunk_hi, lo2, hi2, o4, d4) + 13 * n, w4)
+    floor4, loop4 = vote_floor(library_path("trace_culled"),
+                               f"trace_fused_cull_kernelILi{rays5}ELb0E", rays5, w4[0], w4[1])
     # #6 from its own tally: stage-1-only and full tests and slab tests; its
     # issue floor from the SASS of its row loop and the tally's warp-steps
-    from software_rasterizer_tpu_torch.utils.cuda_build import library_path
 
     w6 = work6["large", "camera"]
     (b6f, by6f), (b6w, by6w) = vote_tally_bounds(
@@ -1927,8 +2009,18 @@ def large_scene_phases(dev, card: str):
     _, rays6 = tt.launch_shape(block)
     floor6, loop6 = vote_floor(library_path("trace_culled"),
                                f"trace_listed_stream_kernelILi{rays6}ELb0E", rays6, w6[0], w6[1])
-    phase(24, f"bounds: mm2c (mid) {b4:.4f} ms by {by4} ({tests4:.3g} tests), cull "
-              f"prepass (large) {b5:.4f} ms by {by5}, mm2s (large) from its tally "
+    phase(24, f"bounds: mm2c (mid) from its tally {b4t:.4f} ms by {by4t} ({w4[2]} tests, "
+              f"{w4[7]} of them passing stage 1, {w4[4]} slab tests), {b4w:.4f} ms by {by4w} "
+              f"for its warps' work, {b4:.4f} ms by {by4} for every test of the block vote "
+              f"({tests4:.3g} tests), issue floor {floor4:.4f} ms ({loop4['per_row'] / rays5:g} "
+              f"SASS instructions a row and ray, {loop4['skip'] / rays5:g} of them skipped by a "
+              f"failed vote, x {w4[0]} warp-steps, {w4[1]} voted); cull prepass (large) from "
+              f"its tally {b5t:.4f} ms by {by5t} ({w5['super_tests']} + {w5['chunk_tests']} "
+              f"slab tests on super and chunk boxes), {b5:.4f} ms by {by5} for every ray x "
+              f"every chunk box, issue floor {floor5:.4f} ms ({loop5['per_box_and_ray']:g} SASS "
+              f"instructions a box and ray slot: "
+              + ", ".join(f"{o} {c / rays5:g}" for o, c in loop5["mix"].items())
+              + f"; x {votes5} warp votes); mm2s (large) from its tally "
               f"{b6f:.4f} ms by {by6f} ({w6[2]} tests, {w6[7]} of them passing stage 1, "
               f"{w6[4]} slab tests), {b6w:.4f} ms by {by6w} for its warps' work ({w6[3]} "
               f"tests in voted warp-steps), {b6:.4f} ms by {by6} for every test of the mask "
@@ -1948,10 +2040,25 @@ def large_scene_phases(dev, card: str):
                 "bound_ms": b, "bound_by": by, "library_ms": None}
 
     return [
-        entry("trace_fused_cull", 235, launches[0], tier_err["mm2c"], med(tm["mm2c"]),
-              med(tm["mm2c bare"]), tier_plain_ms["mid", "camera", "mm2c"], b4, by4),
-        entry("cull_prepass", 559, launches[1], float(cull_bad), med(tl["cull"]),
-              med(tl["cull"]), cull_plain_ms["large", "camera"], b5, by5),
+        {**entry("trace_fused_cull", 235, launches[0], tier_err["mm2c"], med(tm["mm2c"]),
+                 med(tm["mm2c bare"]), tier_plain_ms["mid", "camera", "mm2c"], b4t, by4t),
+         "ms_range": [tm["mm2c"][0], tm["mm2c"][-1]],
+         "bare_ms_range": [tm["mm2c bare"][0], tm["mm2c bare"][-1]],
+         "bare_ms_bounce": med(tm["mm2c bare bounce"]),
+         "bound_ms_voted_warps": b4w, "bound_ms_every_test": b4,
+         "issue_floor_ms": floor4,
+         "sass_per_row_and_ray": loop4["per_row"] / rays5,
+         "sass_skipped_per_row_and_ray": loop4["skip"] / rays5,
+         "tally": {f"mid {kind}": dict(zip(tt.TALLY_NAMES, w)) for kind, w in work4.items()}},
+        {**entry("cull_prepass", 559, launches[1], float(cull_bad), med(tl["cull"]),
+                 med(tl["cull bare"]), cull_plain_ms["large", "camera"], b5t, by5t),
+         "ms_range": [tl["cull"][0], tl["cull"][-1]],
+         "bare_ms_range": [tl["cull bare"][0], tl["cull bare"][-1]],
+         "bare_ms_bounce": med(tl["cull bare bounce"]),
+         "bound_ms_every_test": b5, "issue_floor_ms": floor5,
+         "sass_per_box_and_ray": loop5["per_box_and_ray"],
+         "tally": {f"{name} {kind}": dict(zip(tt.CULL_TALLY_NAMES, w))
+                   for (name, kind), w in work5.items()}},
         {**entry("trace_listed_stream", 801, launches[3], tier_err["mm2s"], med(tl["mm2s"]),
                  med(tl["mm2s bare"]), tier_plain_ms["large", "camera", "mm2s"], b6f, by6f),
          "ms_range": [tl["mm2s"][0], tl["mm2s"][-1]],
@@ -2655,26 +2762,32 @@ def whitted_ab(csrc_dirs: dict, rounds: int = 4, repeats: int = 5) -> dict:
 
 
 def trace_ab(csrc_dirs: dict, rounds: int = 4, repeats: int = 5) -> dict:
-    """Times kernels #6 (trace_listed_stream_kernel) and #8
-    (trace_unculled_kernel) as built from other sources, in turns in one
-    process on one card:
+    """Times kernels #4 (trace_fused_cull_kernel), #5 (cull_prepass_kernel),
+    #6 (trace_listed_stream_kernel) and #8 (trace_unculled_kernel) as built
+    from other sources, in turns in one process on one card:
 
         python3 -c "import chip_smoke as c; c.trace_ab({'parent': 'DIR', 'this':
             'software_rasterizer_tpu_torch/csrc'})"
 
     `csrc_dirs` maps a name to a directory that holds a trace_culled.cu (and
-    the headers it includes). Sources without srt_trace_tally_entries are
-    called through the older interface (no boxes, no tally, #8 taking the
-    JAX chunk). Each is built with the package's nvcc flags; its bare launch is
-    timed on phase 20's camera and bounce rays (#6 at 147,456 triangles on
-    the prepass's lists, ray blocks of 64; #8 at 9,216 triangles and on
-    Cornell, blocks of MM_BLOCK), `rounds` rounds of `repeats` launches, the
-    order of the builds reversed every other round. Every build's (hit, idx,
-    t) must equal the first's and kernel #2's bit for bit. Prints a line a
-    case, each build's SASS instructions a row and ray of both row loops
-    (utils/sass.py) and its issue floor on this run's warp-steps, the plain
-    models' s and w, and the builds' ptxas register and spill lines; returns
-    {case: {build: sorted ms}}."""
+    the headers it includes). Each source is
+    called through the interface it exports: without srt_trace_tally_entries
+    the one before #6's boxes and tally (#8 taking the JAX chunk); without
+    srt_cull_tally_entries #5 without super boxes and #4 and #5 without a
+    tally. Each is built with the package's nvcc flags; its bare launch is
+    timed on phase 20's camera and bounce rays, ray blocks of 64 (#4 at
+    9,216 triangles; #5 at 9,216 and 147,456; #6 at 147,456 on the
+    prepass's lists; #8 at 9,216 and on Cornell, blocks of MM_BLOCK),
+    `rounds` rounds of `repeats` launches, the order of the builds reversed
+    every other round. Every build's (hit, idx, t) must equal the first's
+    and kernel #2's bit for bit (for #4 a ray off kernel #2 must be a proven
+    slab knife edge), and every build's #5 mask the plain version's. Prints
+    a line a case, each build's SASS instructions a row and ray of the row
+    loops of #4, #6 and #8 and a box and ray slot of #5's box loop
+    (utils/sass.py) and its issue floor on this run's work (the block vote's
+    for a build without the per-warp vote, else the plain models'), the
+    plain models' s and w, and the builds' ptxas register and spill lines;
+    returns {case: {build: sorted ms}}."""
     import ctypes
 
     import torch
@@ -2688,7 +2801,7 @@ def trace_ab(csrc_dirs: dict, rounds: int = 4, repeats: int = 5) -> dict:
     from software_rasterizer_tpu_torch.utils import cuda_build, sass
 
     sys.path.insert(0, str(ROOT / "tests"))
-    from torch_scenes import stress_cornell
+    from torch_scenes import slab_knife_edge_rays, stress_cornell
 
     card = card_line()
     dev = torch.device("cuda")
@@ -2703,7 +2816,7 @@ def trace_ab(csrc_dirs: dict, rounds: int = 4, repeats: int = 5) -> dict:
             [cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS, "-o", str(out),
              str(pathlib.Path(d) / "trace_culled.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    libs, newer = {}, {}
+    libs, newer, cull_new = {}, {}, {}
     vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     own = tt._cuda_lib()
     for name, (out, proc) in procs.items():
@@ -2713,6 +2826,7 @@ def trace_ab(csrc_dirs: dict, rounds: int = 4, repeats: int = 5) -> dict:
         (OUT_DIR / f"ab_trace_{name}_build.log").write_text(log)
         lib = ctypes.CDLL(str(out))
         newer[name] = hasattr(lib, "srt_trace_tally_entries")
+        cull_new[name] = hasattr(lib, "srt_cull_tally_entries")
         if newer[name]:
             lib.srt_trace_listed.argtypes = own.srt_trace_listed.argtypes
             lib.srt_trace_unculled.argtypes = own.srt_trace_unculled.argtypes
@@ -2720,8 +2834,41 @@ def trace_ab(csrc_dirs: dict, rounds: int = 4, repeats: int = 5) -> dict:
             lib.srt_trace_listed.argtypes = [vp, ci, ci, vp, vp, cl, vp, vp, ci, ci, ci, vp,
                                              vp, vp, vp]
             lib.srt_trace_unculled.argtypes = [vp, ci, ci, vp, vp, ci, ci, vp, vp, vp, vp]
-        lib.srt_trace_listed.restype = lib.srt_trace_unculled.restype = ci
+        if cull_new[name]:
+            lib.srt_cull_prepass.argtypes = own.srt_cull_prepass.argtypes
+            lib.srt_trace_fused_cull.argtypes = own.srt_trace_fused_cull.argtypes
+        else:  # the interface before the super boxes of #5 and the tallies
+            lib.srt_cull_prepass.argtypes = [vp, vp, ci, vp, vp, ci, ci, vp, vp]
+            lib.srt_trace_fused_cull.argtypes = [vp, ci, ci, vp, vp, ci, vp, vp, ci, vp, vp,
+                                                 ci, ci, vp, vp, vp, vp]
+        for fn in (lib.srt_trace_listed, lib.srt_trace_unculled, lib.srt_cull_prepass,
+                   lib.srt_trace_fused_cull):
+            fn.restype = ci
         libs[name] = lib
+
+    def call4(name, rt, sup, o_, d_, out):
+        hit, idx, t = out
+        a = (rt.tri_table.data_ptr(), rt.tri_table.shape[0], rt.cull_chunk,
+             rt.chunk_lo.data_ptr(), rt.chunk_hi.data_ptr(), rt.chunk_lo.shape[0],
+             sup[0].data_ptr(), sup[1].data_ptr(), sup[0].shape[0], o_.data_ptr(),
+             d_.data_ptr(), n, block, hit.data_ptr(), idx.data_ptr(), t.data_ptr())
+        strm = torch.cuda.current_stream().cuda_stream
+        rc = libs[name].srt_trace_fused_cull(*a, *((None,) if cull_new[name] else ()), strm)
+        if rc != 0:
+            fail(f"ab {name}: trace_fused_cull launch failed: cudaError {rc}")
+
+    def call5(name, rt, sup, o_, d_, mask):
+        lo_hi = (rt.chunk_lo.data_ptr(), rt.chunk_hi.data_ptr(), rt.chunk_lo.shape[0])
+        rays_ = (o_.data_ptr(), d_.data_ptr(), n, block)
+        strm = torch.cuda.current_stream().cuda_stream
+        if cull_new[name]:
+            rc = libs[name].srt_cull_prepass(*lo_hi, sup[0].data_ptr(), sup[1].data_ptr(),
+                                             sup[0].shape[0], *rays_, mask.data_ptr(), None,
+                                             strm)
+        else:
+            rc = libs[name].srt_cull_prepass(*lo_hi, *rays_, mask.data_ptr(), strm)
+        if rc != 0:
+            fail(f"ab {name}: cull_prepass launch failed: cudaError {rc}")
 
     def call6(name, rt, counts, lists, o_, d_, out):
         hit, idx, t = out
@@ -2755,29 +2902,38 @@ def trace_ab(csrc_dirs: dict, rounds: int = 4, repeats: int = 5) -> dict:
             fail(f"ab {name}: trace_unculled launch failed: cudaError {rc}")
 
     # the cases: (kernel, scene, rays)
+    kinds = ("camera", "bounce")
+    cases = [("#4", "mid", k) for k in kinds]
+    cases += [("#5", s_, k) for s_ in ("mid", "large") for k in kinds]
+    cases += [("#6", "large", k) for k in kinds]
+    cases += [("#8", s_, k) for s_ in ("mid", "cornell") for k in kinds]
+    makers = {"cornell": build_cornell_scene,
+              "mid": lambda: stress_cornell(build_cornell_scene, subdivide_mesh,
+                                            LARGE_LEVELS[0]),
+              "large": lambda: stress_cornell(build_cornell_scene, subdivide_mesh,
+                                              LARGE_LEVELS[1])}
     scenes = {}
-    for sname, make in (("cornell", build_cornell_scene),
-                        ("mid", lambda: stress_cornell(build_cornell_scene, subdivide_mesh,
-                                                       LARGE_LEVELS[0])),
-                        ("large", lambda: stress_cornell(build_cornell_scene, subdivide_mesh,
-                                                         LARGE_LEVELS[1]))):
-        scene = make()
+    for sname in makers:
+        scene = makers[sname]()
         scene.set_ndc_matrix(WIDTH, HEIGHT)
         rt = ti.prepare_rt_scene(scene.rt_geometry(), scene.rt_frame(), dev)
         o, d = (x.contiguous() for x in camera_rays(
             rt.eye.cpu().numpy(), scene.fovy, WIDTH, HEIGHT, dev))
         _, o2, d2 = bounce_rays(rt, o, d)
         scenes[sname] = (rt, {"camera": (o, d), "bounce": (o2, d2)})
-    cases = [("#6", "large", k) for k in ("camera", "bounce")]
-    cases += [("#8", s_, k) for s_ in ("mid", "cornell") for k in ("camera", "bounce")]
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     rate = sms * SCHEDULERS_PER_SM * max_sm_clock_hz()
+    # the row loops (instructions a row and ray slot) and #5's box loop
+    # (instructions a box and ray slot)
+    loop_of = {"#4": ("trace_fused_cull_kernelILi1E", 1, sass.row_loop),
+               "#5": ("cull_prepass_kernelILi1E", 1, sass.box_loop),
+               "#6": ("trace_listed_stream_kernelILi1E", 1, sass.row_loop),
+               "#8": ("trace_unculled_kernelILi4E", 4, sass.row_loop)}
     loops = {}
     for name in names:
         lib_path = cuda_build.BUILD_DIR / f"ab_trace_{name}.so"
-        for kern, pat, rays in (("#6", "trace_listed_stream_kernelILi1E", 1),
-                                ("#8", "trace_unculled_kernelILi4E", 4)):
+        for kern, (pat, rays, count) in loop_of.items():
             fn_sass = None
             for p_ in (pat + "Lb0E", pat + "E"):
                 try:
@@ -2787,57 +2943,129 @@ def trace_ab(csrc_dirs: dict, rounds: int = 4, repeats: int = 5) -> dict:
                     continue
             if fn_sass is None:
                 fail(f"ab {name}: no single {pat} in the SASS")
-            loops[name, kern] = sass.row_loop(fn_sass, rays)
-            lp = loops[name, kern]
-            print(f"[ab] {name} {kern}: {lp['per_row'] / rays:g} SASS instructions a row and "
-                  f"ray, {lp['skip'] / rays:g} of them skipped by a failed vote (loop of "
-                  f"{lp['span']}, {lp['unroll']} rows an iteration)", flush=True)
+            lp = loops[name, kern] = count(fn_sass, rays)
+            mix = ", ".join(f"{o} {c / rays:g}" for o, c in lp["mix"].items())
+            if kern == "#5":
+                print(f"[ab] {name} {kern}: {lp['per_box_and_ray']:g} SASS instructions a box "
+                      f"and ray slot (loop of {lp['span']}, {lp['votes']} votes an "
+                      f"iteration): {mix}", flush=True)
+            else:
+                print(f"[ab] {name} {kern}: {lp['per_row'] / rays:g} SASS instructions a row "
+                      f"and ray, {lp['skip'] / rays:g} of them skipped by a failed vote (loop "
+                      f"of {lp['span']}, {lp['unroll']} rows an iteration): {mix}", flush=True)
     for name in names:
-        # ptxas's lines for the kernels #6 and #8 of 1 and 4 rays a thread,
+        # ptxas's lines for the measured kernels (1 ray a thread, 4 for #8),
         # without the tally
         kern, regs = None, []
+        want = "|".join(f"{pat}(?:Lb0E|E)" for pat, _, _ in loop_of.values())
         for ln in (OUT_DIR / f"ab_trace_{name}_build.log").read_text().splitlines():
-            m = re.search(r"Compiling entry function '[^']*?(trace_listed_stream_kernel"
-                          r"ILi1ELb0E|trace_unculled_kernelILi4ELb0E|trace_listed_stream_"
-                          r"kernelILi1EE|trace_unculled_kernelILi4EE)", ln)
+            m = re.search(rf"Compiling entry function '[^']*?({want})", ln)
             if "Compiling entry function" in ln:
                 kern = m.group(1) if m else None
             elif kern and ("registers" in ln or "spill" in ln):
                 regs.append(f"{kern}: {ln.split(':', 1)[-1].strip()}")
         print(f"[ab] {name} ptxas: " + "; ".join(regs), flush=True)
 
+    any_new = any(cull_new.values())
+    threads, r_ = tt.launch_shape(block)
     res = {}
     for kern, sname, kind in cases:
         rt, rays = scenes[sname]
         o_, d_ = rays[kind]
-        ref = tk.trace_nearest_vpu(rt.tri_table, rt.n_tri, o_, d_)
-        if kern == "#6":
-            mask = tt.cull_prepass(rt.chunk_lo, rt.chunk_hi, o_, d_, block)
-            counts, lists = tt.chunk_lists(mask)
-            _, work = tt.listed_warp_plain(rt.tri_table, rt.chunk_lo, rt.chunk_hi, counts,
-                                           lists, o_, d_, rt.cull_chunk, block)
-            threads, r_ = tt.launch_shape(block)
-            rows_c = torch.clamp(rt.tri_table.shape[0] - rt.cull_chunk * torch.arange(
-                rt.chunk_lo.shape[0], device=dev), max=rt.cull_chunk)
-            all_steps = int((mask.long() * rows_c[None]).sum()) * (threads // 32) * r_
+        nb, nc = -(-n // block), rt.chunk_lo.shape[0]
+        sup = tt.super_bounds(rt.chunk_lo, rt.chunk_hi)
+        rows_c = torch.clamp(rt.tri_table.shape[0] - rt.cull_chunk * torch.arange(
+            nc, device=dev), max=rt.cull_chunk)
+        extra = ""
+        if kern == "#5":
+            ref = tt.cull_prepass_plain(rt.chunk_lo, rt.chunk_hi, o_, d_, block)
+            # every warp votes on every chunk box (the flat loop), or the
+            # two-level vote's super and chunk votes (its plain model)
+            all_steps = two_level = nb * (threads // 32) * nc
+            if any_new:
+                _, cw = tt.cull_prepass_warp_plain(rt.chunk_lo, rt.chunk_hi, o_, d_, block)
+                cwd = dict(zip(tt.CULL_TALLY_NAMES, cw))
+                two_level = (cwd["warp_supers"] - cwd["warp_supers_unproven"]
+                             + cwd["warp_chunk_votes"])
+                proven = cwd["warp_supers"] - cwd["warp_supers_unproven"]
+                extra = (f", plain model: {cwd['warp_supers_skipped']}/{proven} proven "
+                         f"(warp, super) pairs skipped, {cwd['warp_supers_unproven']} "
+                         f"unproven, slab tests a ray "
+                         f"{(cwd['super_tests'] + cwd['chunk_tests']) / n:.2f} (flat {nc})")
+            steps_of = {b: (two_level if cull_new[b] else all_steps, None) for b in names}
 
             def run(b, out):
-                call6(b, rt, counts, lists, o_, d_, out)
+                call5(b, rt, sup, o_, d_, out)
         else:
-            work = tt.unculled_tally_plain(rt.tri_table, o_, d_, tt.MM_BLOCK)
-            all_steps = work[0]
+            ref = tk.trace_nearest_vpu(rt.tri_table, rt.n_tri, o_, d_)
+            if kern == "#4":
+                # the block vote sweeps every row of a visited (block, chunk)
+                # pair with every warp of the block
+                visit = (tt._block_enters(rt.chunk_lo, rt.chunk_hi, o_, d_, block)
+                         & tt._block_enters(*sup, o_, d_, block).repeat_interleave(
+                             tt.MM2C_SUPER, dim=1)[:, :nc])
+                all_steps = int((visit.long() * rows_c[None]).sum()) * (threads // 32) * r_
+                work = tt.fused_warp_plain(rt.tri_table, rt.chunk_lo, rt.chunk_hi, o_, d_,
+                                           rt.cull_chunk, block)[1] if any_new else None
+                steps_of = {b: ((work[0], work[1]) if cull_new[b] else (all_steps, None))
+                            for b in names}
+                if work is not None:
+                    extra = (f", plain model s {work[1] / work[0]:.4f} ({work[1]}/{work[0]}), "
+                             f"w {work[6] / work[5]:.4f} ({work[6]}/{work[5]})")
 
-            def run(b, out):
-                call8(b, rt, o_, d_, out)
+                def run(b, out):
+                    call4(b, rt, sup, o_, d_, out)
+            elif kern == "#6":
+                mask = tt.cull_prepass(rt.chunk_lo, rt.chunk_hi, o_, d_, block)
+                counts, lists = tt.chunk_lists(mask)
+                _, work = tt.listed_warp_plain(rt.tri_table, rt.chunk_lo, rt.chunk_hi, counts,
+                                               lists, o_, d_, rt.cull_chunk, block)
+                # a build without the per-warp vote sweeps every listed chunk
+                # with every warp of the block
+                all_steps = int((mask.long() * rows_c[None]).sum()) * (threads // 32) * r_
+                steps_of = {b: ((work[0], work[1]) if newer[b] else (all_steps, None))
+                            for b in names}
+                extra = (f", plain model s {work[1] / work[0]:.4f} ({work[1]}/{work[0]}), "
+                         f"w {work[6] / work[5]:.4f} ({work[6]}/{work[5]})")
+
+                def run(b, out):
+                    call6(b, rt, counts, lists, o_, d_, out)
+            else:
+                work = tt.unculled_tally_plain(rt.tri_table, o_, d_, tt.MM_BLOCK)
+                steps_of = {b: ((work[0], work[1]) if newer[b] else (work[0], None))
+                            for b in names}
+                extra = f", plain model s {work[1] / work[0]:.4f} ({work[1]}/{work[0]})"
+
+                def run(b, out):
+                    call8(b, rt, o_, d_, out)
         outs = {}
         for b in names:
-            outs[b] = (torch.empty(n, dtype=torch.bool, device=dev),
-                       torch.empty(n, dtype=torch.int64, device=dev),
-                       torch.empty(n, dtype=torch.float32, device=dev))
+            if kern == "#5":
+                outs[b] = torch.empty((nb, nc), dtype=torch.uint8, device=dev)
+            else:
+                outs[b] = (torch.empty(n, dtype=torch.bool, device=dev),
+                           torch.empty(n, dtype=torch.int64, device=dev),
+                           torch.empty(n, dtype=torch.float32, device=dev))
             run(b, outs[b])
         torch.cuda.synchronize()
+        knife = ""
         for b in names:
-            if not all(torch.equal(x, y) for x, y in zip(outs[b], ref)):
+            if kern == "#5":
+                if not torch.equal(outs[b], ref):
+                    fail(f"ab #5 {sname} {kind}: {b}'s mask differs from the plain version "
+                         f"in {int((outs[b] != ref).sum())} entries")
+                continue
+            off = (outs[b][0] != ref[0]) | (outs[b][1] != ref[1]) | (outs[b][2] != ref[2])
+            if kern == "#4" and bool(off.any()):
+                r = torch.nonzero(off).flatten()
+                proof = slab_knife_edge_rays(
+                    rt.chunk_lo.cpu().numpy(), rt.chunk_hi.cpu().numpy(), rt.cull_chunk,
+                    o_[r].cpu().numpy(), d_[r].cpu().numpy(), ref[1][r].cpu().numpy())
+                if not proof.all():
+                    fail(f"ab #4 {sname} {kind}: {b} has {int((~proof).sum())} rays off "
+                         f"kernel #2 that are no knife edge")
+                knife += f"; {b}: {r.numel()} proven knife edges"
+            elif bool(off.any()):
                 fail(f"ab {kern} {sname} {kind}: {b}'s (hit, idx, t) differ from kernel #2")
         times = {b: [] for b in names}
         for rnd in range(rounds):
@@ -2845,22 +3073,23 @@ def trace_ab(csrc_dirs: dict, rounds: int = 4, repeats: int = 5) -> dict:
                 times[b] += cuda_times(lambda: run(b, outs[b]), repeats)
         key = f"{kern} {sname} {kind}"
         res[key] = {b: sorted(t) for b, t in times.items()}
-        steps, voted = work[0], work[1]
         floors = []
         for b in names:
             lp = loops[b, kern]
-            rays = 1 if kern == "#6" else 4
+            st, voted = steps_of[b]
+            if kern == "#5":
+                floors.append(f"{b} {lp['per_vote'] * st / rate * 1e3:.4f} ({st} votes)")
+                continue
+            rays = loop_of[kern][1]
             per, skip = lp["per_row"] / rays, lp["skip"] / rays
-            # a build without the per-warp vote sweeps every listed chunk with
-            # every warp of the block
-            st = steps if newer[b] else all_steps
-            floors.append(f"{b} {(per * st - skip * (st - voted if newer[b] else 0)) / rate * 1e3:.4f}")
-        extra = (f", w {work[6] / work[5]:.4f} ({work[6]}/{work[5]})" if kern == "#6" else "")
+            fl = per * st - (skip * (st - voted) if voted is not None else 0.0)
+            floors.append(f"{b} {fl / rate * 1e3:.4f} ({st} warp-steps)")
+        what = "mask equal to the plain version's" if kern == "#5" else \
+            "(hit, idx, t) equal to kernel #2's" + knife
         print(f"[ab] {key} ({rt.n_tri} triangles, {n} rays, bare launch, ms as median "
               f"[min-max] of {rounds * repeats} in turns, on {card}): "
               + ", ".join(f"{b} {spread(res[key][b])}" for b in names)
-              + f"; (hit, idx, t) equal to kernel #2's; plain model s {voted / steps:.4f} "
-              f"({voted}/{steps}){extra}; issue floor ms " + ", ".join(floors), flush=True)
+              + f"; {what}{extra}; issue floor ms " + ", ".join(floors), flush=True)
     return res
 
 

@@ -49,12 +49,21 @@ __device__ __forceinline__ float mt_test(const Ray& r, const float* __restrict__
 }
 
 // min and max that hand a NaN on, as torch.minimum / torch.maximum do
-// (fminf / fmaxf drop it)
+// (fminf / fmaxf drop it): PTX min.NaN / max.NaN, one FMNMX.NAN each on
+// sm_80+ (the select form `(a < b || a != a) ? a : b` took ~2.5
+// instructions on an H100). Either form gives a NaN when either input is
+// one and otherwise the same value up to the sign of a zero, which only
+// feeds comparisons and further min / max here, so every slab test's
+// bool is unchanged.
 __device__ __forceinline__ float nan_min(float a, float b) {
-  return (a < b || a != a) ? a : b;
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
 }
 __device__ __forceinline__ float nan_max(float a, float b) {
-  return (a > b || a != a) ? a : b;
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
 }
 
 // 1 / d with a zero component replaced by 1e-30, per axis
@@ -70,23 +79,30 @@ __device__ __forceinline__ InvDir inv_dir(const Ray& r) {
 }
 
 // The conservative slab test: does the ray meet the box [lo, hi] at some
-// t >= 0 (t_exit >= max(t_enter, 0)). lo and hi point at 3 floats each.
-__device__ __forceinline__ bool slab_enter(const Ray& r, const InvDir& i,
-                                           const float* __restrict__ lo,
-                                           const float* __restrict__ hi) {
-  float t0 = (lo[0] - r.ox) * i.x;
-  float t1 = (hi[0] - r.ox) * i.x;
+// t >= 0 (t_exit >= max(t_enter, 0)), the box given by its six floats.
+__device__ __forceinline__ bool slab_enter(const Ray& r, const InvDir& i, float lx,
+                                           float ly, float lz, float hx, float hy,
+                                           float hz) {
+  float t0 = (lx - r.ox) * i.x;
+  float t1 = (hx - r.ox) * i.x;
   float tmin = nan_min(t0, t1);
   float tmax = nan_max(t0, t1);
-  t0 = (lo[1] - r.oy) * i.y;
-  t1 = (hi[1] - r.oy) * i.y;
+  t0 = (ly - r.oy) * i.y;
+  t1 = (hy - r.oy) * i.y;
   tmin = nan_max(tmin, nan_min(t0, t1));
   tmax = nan_min(tmax, nan_max(t0, t1));
-  t0 = (lo[2] - r.oz) * i.z;
-  t1 = (hi[2] - r.oz) * i.z;
+  t0 = (lz - r.oz) * i.z;
+  t1 = (hz - r.oz) * i.z;
   tmin = nan_max(tmin, nan_min(t0, t1));
   tmax = nan_min(tmax, nan_max(t0, t1));
   return tmax >= nan_max(tmin, 0.0f);
+}
+
+// The same, lo and hi pointing at 3 floats each.
+__device__ __forceinline__ bool slab_enter(const Ray& r, const InvDir& i,
+                                           const float* __restrict__ lo,
+                                           const float* __restrict__ hi) {
+  return slab_enter(r, i, lo[0], lo[1], lo[2], hi[0], hi[1], hi[2]);
 }
 
 // The chunk tables of a culled walk: the boxes of runs of `chunk` rows

@@ -16,10 +16,16 @@ t. `block` and `chunk` change the work, never a result.
 
   * `trace_nearest_mm2c`: the two-level cull (super-chunks of
     `MM2C_SUPER` chunks, then chunks) fused into the sweep; no mask, no
-    lists. The tier of 1K-16K triangles.
+    lists. The tier of 1K-16K triangles. Its kernel votes per warp, and
+    streams the rows of the chunks a warp enters as the streamed tier
+    does (`fused_warp_plain` models it).
   * `cull_prepass` + `chunk_lists` + `trace_nearest_mm2`: the (nb, nc)
     mask as a tensor, its ascending lists of surviving chunks, and the
-    sweep over each block's list; `cull=False` lists every chunk.
+    sweep over each block's list; `cull=False` lists every chunk. The
+    prepass kernel votes per warp on the super-chunk boxes first and skips
+    a super's chunks only where that is proven exact (`ray_proven`,
+    `super_proven`; `cull_prepass_warp_plain` models it), so its mask is
+    the flat test's bit for bit.
   * `trace_nearest_mm2_stream`: the same lists, each warp of a ray
     block voting on each listed chunk's box and sweeping only the chunks
     some ray of it enters, its rows streamed while the last slice is
@@ -27,11 +33,13 @@ t. `block` and `chunk` change the work, never a result.
   * `trace_nearest_mm`: no boxes and no lists, every chunk of the table
     staged in turn for every ray block (`nearest_hit(backend="mm")`).
 
-The last two test each (ray, row) pair in two stages with a warp vote
-(`trace_kernel.mt_plane_two_stage`), and take a `tally`: an
-(`TALLY_ENTRIES`,) int64 tensor that gets the work they did
-(`TALLY_NAMES`). `listed_warp_plain` and `unculled_tally_plain` are the
-plain models of that work, and of the per-warp sweep's result.
+The fused, streamed and unculled kernels test each (ray, row) pair in two
+stages with a warp vote (`trace_kernel.mt_plane_two_stage`), and take a
+`tally`: an (`TALLY_ENTRIES`,) int64 tensor that gets the work they did
+(`TALLY_NAMES`). `fused_warp_plain`, `listed_warp_plain` and
+`unculled_tally_plain` are the plain models of that work, and of the
+per-warp sweeps' results. The prepass kernel's tally has
+`CULL_TALLY_ENTRIES` entries (`CULL_TALLY_NAMES`).
 
 `walk_nearest_plain` is the per-ray form of the cull: each ray tests the
 rows of the chunks whose boxes it enters itself, the tests the culled
@@ -56,7 +64,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from software_rasterizer_tpu_torch.ops.bvh import slab_test
+from software_rasterizer_tpu_torch.ops.bvh import _inv_dir, slab_test
 from software_rasterizer_tpu_torch.ops.trace_kernel import (
     BIG,
     _check,
@@ -90,17 +98,26 @@ WALK_SLICE = 128
 # threads of a CUDA block of the tier kernels (csrc/trace_culled.cu
 # kMaxThreads)
 MAX_THREADS = 256
-# The tally of the two-stage kernels #6 and #8 (csrc/trace_culled.cu
+# The tally of the two-stage kernels #4, #6 and #8 (csrc/trace_culled.cu
 # VoteTally), in order: warp-steps (a warp, a row, a ray slot j of its
 # threads), the warp-steps whose stage-1 vote passed (stage 2 ran), the
 # active rays' (ray, row) tests, those of them in voted steps (full
-# tests), the active rays' slab tests on listed chunks' boxes (#6), the
-# (warp, listed chunk) pairs (#6) and those the warp skipped (none of its
-# rays enters the box), and the tests whose own ray passed stage 1.
-# s = voted / steps, w = skipped / warp_chunks.
+# tests), the active rays' slab tests (#6: on listed chunks' boxes; #4: on
+# super and chunk boxes), the (warp, chunk) votes (#6: on listed chunks;
+# #4: on the chunks of the supers the warp enters) and those the warp
+# skipped (none of its rays enters the box), and the tests whose own ray
+# passed stage 1. s = voted / steps, w = skipped / warp_chunks.
 TALLY_NAMES = ("steps", "voted", "tests", "full_tests", "slab_tests", "warp_chunks",
                "warp_chunks_skipped", "stage1_passes")
 TALLY_ENTRIES = len(TALLY_NAMES)
+# The tally of the prepass kernel #5 (csrc/trace_culled.cu CullTally), in
+# order: the active rays' slab tests on super boxes and on chunk boxes, the
+# (warp, super) pairs, those whose vote no ray passed (the super's chunks
+# skipped), those taken child by child because condition (a) or (b)
+# failed, and the warp votes on chunk boxes.
+CULL_TALLY_NAMES = ("super_tests", "chunk_tests", "warp_supers", "warp_supers_skipped",
+                    "warp_supers_unproven", "warp_chunk_votes")
+CULL_TALLY_ENTRIES = len(CULL_TALLY_NAMES)
 
 # kernel launches (the plain versions are not counted); a caller may
 # reset them to 0 to count one run
@@ -251,21 +268,25 @@ def _cuda_lib():
     lib = load_library("trace_culled", ["trace_culled.cu"])
     if lib.srt_cull_prepass.argtypes is None:
         vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.srt_cull_prepass.argtypes = [vp, vp, ci, vp, vp, ci, ci, vp, vp]
+        lib.srt_cull_prepass.argtypes = [vp, vp, ci, vp, vp, ci, vp, vp, ci, ci, vp, vp,
+                                         vp]
         lib.srt_trace_listed.argtypes = [vp, ci, ci, vp, vp, vp, vp, cl, vp, vp,
                                          ci, ci, ci, vp, vp, vp, vp, vp]
         lib.srt_trace_fused_cull.argtypes = [vp, ci, ci, vp, vp, ci, vp, vp, ci,
-                                             vp, vp, ci, ci, vp, vp, vp, vp]
+                                             vp, vp, ci, ci, vp, vp, vp, vp, vp]
         lib.srt_trace_unculled.argtypes = [vp, ci, vp, vp, ci, ci, vp, vp, vp,
                                            vp, vp]
         lib.srt_trace_tally_entries.argtypes = []
+        lib.srt_cull_tally_entries.argtypes = []
         for fn in (lib.srt_cull_prepass, lib.srt_trace_listed,
                    lib.srt_trace_fused_cull, lib.srt_trace_unculled,
-                   lib.srt_trace_tally_entries):
+                   lib.srt_trace_tally_entries, lib.srt_cull_tally_entries):
             fn.restype = ci
-        if lib.srt_trace_tally_entries() != TALLY_ENTRIES:
-            raise RuntimeError(f"trace_culled.cu counts {lib.srt_trace_tally_entries()} "
-                               f"tally entries, trace_tiers.py {TALLY_ENTRIES}")
+        for fn, want in ((lib.srt_trace_tally_entries, TALLY_ENTRIES),
+                         (lib.srt_cull_tally_entries, CULL_TALLY_ENTRIES)):
+            if fn() != want:
+                raise RuntimeError(f"trace_culled.cu counts {fn()} entries of a tally that "
+                                   f"trace_tiers.py counts {want} of")
     return lib
 
 
@@ -292,33 +313,51 @@ def _aligned(tri_table: torch.Tensor) -> torch.Tensor:
     return tri_table if tri_table.data_ptr() % 16 == 0 else tri_table.clone()
 
 
-def _check_tally(tally, device) -> None:
-    """A tally of kernels #6 and #8: (TALLY_ENTRIES,) int64, contiguous,
-    on the rays' device (or None)."""
+def _check_tally(tally, device, entries: int = TALLY_ENTRIES) -> None:
+    """A tally of kernels #4, #6 and #8 ((TALLY_ENTRIES,) int64) or of #5
+    (`entries` = CULL_TALLY_ENTRIES), contiguous, on the rays' device (or
+    None)."""
     if tally is None:
         return
-    _check("tally", tally.reshape(1, -1), torch.int64, TALLY_ENTRIES, device)
-    if tally.shape != (TALLY_ENTRIES,) or not tally.is_contiguous():
-        raise ValueError(f"tally must be a contiguous ({TALLY_ENTRIES},) tensor, got "
+    _check("tally", tally.reshape(1, -1), torch.int64, entries, device)
+    if tally.shape != (entries,) or not tally.is_contiguous():
+        raise ValueError(f"tally must be a contiguous ({entries},) tensor, got "
                          f"{tuple(tally.shape)}")
 
 
-def launch_cull_prepass(chunk_lo, chunk_hi, orig, d, block: int) -> torch.Tensor:
+def _check_supers(lo2, hi2, nc: int, device) -> None:
+    if _check_boxes(lo2, hi2, device) != -(-nc // MM2C_SUPER):
+        raise ValueError(f"{lo2.shape[0]} super-chunk boxes for {nc} chunks")
+
+
+def launch_cull_prepass(chunk_lo, chunk_hi, orig, d, block: int, supers=None,
+                        tally=None) -> torch.Tensor:
     """Launch `cull_prepass_kernel` on the current stream: the (nb, nc)
-    uint8 mask. Checks every operand and raises on a launch error."""
+    uint8 mask. `supers` (lo2, hi2) are the super-chunk boxes the warps
+    vote on first, `super_bounds(chunk_lo, chunk_hi)` if None; the kernel
+    skips a super's chunks only where conditions (a) and (b) hold
+    (`ray_proven`, `super_proven`), so they change no bit. `tally`
+    ((CULL_TALLY_ENTRIES,) int64) gets its work if given. Checks every
+    operand and raises on a launch error."""
     global LAUNCHES_CULL
     device = orig.device
     _need_cuda("launch_cull_prepass", device)
     n = _check_rays(orig, d)
     _check_block(block)
     nc = _check_boxes(chunk_lo, chunk_hi, device)
+    lo2, hi2 = super_bounds(chunk_lo, chunk_hi) if supers is None else supers
+    _check_supers(lo2, hi2, nc, device)
+    _check_tally(tally, device, CULL_TALLY_ENTRIES)
     mask = torch.empty((-(-n // block), nc), dtype=torch.uint8, device=device)
     if mask.numel() == 0:
         return mask
-    lo, hi, orig, d = (x.contiguous() for x in (chunk_lo, chunk_hi, orig, d))
+    lo, hi, lo2, hi2, orig, d = (x.contiguous() for x in (chunk_lo, chunk_hi, lo2, hi2,
+                                                          orig, d))
     rc = _cuda_lib().srt_cull_prepass(
-        lo.data_ptr(), hi.data_ptr(), nc, orig.data_ptr(), d.data_ptr(), n,
-        block, mask.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
+        lo.data_ptr(), hi.data_ptr(), nc, lo2.data_ptr(), hi2.data_ptr(), lo2.shape[0],
+        orig.data_ptr(), d.data_ptr(), n, block, mask.data_ptr(),
+        None if tally is None else tally.data_ptr(),
+        torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"cull_prepass kernel launch failed: cudaError {rc}")
     LAUNCHES_CULL += 1
@@ -376,9 +415,10 @@ def launch_trace_listed(tri_table, counts, lists, orig, d, chunk: int,
 
 
 def launch_trace_fused_cull(tri_table, chunk_lo, chunk_hi, lo2, hi2, orig, d,
-                            chunk: int, block: int) -> Trace:
-    """Launch `trace_fused_cull_kernel` on the current stream. Checks
-    every operand and raises on a launch error."""
+                            chunk: int, block: int, tally=None) -> Trace:
+    """Launch `trace_fused_cull_kernel` on the current stream; its work
+    goes into `tally` ((TALLY_ENTRIES,) int64) if given. Checks every
+    operand and raises on a launch error."""
     global LAUNCHES_MM2C
     device = orig.device
     _need_cuda("launch_trace_fused_cull", device)
@@ -386,9 +426,9 @@ def launch_trace_fused_cull(tri_table, chunk_lo, chunk_hi, lo2, hi2, orig, d,
     _check_block(block)
     nc = _check_boxes(chunk_lo, chunk_hi, device)
     _check_table(tri_table, chunk, nc, device)
-    nsc = _check_boxes(lo2, hi2, device)
-    if nsc != -(-nc // MM2C_SUPER):
-        raise ValueError(f"{nsc} super-chunk boxes for {nc} chunks")
+    _check_supers(lo2, hi2, nc, device)
+    nsc = lo2.shape[0]
+    _check_tally(tally, device)
     hit, idx, t = _outputs(n, device)
     if n == 0:
         return hit, idx, t
@@ -399,6 +439,7 @@ def launch_trace_fused_cull(tri_table, chunk_lo, chunk_hi, lo2, hi2, orig, d,
         tri_table.data_ptr(), tri_table.shape[0], chunk, lo.data_ptr(),
         hi.data_ptr(), nc, lo2.data_ptr(), hi2.data_ptr(), nsc, orig.data_ptr(),
         d.data_ptr(), n, block, hit.data_ptr(), idx.data_ptr(), t.data_ptr(),
+        None if tally is None else tally.data_ptr(),
         torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"trace_fused_cull kernel launch failed: cudaError {rc}")
@@ -447,7 +488,8 @@ def _on_cpu(device) -> bool:
 def cull_prepass(chunk_lo, chunk_hi, orig, d, block: int = DEFAULT_BLOCK):
     """(nb, nc) uint8 mask: 1 where any ray of ray block b passes the slab
     test of chunk c's box; nb = ceil(N / block), and the rays a short last
-    block lacks do not vote. CUDA rays run the kernel, CPU rays
+    block lacks do not vote. CUDA rays run the kernel (a two-level warp
+    vote, `cull_prepass_warp_plain`, the same mask), CPU rays
     `cull_prepass_plain`."""
     if _on_cpu(orig.device):
         return cull_prepass_plain(chunk_lo, chunk_hi, orig, d, block)
@@ -770,6 +812,153 @@ def listed_warp_plain(tri_table, chunk_lo, chunk_hi, counts, lists, orig, d,
         step = max(1, _PLAIN_STEP // g.shape[0])
         for s0 in range(0, r.shape[0], step):
             rr = r[s0:s0 + step]
+            ct, cf = plane_winner(mt_plane(orig[rr], d[rr], g))
+            better = ct < best_t[rr]
+            best_t[rr] = torch.where(better, ct, best_t[rr])
+            best_f[rr] = torch.where(better, cf + c * chunk, best_f[rr])
+    hit = best_t < BIG
+    return (hit, torch.where(hit, best_f, -1), best_t), tuple(work)
+
+
+def _warp_boxes(orig, d, ids, lo, hi):
+    """(warps, B) bool: any active ray of each warp of the lanes `ids`
+    ((warps, lanes) ray ids, -1: none) passes the slab test of box B."""
+    o_, d_, valid = _lane_rays(orig, d, ids)
+    return (slab_test(o_, d_, lo, hi) & valid[:, None]).reshape(ids.shape[0], -1,
+                                                                lo.shape[0]).any(dim=1)
+
+
+def _per_super(nc: int, device) -> torch.Tensor:
+    """(nsc,) int64: the chunks of each super-chunk (the tail one short)."""
+    nsc = -(-nc // MM2C_SUPER)
+    return torch.clamp(nc - MM2C_SUPER * torch.arange(nsc, device=device), max=MM2C_SUPER)
+
+
+def ray_proven(orig, d) -> torch.Tensor:
+    """(N,) bool: condition (a) of the prepass's super-chunk skip
+    (csrc/trace_culled.cu, where the proof is written): |o| <= 1e30 on
+    every axis (so not NaN) and a finite 1 / d on every axis (a zero
+    component counted as 1e-30, as the slab test does). A denormal or NaN
+    direction component breaks it; an infinite one gives 1 / d = 0, which
+    keeps it."""
+    return (orig.abs() <= BIG).all(dim=1) & torch.isfinite(_inv_dir(d)).all(dim=1)
+
+
+def super_proven(chunk_lo, chunk_hi, lo2, hi2) -> torch.Tensor:
+    """(nsc,) bool: condition (b) of the prepass's super-chunk skip for
+    each super box (lo2, hi2 (nsc,3)) and its chunk boxes: every child box
+    well formed and inside it, the super box finite (lo <= hi, |lo|, |hi|,
+    |lo2|, |hi2| <= 1e30, lo2 <= lo and hi <= hi2 on every axis). An empty
+    chunk's inverted box (1e30, -1e30) breaks it."""
+    nc, nsc = chunk_lo.shape[0], lo2.shape[0]
+    sup = torch.arange(nc, device=chunk_lo.device) // MM2C_SUPER
+    p_lo, p_hi = lo2[sup], hi2[sup]
+    ok = ((chunk_lo <= chunk_hi) & (chunk_lo.abs() <= BIG) & (chunk_hi.abs() <= BIG)
+          & (p_lo.abs() <= BIG) & (p_hi.abs() <= BIG) & (p_lo <= chunk_lo)
+          & (chunk_hi <= p_hi)).all(dim=1)
+    ok = torch.cat([ok, ok.new_ones(nsc * MM2C_SUPER - nc)])
+    return ok.reshape(nsc, MM2C_SUPER).all(dim=1)
+
+
+def cull_prepass_warp_plain(chunk_lo, chunk_hi, orig, d, block: int = DEFAULT_BLOCK,
+                            supers=None):
+    """A plain model of kernel #5 (cull_prepass_kernel): each warp of a
+    ray block (`warp_rays`) votes on each super box (`supers` (lo2, hi2),
+    `super_bounds` if None) where the skip is proven, i.e. every active ray
+    of the warp meets condition (a) (`ray_proven`) and the super (b)
+    (`super_proven`); a warp that enters no proven super box skips its
+    chunks, otherwise (or where unproven) it votes on each chunk box, and a
+    ray block's bit is the OR of its warps' chunk votes. Returns (the (nb,
+    nc) uint8 mask, equal to `cull_prepass_plain` bit for bit, and the work
+    the kernel adds to its tally, in `CULL_TALLY_NAMES` order)."""
+    n = _check_rays(orig, d)
+    _check_block(block)
+    dev = orig.device
+    nc = _check_boxes(chunk_lo, chunk_hi, dev)
+    lo2, hi2 = super_bounds(chunk_lo, chunk_hi) if supers is None else supers
+    _check_supers(lo2, hi2, nc, dev)
+    nsc = lo2.shape[0]
+    per_super = _per_super(nc, dev)
+    sup_ok = super_proven(chunk_lo, chunk_hi, lo2, hi2)
+    lanes = warp_rays(n, block, dev)                          # (nb, W, R, 32)
+    nb, n_w = lanes.shape[:2]
+    mask = torch.zeros((nb, nc), dtype=torch.uint8, device=dev)
+    work = [0] * CULL_TALLY_ENTRIES
+    step = max(1, _PLAIN_STEP // max((nc + nsc) * lanes[0].numel(), 1))
+    for b0 in range(0, nb, step):
+        ids = lanes[b0:b0 + step]
+        k = ids.shape[0]
+        ids = ids.reshape(k * n_w, -1)
+        o_, d_, valid = _lane_rays(orig, d, ids)
+        act = valid.reshape(k * n_w, -1).sum(dim=1)
+        warp_ok = (ray_proven(o_, d_) | ~valid).reshape(k * n_w, -1).all(dim=1)
+        enter2 = _warp_boxes(orig, d, ids, lo2, hi2)            # (warps, nsc)
+        enter = _warp_boxes(orig, d, ids, chunk_lo, chunk_hi)   # (warps, nc)
+        proven = warp_ok[:, None] & sup_ok[None]
+        go = ~proven | enter2
+        votes = enter & go.repeat_interleave(MM2C_SUPER, dim=1)[:, :nc]
+        mask[b0:b0 + k] = votes.reshape(k, n_w, nc).any(dim=1).to(torch.uint8)
+        chunk_votes = (go.long() * per_super[None]).sum(dim=1)
+        work[0] += int((act * proven.sum(dim=1)).sum())
+        work[1] += int((act * chunk_votes).sum())
+        work[2] += k * n_w * nsc
+        work[3] += int((proven & ~enter2).sum())
+        work[4] += int((~proven).sum())
+        work[5] += int(chunk_votes.sum())
+    return mask, tuple(work)
+
+
+def fused_warp_plain(tri_table, chunk_lo, chunk_hi, orig, d, chunk: int = 128,
+                     block: int = DEFAULT_BLOCK):
+    """A plain model of kernel #4 (trace_fused_cull_kernel): each warp of a
+    ray block (`warp_rays`) votes on each super box (`super_bounds`; a
+    `slab_test` of each of its active rays), in each super it enters on each
+    chunk box, and sweeps the rows of the chunks it enters with the
+    two-stage test, chunks and rows ascending. Returns (hit, idx, t), equal
+    to `trace_nearest_mm2c_plain` (the block vote) bit for bit but where a
+    ray's own slab test of its winner's chunk fails on a knife edge, and
+    the work the kernel adds to its tally, in `TALLY_NAMES` order
+    (slab_tests counts the super and the chunk tests, warp_chunks the chunk
+    votes)."""
+    n = _check_rays(orig, d)
+    _check_block(block)
+    dev = orig.device
+    nc = _check_boxes(chunk_lo, chunk_hi, dev)
+    _check_table(tri_table, chunk, nc, dev)
+    n_rows = tri_table.shape[0]
+    _, rays = launch_shape(block)
+    lo2, hi2 = super_bounds(chunk_lo, chunk_hi)
+    nsc = lo2.shape[0]
+    per_super = _per_super(nc, dev)
+    lanes = warp_rays(n, block, dev).reshape(-1, rays * WARP)  # (warps, lanes)
+    n_w = lanes.shape[0]
+    act = (lanes >= 0).sum(dim=1)
+    step = max(1, _PLAIN_STEP // max((nc + nsc) * rays * WARP, 1))
+    enter2 = torch.cat([_warp_boxes(orig, d, lanes[w:w + step], lo2, hi2)
+                        for w in range(0, n_w, step)]) if n_w else \
+        torch.zeros((0, nsc), dtype=torch.bool, device=dev)
+    enter = torch.cat([_warp_boxes(orig, d, lanes[w:w + step], chunk_lo, chunk_hi)
+                       for w in range(0, n_w, step)]) if n_w else \
+        torch.zeros((0, nc), dtype=torch.bool, device=dev)
+    visit = enter & enter2.repeat_interleave(MM2C_SUPER, dim=1)[:, :nc]
+    chunk_votes = (enter2.long() * per_super[None]).sum(dim=1)
+    work = [0] * TALLY_ENTRIES
+    work[4] = int((act * (nsc + chunk_votes)).sum())
+    work[5] = int(chunk_votes.sum())
+    work[6] = work[5] - int(visit.sum())
+    best_t = torch.full((n,), BIG, dtype=torch.float32, device=dev)
+    best_f = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    for c in torch.nonzero(visit.any(dim=0)).flatten().tolist():
+        ids = lanes[visit[:, c]]
+        o_, d_, valid = _lane_rays(orig, d, ids)
+        g = tri_table[c * chunk:min((c + 1) * chunk, n_rows)]
+        steps, voted, tests, full, passes = _vote_counts(o_, d_, valid, g)
+        for k, x in ((0, steps), (1, voted), (2, tests), (3, full), (7, passes)):
+            work[k] += x
+        r = ids.reshape(-1)[valid]
+        span = max(1, _PLAIN_STEP // g.shape[0])
+        for s0 in range(0, r.shape[0], span):
+            rr = r[s0:s0 + span]
             ct, cf = plane_winner(mt_plane(orig[rr], d[rr], g))
             better = ct < best_t[rr]
             best_t[rr] = torch.where(better, ct, best_t[rr])

@@ -1,6 +1,7 @@
-"""The triangle loop of a kernel in its SASS: instructions a row.
+"""The triangle loop of a kernel in its SASS: instructions a row; or its
+box loop: instructions a box test.
 
-    python -m software_rasterizer_tpu_torch.utils.sass [--csrc DIR] [--rays N] SOURCE KERNEL [SOURCE KERNEL ...]
+    python -m software_rasterizer_tpu_torch.utils.sass [--csrc DIR] [--rays N] [--boxes] SOURCE KERNEL [SOURCE KERNEL ...]
 
 builds each CUDA source of DIR (default: the package's csrc/) with the
 package's nvcc flags and prints, for the kernel whose mangled name
@@ -21,6 +22,13 @@ For the two-stage test of kernels #6 and #8 it also counts the
 instructions a warp skips when its stage-1 vote fails (`--rays 1` for
 trace_listed_stream_kernel, 4 for trace_unculled_kernel at its blocks of
 1024 rays).
+
+With `--boxes` it counts the box loop of the cull prepass
+(cull_prepass_kernel) instead, which holds no reciprocal: the innermost
+loop with a warp vote (VOTE.ANY) and no MUFU instruction, its
+instructions a vote (one box tested by every lane's N ray slots) and
+their mix, which shows what the slab test's NaN-keeping min / max compile
+to.
 """
 
 from __future__ import annotations
@@ -108,6 +116,38 @@ def row_loop(sass: List[Tuple[int, str]], rays: int = 2) -> dict:
             "skip": _vote_skip(body) / unroll}
 
 
+def box_loop(sass: List[Tuple[int, str]], rays: int = 1) -> dict:
+    """The box loop of one function's SASS: the innermost loop (a backward
+    branch and the code it jumps over) that holds a warp vote (VOTE.ANY)
+    and no MUFU instruction, one vote a box, each lane testing `rays` ray
+    slots against the box. "per_vote" (instructions a warp vote on one
+    box, NOPs left out), "per_box_and_ray" (per_vote / rays), "votes"
+    (votes an iteration), "span" (the loop's instructions) and "mix"
+    (instructions a vote by opcode, with its first modifier: FMNMX.NAN
+    apart from FMNMX)."""
+    loops = []
+    for k, (addr, instr) in enumerate(sass):
+        if _opcode(instr).split(".")[0] != "BRA":
+            continue
+        m = _BRA.search(instr)
+        if m is None or int(m.group(1), 16) > addr:
+            continue
+        target = int(m.group(1), 16)
+        body = [(a, i) for a, i in sass[:k + 1] if a >= target and _opcode(i) != "NOP"]
+        ops = [_opcode(i) for _, i in body]
+        votes = sum(1 for o in ops if o.startswith("VOTE.ANY"))
+        if votes and not any(o.startswith("MUFU") for o in ops):
+            loops.append((len(body), votes, ops))
+    if not loops:
+        raise ValueError("no loop with a warp vote and no MUFU")
+    span, votes, ops = min(loops, key=lambda x: x[:2])
+    mix = collections.Counter(".".join(o.split(".")[:2]) if o.startswith("FMNMX") else
+                              o.split(".")[0] for o in ops)
+    return {"per_vote": span / votes, "per_box_and_ray": span / votes / rays,
+            "votes": votes, "span": span,
+            "mix": {o: c / votes for o, c in mix.most_common()}}
+
+
 def _vote_skip(body: List[Tuple[int, str]]) -> int:
     """Instructions of a loop body that a failed warp vote jumps over: for
     each VOTE.ANY, the first later branch taken when its predicate is false
@@ -141,7 +181,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--csrc", type=pathlib.Path, default=cuda_build.CSRC_DIR)
     ap.add_argument("--rays", type=int, default=2,
-                    help="rays a row of the loop: 2 in the path kernels, 1 in whitted_uber.cu")
+                    help="rays a row of the loop: 2 in the path kernels, 1 in whitted_uber.cu; "
+                    "with --boxes, ray slots a thread")
+    ap.add_argument("--boxes", action="store_true",
+                    help="count the box loop of a cull prepass (no reciprocal) instead")
     ap.add_argument("pairs", nargs="+", metavar="SOURCE KERNEL")
     args = ap.parse_args(argv)
     if len(args.pairs) % 2:
@@ -149,6 +192,13 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         for src, kernel in zip(args.pairs[::2], args.pairs[1::2]):
             lib = build(args.csrc / src, pathlib.Path(tmp))
+            if args.boxes:
+                loop = box_loop(kernel_sass(lib, kernel), args.rays)
+                mix = ", ".join(f"{o} {c:g}" for o, c in loop["mix"].items())
+                print(f"{os.path.join(str(args.csrc), src)} {kernel}: "
+                      f"{loop['per_box_and_ray']:g} instructions a box and ray slot (loop of "
+                      f"{loop['span']}, {loop['votes']} votes an iteration): {mix}", flush=True)
+                continue
             loop = row_loop(kernel_sass(lib, kernel), args.rays)
             mix = ", ".join(f"{o} {c:g}" for o, c in loop["mix"].items())
             print(f"{os.path.join(str(args.csrc), src)} {kernel}: {loop['per_row']:g} "
