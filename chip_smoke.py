@@ -34,19 +34,30 @@ Phases, one line each; any failure exits non-zero:
      tally (main and shadow rays apart) and the issue floor from the SASS
      of its row loop (utils/sass.py);
  10. raster: the fused tile kernel vs plain on the whole frame (winners,
-     depth, attribute planes, ids);
- 11. raster: the shaded tile kernel vs plain on the whole frame, and the
-     shaded image against the deferred one;
+     depth, attribute planes, ids), also at a list capacity of 16 that
+     overflows (bin_dropped equal and non-zero); the kernels' own lists
+     (the tile launch's and bin_triangles_device's) against plain
+     bin_triangles entry for entry at both capacities;
+ 11. raster: the shaded tile kernel vs plain on the whole frame, the same
+     two capacities and lists, and the shaded image against the deferred
+     one;
  12. raster golden: Cornell 96x96 against tests/goldens raster / raster_z;
  13. raster main path: pipeline_from_config(cfg, "raster") on the default
      device -> TraditionalRasterizer.draw() -> save(), deferred and
      shaded, and draw_batch() of 8 turned frames; launch counts,
-     bin_dropped, coverage; then the batch against 8 draw()s, and the
+     bin_triangles calls on the card's tensors (none), bin_dropped,
+     coverage; then the batch against 8 draw()s, and the
      JAX default raster_tile (128, 128) and (64, 32), rendered in the
      default kernel tile, against the (16, 32) frame bit for bit;
- 14. raster times (CUDA events, median and range): the frame, the bare
-     launch of each kernel, the stages around it, draw_batch per frame,
-     and the plain versions;
+ 14. raster times (CUDA events, median and range): the frame, each
+     kernel's wrapper, bare launch and device-only time (a CUDA graph of
+     20 launches), the kernels' binning alone, the stages around them,
+     draw_batch per frame, and the plain versions; the bounds, the issue
+     floor of the walk loop (utils/sass.py) and the binning's box tests;
+     `raster_ab` against a parent tree unpacked under _checkout/parent,
+     if there is one (else this tree alone); and the lit Cornell box at
+     147,456 triangles: device lists == bin_triangles, frames == plain,
+     times and bin_dropped;
  15. trace: the nearest-triangle kernel vs plain on all camera rays and
      on as many bounce rays from their hit points (winners and t
      identical), and `nearest_hit` over the kernel against `nearest_hit`
@@ -138,7 +149,9 @@ repository root.
 
 `whitted_ab` and `trace_ab` (not run by `main`) time the Whitted kernel,
 and the trace kernels #4, #5, #6 and #8, built from other sources against
-each other in turns, e.g. this tree's against an earlier commit's.
+each other in turns, e.g. this tree's against an earlier commit's;
+`raster_ab` (run by phase 14) does the same for the raster kernels #10
+and #11 with their binning.
 """
 
 from __future__ import annotations
@@ -177,6 +190,11 @@ RAYS_RTOL = 1e-3
 WG_TOL, WG_SHARE = 5e-3, 0.995
 # raster: tessellation of each Cornell mesh (4: 36 x 256 = 9,216 triangles)
 RASTER_LEVELS = 4
+# the large raster scene of phase 14 (36 x 4^6 = 147,456 triangles)
+RASTER_LARGE_LEVELS = 6
+# the forced overflow of phases 10 and 11: a list capacity under the
+# longest list
+RASTER_SMALL_CAP = 16
 RASTER_BATCH = 8
 RASTER_COVERAGE_MIN = 0.40
 # raster kernels vs plain: the same per-operation rounding, so the target
@@ -826,9 +844,9 @@ def whitted_phases(dev, card: str) -> dict:
     }
 
 
-def raster_scene(variant: str):
+def raster_scene(variant: str, levels: int = RASTER_LEVELS):
     """The lit, tessellated Cornell box of tests/torch_scenes.py, built
-    with the port's models."""
+    with the port's models (36 x 4^levels triangles)."""
     sys.path.insert(0, str(ROOT / "tests"))
     from torch_scenes import raster_cornell
 
@@ -839,7 +857,7 @@ def raster_scene(variant: str):
     from software_rasterizer_tpu_torch.utils.texture import Texture
 
     return raster_cornell(models, build_cornell_scene, subdivide_mesh,
-                          ShaderType, Texture, RASTER_LEVELS, variant)
+                          ShaderType, Texture, levels, variant)
 
 
 def compare_raster(kern: dict, plain: dict) -> dict:
@@ -895,15 +913,20 @@ def raster_phases(dev, card: str) -> list:
         pipeline_from_config,
     )
     from software_rasterizer_tpu_torch.scenes import build_cornell_scene
+    from software_rasterizer_tpu_torch.utils import sass
+    from software_rasterizer_tpu_torch.utils.cuda_build import library_path
 
     sys.path.insert(0, str(ROOT / "tests"))
     from torch_scenes import set_raster_cornell_angle
 
     H, W = HEIGHT, WIDTH
     n = H * W
+    th, tw = rk.TILE_H, rk.TILE_W
+    gh, gw = -(-H // th), -(-W // tw)
+    bin_plain = rk.bin_triangles
 
-    def setup(variant):
-        scene = raster_scene(variant)
+    def setup(variant, levels=RASTER_LEVELS):
+        scene = raster_scene(variant, levels)
         scene.set_ndc_matrix(W, H)
         host = scene.raster_geometry()
         geom = tr.prepare_raster_geometry(host, dev)
@@ -911,15 +934,42 @@ def raster_phases(dev, card: str) -> list:
         active = tuple(sorted(set(int(t) for t in host.shader_type)))
         return scene, geom, frame, active, tr.raster_tables(geom, frame)
 
-    def check(name, c):
+    def check(name, c, overflow=False):
         line = (f"{name}: winners differ on {c['winners']}/{c['n']} pixels, any "
                 f"output on {c['any']}, {c['bad']} outside rtol={RASTER_RTOL} "
                 f"atol={RASTER_ATOL}, max |diff| {c['max_abs_err']:.3g}, "
                 f"bin_dropped {c['dropped'][0]} / {c['dropped'][1]}")
+        dropped_ok = (c["dropped"][0] == c["dropped"][1] > 0 if overflow
+                      else c["dropped"] == (0, 0))
         if (c["winners"] > (1.0 - RASTER_SHARE) * c["n"] or c["bad"] > 0
-                or c["dropped"] != (0, 0)):
+                or not dropped_ok):
             fail(f"raster kernel disagrees with plain: {line}")
         return line
+
+    def cap_of(tab):
+        return min(2048, max(256, ((tab[0].shape[0] + 127) // 128) * 128))
+
+    def lists_check(name, tab, lights_, cap):
+        """The kernels' own lists against plain bin_triangles entry for
+        entry: the tile launch's (lists_out, counts_out, bin_dropped) and
+        bin_triangles_device's."""
+        geo, attr, bbox, keep = tab
+        want = bin_plain(bbox, keep, gh, gw, th, tw, cap)
+        lists = torch.zeros((gh * gw, cap), dtype=torch.int32, device=dev)
+        counts = torch.zeros(gh * gw, dtype=torch.int32, device=dev)
+        *_, dropped = rk.launch_raster_tiles(
+            geo, attr, bbox, keep, lights_, height=H, width=W, gh=gh, gw=gw, tile_h=th,
+            tile_w=tw, cap=cap, lists_out=lists, counts_out=counts)
+        alone = rk.bin_triangles_device(bbox, keep, gh, gw, th, tw, cap)
+        torch.cuda.synchronize()
+        for what, got in (("the tile launch's", (lists, counts, dropped)),
+                          ("bin_triangles_device's", alone)):
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                fail(f"{name}, cap {cap}: {what} lists differ from bin_triangles': "
+                     f"counts off in {int((got[1] != want[1]).sum())} tiles, dropped "
+                     f"{int(got[2])} / {int(want[2])}")
+        return (f"{name} device lists == bin_triangles at cap {cap} "
+                f"({int(want[1].sum())} entries, bin_dropped {int(want[2])})")
 
     # ---- 10. fused kernel vs plain, whole frame, five shaders
     scene5, geom5, frame5, active5, tab5 = setup("five")
@@ -934,9 +984,15 @@ def raster_phases(dev, card: str) -> list:
     if not bool(torch.isfinite(k_f["normal"]).all()):
         fail("the fused kernel's planes hold non-finite values")
     c_f = compare_raster(k_f, p_f)
+    small = RASTER_SMALL_CAP
+    c_f16 = compare_raster(rk.raster_tiles_fused(*tab5, H, W, cap=small),
+                           rk.raster_tiles_fused_plain(*tab5, H, W, cap=small))
     phase(10, f"raster fused kernel vs plain {W}x{H}, {n_faces} triangles, "
               f"coverage {coverage:.4f}, whole frame (plain {plain_f_s:.2f}s): "
-              + check("five shaders", c_f))
+              + check("five shaders", c_f) + "; at cap "
+              + check(f"{small}", c_f16, overflow=True) + "; "
+              + lists_check("five shaders", tab5, None, cap_of(tab5)) + "; "
+              + lists_check("five shaders", tab5, None, small))
 
     # ---- 11. shaded kernel vs plain, whole frame, three shaders
     scene3, geom3, frame3, active3, tab3 = setup("three")
@@ -948,6 +1004,8 @@ def raster_phases(dev, card: str) -> list:
     torch.cuda.synchronize()
     plain_s_s = time.perf_counter() - t0
     c_s = compare_raster(k_s, p_s)
+    c_s16 = compare_raster(rk.raster_tiles_shaded(*tab3, lights, H, W, cap=small),
+                           rk.raster_tiles_shaded_plain(*tab3, lights, H, W, cap=small))
     img_d, z_d, st_d = tr.render_raster_frame(
         geom3, frame3, H, W, active_types=active3, with_stats=True)
     img_s, z_s, st_s = tr.render_raster_frame(
@@ -960,7 +1018,10 @@ def raster_phases(dev, card: str) -> list:
         fail(f"shaded frame differs from the deferred one: z equal "
              f"{torch.equal(z_s, z_d)}, max |diff| {sd}")
     phase(11, f"raster shaded kernel vs plain {W}x{H}, whole frame (plain "
-              f"{plain_s_s:.2f}s): " + check("three shaders", c_s)
+              f"{plain_s_s:.2f}s): " + check("three shaders", c_s) + "; at cap "
+              + check(f"{small}", c_s16, overflow=True) + "; "
+              + lists_check("three shaders", tab3, lights, cap_of(tab3)) + "; "
+              + lists_check("three shaders", tab3, lights, small)
               + f"; shaded vs deferred image max |diff| {sd:.3g} (rtol=atol=1e-5), "
               f"z-buffers identical")
 
@@ -982,8 +1043,17 @@ def raster_phases(dev, card: str) -> list:
               f"{mism:.4f} (< {RG_COVER}), max |diff| {gerr:.3g} on {int(both.sum())} "
               f"covered pixels (rtol=atol={RG_TOL})")
 
-    # ---- 13. main path through the normal entry point, default device
+    # ---- 13. main path through the normal entry point, default device;
+    # plain binning must not run on the card's tensors
+    bin_calls = [0]
+
+    def counted_bins(tri_bbox, *args, **kwargs):
+        if tri_bbox.is_cuda:
+            bin_calls[0] += 1
+        return bin_plain(tri_bbox, *args, **kwargs)
+
     angles = [8.0 + 5.0 * i for i in range(RASTER_BATCH)]
+    rk.bin_triangles = counted_bins
     rk.LAUNCHES = rk.LAUNCHES_SHADED = 0
     render = pipeline_from_config(RenderConfig(width=W, height=H), "raster")
     render.add_scene(scene5)
@@ -1006,6 +1076,9 @@ def raster_phases(dev, card: str) -> list:
     imgs, zbufs = render.draw_batch(scene5, frames)
     torch.cuda.synchronize()
     launches, launches_s = rk.LAUNCHES, rk.LAUNCHES_SHADED
+    rk.bin_triangles = bin_plain
+    if bin_calls[0]:
+        fail(f"bin_triangles ran {bin_calls[0]} times on the card's tensors on the main path")
     batch_dropped = int(render.last_stats[scene5.name]["bin_dropped"])
     if not (isinstance(render, TraditionalRasterizer) and render.device.type == "cuda"):
         fail(f"pipeline_from_config gave {type(render).__name__} on {render.device}")
@@ -1053,7 +1126,8 @@ def raster_phases(dev, card: str) -> list:
               f"{png5.name} / {png3.name}: coverage {cov_d:.4f} (>= "
               f"{RASTER_COVERAGE_MIN}), mean {frame_d.mean():.5f} / "
               f"{render_s.frame.mean():.5f}, launches fused {launches} shaded "
-              f"{launches_s}, bin_dropped 0, equal to phases 10 and 11; "
+              f"{launches_s}, bin_triangles on the card's tensors {bin_calls[0]}, "
+              f"bin_dropped 0, equal to phases 10 and 11; "
               f"draw_batch of {RASTER_BATCH} turned frames bit-identical to "
               f"{RASTER_BATCH} draws; raster_tile (128, 128) and (64, 32) (kernel "
               f"tile {rk.kernel_tile(128, 128)}) give the "
@@ -1069,19 +1143,29 @@ def raster_phases(dev, card: str) -> list:
         geom3, host3, H, W, active_types=active3, shaded=True), reps)
     t_tables = cuda_times(lambda: tr.raster_tables(
         geom5, tr.prepare_raster_frame(host5, dev)), reps)
-    th, tw = rk.TILE_H, rk.TILE_W
-    gh, gw = -(-H // th), -(-W // tw)
-    cap = min(2048, max(256, ((tab5[0].shape[0] + 127) // 128) * 128))
-    t_bin = cuda_times(lambda: rk.bin_triangles(tab5[2], tab5[3], gh, gw, th, tw, cap), reps)
-    kw = dict(height=H, width=W, gh=gh, gw=gw, tile_h=th, tile_w=tw)
-    lists5, counts5, _ = rk.bin_triangles(tab5[2], tab5[3], gh, gw, th, tw, cap)
-    lists3, counts3, _ = rk.bin_triangles(tab3[2], tab3[3], gh, gw, th, tw, cap)
+    cap = cap_of(tab5)
+    kw = dict(height=H, width=W, gh=gh, gw=gw, tile_h=th, tile_w=tw, cap=cap)
+
+    def bins5():
+        return rk.bin_triangles_device(tab5[2], tab5[3], gh, gw, th, tw, cap)
+
+    def bare5():
+        return rk.launch_raster_tiles(*tab5, None, **kw)
+
+    def bare3():
+        return rk.launch_raster_tiles(*tab3, lights, **kw)
+
+    t_bin_plain = cuda_times(lambda: bin_plain(tab5[2], tab5[3], gh, gw, th, tw, cap), reps)
+    t_bin = cuda_times(bins5, reps)
+    lists5, counts5, _ = bin_plain(tab5[2], tab5[3], gh, gw, th, tw, cap)
+    lists3, counts3, _ = bin_plain(tab3[2], tab3[3], gh, gw, th, tw, cap)
     t_wrap_f = cuda_times(lambda: rk.raster_tiles_fused(*tab5, H, W), reps)
     t_wrap_s = cuda_times(lambda: rk.raster_tiles_shaded(*tab3, lights, H, W), reps)
-    t_bare_f = cuda_times(lambda: rk.launch_raster_tiles(
-        tab5[0], tab5[1], lists5, counts5, None, **kw), reps)
-    t_bare_s = cuda_times(lambda: rk.launch_raster_tiles(
-        tab3[0], tab3[1], lists3, counts3, lights, **kw), reps)
+    t_bare_f = cuda_times(bare5, reps)
+    t_bare_s = cuda_times(bare3, reps)
+    t_dev_f = device_times(bare5, 20, 5)
+    t_dev_s = device_times(bare3, 20, 5)
+    t_bin_dev = device_times(bins5, 20, 5)
     t_shade_d = cuda_times(lambda: tr.shade_deferred(
         k_f, geom5, frame5, 0, active5), reps)
     t_shade_s = cuda_times(lambda: tr.apply_tex_quadratic(k_s, geom3), reps)
@@ -1098,20 +1182,25 @@ def raster_phases(dev, card: str) -> list:
               f"[min-max] of {reps} after a warm-up, on {card}: frame deferred "
               f"{spread(t_frame_d)} ({1e3 / med(t_frame_d):.1f} frames/s), frame "
               f"shaded {spread(t_frame_s)}; stages: upload + vertex + setup + "
-              f"tables {spread(t_tables)}, binning {spread(t_bin)}, fused wrapper "
-              f"(binning + launch) {spread(t_wrap_f)} with the bare launch "
-              f"{spread(t_bare_f)}, shaded wrapper {spread(t_wrap_s)} with the "
-              f"bare launch {spread(t_bare_s)}, "
+              f"tables {spread(t_tables)}, fused wrapper (binning + launch) "
+              f"{spread(t_wrap_f)} with the bare launch {spread(t_bare_f)}, "
+              f"device-only {spread(t_dev_f)}, shaded wrapper {spread(t_wrap_s)} with "
+              f"the bare launch {spread(t_bare_s)}, device-only {spread(t_dev_s)}, "
+              f"the kernels' binning alone {spread(t_bin)} (device-only "
+              f"{spread(t_bin_dev)}; plain bin_triangles {spread(t_bin_plain)}), "
               f"deferred shading {spread(t_shade_d)}, texel quadratic "
               f"{spread(t_shade_s)}; draw_batch per frame {spread(t_batch)} "
               f"(5 batches of {RASTER_BATCH}); one draw() with its copy to the "
               f"host {draw_wall:.1f} ms wall; plain fused {spread(t_plain_f)}, "
-              f"plain shaded {spread(t_plain_s)} (3 each)")
+              f"plain shaded {spread(t_plain_s)} (3 each); device-only: "
+              f"{20} launches in one CUDA graph, one replay between two events, "
+              f"over {20}, median [min-max] of 5")
 
     # the wrappers' bounds: ~21 float32 operations a pixel and list entry in
     # the walk, ~60 to interpolate a covered pixel, and for the shaded
     # kernel ~30 + 70 a light on top; the four operand tables read once,
-    # every output plane written once (the lists are an intermediate)
+    # every output plane written once (the lists are an intermediate, and
+    # binning is how the work is done, not what is computed)
     pix = th * tw
     n_lights = (lights.numel() - 3) // 6
     entries5, entries3 = int(counts5.sum()), int(counts3.sum())
@@ -1123,26 +1212,113 @@ def raster_phases(dev, card: str) -> list:
     b_s, by_s = bound(
         tensor_bytes(*tab3, lights) + 64 * n,
         21 * entries3 * pix + (90 + 70 * n_lights) * covered3)
+    # the issue floor of the walk loop: its SASS a list entry and pixel x
+    # the frame's list entries x the warps of a tile
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rate = sms * SCHEDULERS_PER_SM * max_sm_clock_hz()
+    floors = {}
+    for kern, entries in (("fused", entries5), ("shaded", entries3)):
+        lp = sass.walk_loop(sass.kernel_sass(library_path("raster_tiles"),
+                                             rk.WALK_KERNELS[kern]), rk.WALK_ENTRY_BYTES)
+        floors[kern] = (lp["per_entry"] * entries * (-(-pix // 32)) / rate * 1e3, lp)
+    box = {}
+    rk.bin_triangles_two_level_plain(tab5[2], tab5[3], gh, gw, th, tw, cap, stats=box)
+    lp = floors["fused"][1]
     phase(14, f"bounds: fused {b_f:.4f} ms by {by_f} ({entries5} list entries, mean "
               f"{entries5 / (gh * gw):.1f} a tile, longest {int(counts5.max())}), "
-              f"shaded {b_s:.4f} ms by {by_s}")
+              f"shaded {b_s:.4f} ms by {by_s}; issue floor of the walk loop fused "
+              f"{floors['fused'][0]:.4f} ms, shaded {floors['shaded'][0]:.4f} "
+              f"({lp['per_entry']:g} SASS a list entry and pixel, {lp['unroll']} entries an "
+              f"iteration: " + ", ".join(f"{o} {c:g}" for o, c in lp["mix"].items())
+              + f"); the binning's box tests: {box['coarse_tests']} coarse + "
+              f"{box['fine_tests']} fine ({rk.coarse_grid(gh, gw, th, tw)[2:]} coarse "
+              f"tiles) against {gh * gw * tab5[2].shape[0]} for the (tiles x triangles) "
+              f"plain pass")
 
-    common = {"route": "cuda",
-              "source": "software_rasterizer_tpu_torch/csrc/raster_tiles.cu",
-              "library_ms": None}
+    # the kernels against the parent's in turns, where a parent tree is
+    # unpacked under _checkout/parent; this tree's (a)-(d) alone otherwise
+    parent = ROOT / "_checkout" / "parent"
+    trees = {"parent": parent} if (parent / "software_rasterizer_tpu_torch").is_dir() else {}
+    ab = raster_ab({**trees, "this": ROOT})
+    if not trees:
+        phase(14, "raster_ab: no parent tree under _checkout/parent, this tree alone")
+
+    # the large scene: 147,456 triangles, lists, frames and times
+    large = {}
+    for kern, variant in (("fused", "five"), ("shaded", "three")):
+        *_, frame_l, _, tab_l = setup(variant, RASTER_LARGE_LEVELS)
+        lts = frame_l.lights.contiguous() if kern == "shaded" else None
+        cap_l = cap_of(tab_l)
+        lists_line = lists_check(f"{kern} large", tab_l, lts, cap_l)
+        if kern == "fused":
+            k_l = rk.raster_tiles_fused(*tab_l, H, W)
+            p_l = rk.raster_tiles_fused_plain(*tab_l, H, W)
+        else:
+            k_l = rk.raster_tiles_shaded(*tab_l, lts, H, W)
+            p_l = rk.raster_tiles_shaded_plain(*tab_l, lts, H, W)
+        c_l = compare_raster(k_l, p_l)
+        if c_l["dropped"][0] != c_l["dropped"][1]:
+            fail(f"large {kern}: bin_dropped {c_l['dropped']}")
+        c_l["dropped"] = (0, 0)           # printed below; any count is allowed here
+        frame_line = check(kern, c_l)
+        kw_l = dict(kw, cap=cap_l)
+
+        def wrap_l(tab_l=tab_l, lts=lts):
+            return (rk.raster_tiles_fused(*tab_l, H, W) if lts is None
+                    else rk.raster_tiles_shaded(*tab_l, lts, H, W))
+
+        def bare_l(tab_l=tab_l, lts=lts, kw_l=kw_l):
+            return rk.launch_raster_tiles(*tab_l, lts, **kw_l)
+
+        def bins_l(tab_l=tab_l, cap_l=cap_l):
+            return rk.bin_triangles_device(tab_l[2], tab_l[3], gh, gw, th, tw, cap_l)
+
+        lists_l, counts_l, dropped_l = bin_plain(tab_l[2], tab_l[3], gh, gw, th, tw, cap_l)
+        large[kern] = {
+            "n_faces": int(tab_l[0].shape[0]), "entries": int(counts_l.sum()),
+            "bin_dropped": int(dropped_l), "ms": cuda_times(wrap_l, reps),
+            "device_ms": device_times(bare_l, 20, 5),
+            "binning_device_ms": device_times(bins_l, 20, 5),
+            "plain_binning_ms": cuda_times(lambda: bin_plain(
+                tab_l[2], tab_l[3], gh, gw, th, tw, cap_l), 3)}
+        lg = large[kern]
+        phase(14, f"large scene, {kern}, {lg['n_faces']} triangles, cap {cap_l}: "
+                  f"{lists_line}; frame vs plain: {frame_line}; wrapper {spread(lg['ms'])} "
+                  f"ms, device-only {spread(lg['device_ms'])}, the binning alone "
+                  f"device-only {spread(lg['binning_device_ms'])}, plain bin_triangles "
+                  f"{spread(lg['plain_binning_ms'])}; {lg['entries']} list entries, longest "
+                  f"{int(counts_l.max())}, bin_dropped {lg['bin_dropped']}")
+        del lists_l
+
+    def entry(kern, wrap_t, bare_t, dev_t, entries, c_, launches_, plain_t, b_, by_):
+        lg = large[kern]
+        return {
+            "launches": launches_, "max_abs_err": c_["max_abs_err"],
+            "ms": med(wrap_t), "bare_ms": med(bare_t), "device_ms": med(dev_t),
+            "ms_range": [wrap_t[0], wrap_t[-1]], "device_ms_range": [dev_t[0], dev_t[-1]],
+            "plain_ms": med(plain_t), "bound_ms": b_, "bound_by": by_,
+            "issue_floor_ms": floors[kern][0], "sass_per_entry": floors[kern][1]["per_entry"],
+            "list_entries": entries, "binning_ms": med(t_bin),
+            "binning_device_ms": med(t_bin_dev), "plain_binning_ms": med(t_bin_plain),
+            "box_tests": [box["coarse_tests"], box["fine_tests"]],
+            "ab": {b: {r: med(v) for r, v in t.items()} for b, t in ab[kern].items()},
+            "large": {"n_faces": lg["n_faces"], "list_entries": lg["entries"],
+                      "bin_dropped": lg["bin_dropped"], "ms": med(lg["ms"]),
+                      "device_ms": med(lg["device_ms"]),
+                      "binning_device_ms": med(lg["binning_device_ms"]),
+                      "plain_binning_ms": med(lg["plain_binning_ms"])},
+            "route": "cuda", "source": "software_rasterizer_tpu_torch/csrc/raster_tiles.cu",
+            "library_ms": None}
+
     return [
         {"name": "raster_tiles",
          "replaces": "software_rasterizer_tpu/ops/pallas_raster.py:86",
-         "launches": launches, "max_abs_err": c_f["max_abs_err"],
-         "ms": med(t_wrap_f), "bare_ms": med(t_bare_f),
-         "plain_ms": med(t_plain_f),
-         "bound_ms": b_f, "bound_by": by_f, **common},
+         **entry("fused", t_wrap_f, t_bare_f, t_dev_f, entries5, c_f, launches, t_plain_f,
+                 b_f, by_f)},
         {"name": "raster_tiles_shaded",
          "replaces": "software_rasterizer_tpu/ops/pallas_raster.py:167",
-         "launches": launches_s, "max_abs_err": c_s["max_abs_err"],
-         "ms": med(t_wrap_s), "bare_ms": med(t_bare_s),
-         "plain_ms": med(t_plain_s),
-         "bound_ms": b_s, "bound_by": by_s, **common},
+         **entry("shaded", t_wrap_s, t_bare_s, t_dev_s, entries3, c_s, launches_s, t_plain_s,
+                 b_s, by_s)},
     ]
 
 
@@ -3090,6 +3266,252 @@ def trace_ab(csrc_dirs: dict, rounds: int = 4, repeats: int = 5) -> dict:
               f"[min-max] of {rounds * repeats} in turns, on {card}): "
               + ", ".join(f"{b} {spread(res[key][b])}" for b in names)
               + f"; {what}{extra}; issue floor ms " + ", ".join(floors), flush=True)
+    return res
+
+
+def graph_of(fn, launches: int):
+    """`launches` calls of fn captured in one CUDA graph (after a warm-up
+    call on the current stream and one on a side stream), replayed once."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(launches):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    return g
+
+
+def replay_times(g, launches: int, repeats: int) -> list:
+    """Device-only ms a call of a graph of `launches` calls (`graph_of`):
+    one replay between two events, over `launches`, `repeats` times. The
+    host enqueues nothing between the calls, so none of its time counts."""
+    import torch
+
+    times = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        g.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / launches)
+    return times
+
+
+def device_times(fn, launches: int = 20, repeats: int = 5) -> list:
+    """Device-only ms of fn() (`replay_times` of its graph), sorted."""
+    return sorted(replay_times(graph_of(fn, launches), launches, repeats))
+
+
+def host_times(fn, repeats: int = 5) -> list:
+    """The host's ms to enqueue fn(): its wall time with the device
+    drained before and not waited for, `repeats` times; unsorted."""
+    import torch
+
+    times = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return times
+
+
+# the raster tile kernels of a tree whose raster_kernel.py names none: the
+# parent's template instances and the shared-memory bytes a list entry of
+# their walk reads (nine coefficients and the index)
+PARENT_WALK = ({"fused": "raster_tile_kernelILb0E", "shaded": "raster_tile_kernelILb1E"}, 40)
+
+
+def raster_ab(trees: dict, rounds: int = 4, repeats: int = 5, launches: int = 20,
+              levels: int = RASTER_LEVELS) -> dict:
+    """Times the raster tile kernels #10 (fused) and #11 (shaded) with
+    their binning as built from other trees, in turns in one process on
+    one card, at 1024x1024 on `raster_cornell` (36 x 4^levels triangles):
+
+        python3 -c "import chip_smoke as c; c.raster_ab({'parent': 'DIR', 'this': '.'})"
+
+    `trees` maps a name to the root of a tree that holds
+    software_rasterizer_tpu_torch/ops/raster_kernel.py and csrc/raster_tiles.cu
+    (e.g. an earlier commit unpacked under _checkout/). Each tree's module
+    is loaded under its own name, bound to its own build of raster_tiles.cu
+    (the package's nvcc flags), and called through its own entry points: a
+    `launch_raster_tiles` that takes `lists` is fed by plain
+    `bin_triangles`, else the tree bins on the card (`bin_triangles_device`).
+    For each kernel and build: (a) the wrapper's event time, (b) the bare
+    launch (events around one `launch_raster_tiles` call, its lists binned
+    beforehand where it takes them), (c) the device-only time of the bare
+    launch (`launches` launches in one CUDA graph, one replay between two
+    events, over `launches`), (d) the binning alone, event and device-only,
+    (e) the host's time to enqueue the wrapper and the bare launch;
+    `rounds` rounds of `repeats`, the order of the builds reversed every
+    other round. Every build's outputs must equal the first's bit for bit,
+    and a device binning's lists plain `bin_triangles`' entry for entry.
+    Prints a line a kernel with each build's SASS instructions a list entry
+    and pixel of its walk loop (utils/sass.py walk_loop) and the issue floor
+    on this frame's list entries, and the builds' ptxas lines; returns
+    {kernel: {build: {reading: sorted ms}}}."""
+    import ctypes
+    import importlib.util
+    import inspect
+
+    import torch
+
+    from software_rasterizer_tpu_torch.ops import raster as tr
+    from software_rasterizer_tpu_torch.ops import raster_kernel as rk
+    from software_rasterizer_tpu_torch.utils import cuda_build, sass
+
+    card = card_line()
+    dev = torch.device("cuda")
+    H, W = HEIGHT, WIDTH
+    names = list(trees)
+    cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    pkg = "software_rasterizer_tpu_torch"
+    procs = {}
+    for name, root in trees.items():
+        out = cuda_build.BUILD_DIR / f"ab_raster_{name}.so"
+        procs[name] = (out, subprocess.Popen(
+            [cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS, "-o", str(out),
+             str(pathlib.Path(root) / pkg / "csrc" / "raster_tiles.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    mods, libs = {}, {}
+    for name, (out, proc) in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            fail(f"nvcc failed on {trees[name]}: {log}")
+        (OUT_DIR / f"ab_raster_{name}_build.log").write_text(log)
+        for ln in log.splitlines():
+            if "registers" in ln or "spill" in ln or "entry function" in ln:
+                print(f"[ab] {name}: {ln.strip()}", flush=True)
+        spec = importlib.util.spec_from_file_location(
+            f"ab_raster_kernel_{name}", pathlib.Path(trees[name]) / pkg / "ops" / "raster_kernel.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        lib = ctypes.CDLL(str(out))
+        # the module binds its C functions through load_library: hand it
+        # this build, and keep what it bound
+        getter = getattr(mod, "_cuda_lib", None) or mod._cuda_fn
+        load = cuda_build.load_library
+        cuda_build.load_library = lambda name_, sources, lib=lib: lib
+        try:
+            bound_fn = getter()
+        finally:
+            cuda_build.load_library = load
+        setattr(mod, getter.__name__, lambda o=bound_fn: o)
+        mods[name], libs[name] = mod, out
+
+    def setup(variant):
+        scene = raster_scene(variant, levels)
+        scene.set_ndc_matrix(W, H)
+        geom = tr.prepare_raster_geometry(scene.raster_geometry(), dev)
+        frame = tr.prepare_raster_frame(scene.raster_frame(), dev)
+        return tr.raster_tables(geom, frame), frame.lights.contiguous()
+
+    tab5, _ = setup("five")
+    tab3, lights3 = setup("three")
+    th, tw = rk.TILE_H, rk.TILE_W
+    gh, gw = -(-H // th), -(-W // tw)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rate = sms * SCHEDULERS_PER_SM * max_sm_clock_hz()
+    res = {}
+    for kern, (geo, attr, bbox, keep), lights in (("fused", tab5, None),
+                                                   ("shaded", tab3, lights3)):
+        cap = min(2048, max(256, ((geo.shape[0] + 127) // 128) * 128))
+        kw = dict(height=H, width=W, gh=gh, gw=gw, tile_h=th, tile_w=tw)
+        ref_lists = rk.bin_triangles(bbox, keep, gh, gw, th, tw, cap)
+        entries = int(ref_lists[1].sum())
+        fns, outs, floors = {}, {}, []
+        for b in names:
+            mod = mods[b]
+            if "lists" in inspect.signature(mod.launch_raster_tiles).parameters:
+                lists, counts, _ = mod.bin_triangles(bbox, keep, gh, gw, th, tw, cap)
+
+                def bare(mod=mod, lists=lists, counts=counts):
+                    return mod.launch_raster_tiles(geo, attr, lists, counts, lights, **kw)
+
+                def bins(mod=mod):
+                    return mod.bin_triangles(bbox, keep, gh, gw, th, tw, cap)
+            else:
+                def bare(mod=mod):
+                    return mod.launch_raster_tiles(geo, attr, bbox, keep, lights, cap=cap, **kw)
+
+                def bins(mod=mod):
+                    return mod.bin_triangles_device(bbox, keep, gh, gw, th, tw, cap)
+
+                got = bins()
+                if not all(torch.equal(x, y) for x, y in zip(got, ref_lists)):
+                    fail(f"ab {kern}: {b}'s device lists differ from bin_triangles'")
+            if lights is None:
+                def wrap(mod=mod):
+                    return mod.raster_tiles_fused(geo, attr, bbox, keep, H, W)
+            else:
+                def wrap(mod=mod):
+                    return mod.raster_tiles_shaded(geo, attr, bbox, keep, lights, H, W)
+            outs[b] = wrap()
+            fns[b] = {"wrapper": wrap, "bare": bare, "binning": bins}
+            walk = getattr(mod, "WALK_KERNELS", None)
+            entry_bytes = getattr(mod, "WALK_ENTRY_BYTES", None)
+            if walk is None:
+                walk, entry_bytes = PARENT_WALK
+            try:
+                lp = sass.walk_loop(sass.kernel_sass(libs[b], walk[kern]), entry_bytes)
+            except ValueError as e:
+                floors.append(f"{b}: no walk loop found ({e})")
+            else:
+                fl = lp["per_entry"] * entries * (-(-th * tw // 32)) / rate * 1e3
+                floors.append(f"{b} {fl:.4f} ms ({lp['per_entry']:g} SASS a list entry and "
+                              f"pixel, {lp['unroll']} an iteration: " + ", ".join(
+                                  f"{o} {c:g}" for o, c in lp["mix"].items()) + ")")
+        torch.cuda.synchronize()
+        first = outs[names[0]]
+        for b in names[1:]:
+            for key, x in outs[b].items():
+                y = first[key]
+                if x.is_floating_point():
+                    x, y = x.contiguous().view(torch.int32), y.contiguous().view(torch.int32)
+                if not torch.equal(x, y):
+                    fail(f"ab {kern}: {b}'s {key} differs from {names[0]}'s")
+        graphs = {b: {r: graph_of(fns[b][r], launches) for r in ("bare", "binning")}
+                  for b in names}
+        times = {b: {r: [] for r in ("wrapper", "bare", "device", "binning", "binning_device",
+                                     "wrapper_host", "bare_host")}
+                 for b in names}
+        for rnd in range(rounds):
+            for b in (names if rnd % 2 == 0 else names[::-1]):
+                t = times[b]
+                t["wrapper"] += cuda_times(fns[b]["wrapper"], repeats)
+                t["bare"] += cuda_times(fns[b]["bare"], repeats)
+                t["device"] += replay_times(graphs[b]["bare"], launches, repeats)
+                t["binning"] += cuda_times(fns[b]["binning"], repeats)
+                t["binning_device"] += replay_times(graphs[b]["binning"], launches, repeats)
+                t["wrapper_host"] += host_times(fns[b]["wrapper"], repeats)
+                t["bare_host"] += host_times(fns[b]["bare"], repeats)
+        del graphs
+        res[kern] = {b: {r: sorted(v) for r, v in times[b].items()} for b in names}
+        print(f"[ab] raster {kern} ({geo.shape[0]} triangles, {entries} list entries, "
+              f"{W}x{H}, tile {th}x{tw}, ms as median [min-max] of {rounds * repeats} in "
+              f"turns, device-only over {launches} launches of a CUDA graph, on {card}): "
+              + "; ".join(f"{b} wrapper {spread(res[kern][b]['wrapper'])}, bare "
+                          f"{spread(res[kern][b]['bare'])}, device-only "
+                          f"{spread(res[kern][b]['device'])}, binning "
+                          f"{spread(res[kern][b]['binning'])} (device-only "
+                          f"{spread(res[kern][b]['binning_device'])}), host enqueue of the "
+                          f"wrapper {spread(res[kern][b]['wrapper_host'])} and of the bare "
+                          f"launch {spread(res[kern][b]['bare_host'])}" for b in names)
+              + f"; outputs bit for bit equal to {names[0]}'s; issue floor of the walk: "
+              + "; ".join(floors), flush=True)
     return res
 
 

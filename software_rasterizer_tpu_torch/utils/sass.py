@@ -1,7 +1,7 @@
 """The triangle loop of a kernel in its SASS: instructions a row; or its
 box loop: instructions a box test.
 
-    python -m software_rasterizer_tpu_torch.utils.sass [--csrc DIR] [--rays N] [--boxes] SOURCE KERNEL [SOURCE KERNEL ...]
+    python -m software_rasterizer_tpu_torch.utils.sass [--csrc DIR] [--rays N] [--boxes | --entry-bytes B] SOURCE KERNEL [SOURCE KERNEL ...]
 
 builds each CUDA source of DIR (default: the package's csrc/) with the
 package's nvcc flags and prints, for the kernel whose mangled name
@@ -29,6 +29,11 @@ loop with a warp vote (VOTE.ANY) and no MUFU instruction, its
 instructions a vote (one box tested by every lane's N ray slots) and
 their mix, which shows what the slab test's NaN-keeping min / max compile
 to.
+
+With `--entry-bytes B` it counts the list walk of a raster tile kernel
+(raster_tile_kernel): the innermost loop that reads shared memory and
+holds no global access, barrier, vote or MUFU, B bytes of shared memory a
+list entry, its instructions a list entry and pixel.
 """
 
 from __future__ import annotations
@@ -148,6 +153,41 @@ def box_loop(sass: List[Tuple[int, str]], rays: int = 1) -> dict:
             "mix": {o: c / votes for o, c in mix.most_common()}}
 
 
+def walk_loop(sass: List[Tuple[int, str]], entry_bytes: int) -> dict:
+    """The list walk of a raster tile kernel in one function's SASS: the
+    innermost loop (a backward branch and the code it jumps over) that
+    reads shared memory (LDS) and holds no global load or store, barrier,
+    warp vote or MUFU instruction. Each list entry reads `entry_bytes` of
+    shared memory, so the loop's LDS bytes give the entries an iteration.
+    "per_entry" (instructions a list entry and pixel, NOPs left out),
+    "unroll" (entries an iteration), "span" (the loop's instructions) and
+    "mix" (instructions an entry by opcode, without its modifiers)."""
+    width = {"64": 8, "128": 16, "U8": 1, "S8": 1, "U16": 2, "S16": 2}
+    banned = ("LDG", "STG", "BAR", "VOTE", "MUFU", "ATOM", "RED")
+    loops = []
+    for k, (addr, instr) in enumerate(sass):
+        if _opcode(instr).split(".")[0] != "BRA":
+            continue
+        m = _BRA.search(instr)
+        if m is None or int(m.group(1), 16) > addr:
+            continue
+        target = int(m.group(1), 16)
+        body = [(a, i) for a, i in sass[:k + 1] if a >= target and _opcode(i) != "NOP"]
+        ops = [_opcode(i) for _, i in body]
+        lds = [o for o in ops if o.split(".")[0] == "LDS"]
+        if not lds or any(o.split(".")[0] in banned for o in ops):
+            continue
+        n_bytes = sum(max([width.get(p, 4) for p in o.split(".")[1:]] or [4]) for o in lds)
+        if n_bytes % entry_bytes == 0:
+            loops.append((len(body), n_bytes // entry_bytes, ops))
+    if not loops:
+        raise ValueError(f"no shared-memory loop of whole {entry_bytes}-byte entries")
+    span, unroll, ops = min(loops, key=lambda x: x[0] / x[1])
+    mix = collections.Counter(o.split(".")[0] for o in ops)
+    return {"per_entry": span / unroll, "unroll": unroll, "span": span,
+            "mix": {o: c / unroll for o, c in mix.most_common()}}
+
+
 def _vote_skip(body: List[Tuple[int, str]]) -> int:
     """Instructions of a loop body that a failed warp vote jumps over: for
     each VOTE.ANY, the first later branch taken when its predicate is false
@@ -185,6 +225,9 @@ def main(argv=None) -> int:
                     "with --boxes, ray slots a thread")
     ap.add_argument("--boxes", action="store_true",
                     help="count the box loop of a cull prepass (no reciprocal) instead")
+    ap.add_argument("--entry-bytes", type=int, default=0,
+                    help="count the list walk of a raster tile kernel instead, B bytes of "
+                    "shared memory a list entry")
     ap.add_argument("pairs", nargs="+", metavar="SOURCE KERNEL")
     args = ap.parse_args(argv)
     if len(args.pairs) % 2:
@@ -192,6 +235,14 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         for src, kernel in zip(args.pairs[::2], args.pairs[1::2]):
             lib = build(args.csrc / src, pathlib.Path(tmp))
+            if args.entry_bytes:
+                loop = walk_loop(kernel_sass(lib, kernel), args.entry_bytes)
+                mix = ", ".join(f"{o} {c:g}" for o, c in loop["mix"].items())
+                print(f"{os.path.join(str(args.csrc), src)} {kernel}: "
+                      f"{loop['per_entry']:g} instructions a list entry and pixel (loop of "
+                      f"{loop['span']}, {loop['unroll']} entries an iteration): {mix}",
+                      flush=True)
+                continue
             if args.boxes:
                 loop = box_loop(kernel_sass(lib, kernel), args.rays)
                 mix = ", ".join(f"{o} {c:g}" for o, c in loop["mix"].items())
