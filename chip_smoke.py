@@ -61,7 +61,8 @@ Phases, one line each; any failure exits non-zero:
  15. trace: the nearest-triangle kernel vs plain on all camera rays and
      on as many bounce rays from their hit points (winners and t
      identical), and `nearest_hit` over the kernel against `nearest_hit`
-     over the plain version, field by field;
+     over the plain version, field by field; its tally (warp-steps, voted
+     steps, tests, full tests, stage-1 passes) against its plain model;
  16. bounce: the fused bounce kernel vs plain on the whole frame's state
      at 1 bounce and at 16 (acc, live and state lane for lane), and the
      model of its bounce-major schedule (bounce_major_plain) vs plain;
@@ -72,8 +73,11 @@ Phases, one line each; any failure exits non-zero:
      one bounce every pixel on the light a texel exactly; the
      plain wavefront (fused=False) on a quarter frame, nothing dropped;
  18. wavefront times (CUDA events, median and range): both kernels bare
-     and wrapped, nearest_hit and path_trace whole, the host's share,
-     Mpaths/s beside the camera kernel's, the plain versions, the bounds;
+     and wrapped, the trace kernel's device-only time (a CUDA graph of 20
+     launches), nearest_hit and path_trace whole, the host's share,
+     Mpaths/s beside the camera kernel's, the plain versions, the bounds
+     (the trace kernel's from its tally) and the trace kernel's issue
+     floor from the SASS of its row loop;
      the bounce kernel's loop efficiency (tally against the models of the
      per-lane loop and of the bounce-major schedule), its issue floor and
      its device clock bounce by bounce;
@@ -94,17 +98,18 @@ Phases, one line each; any failure exits non-zero:
      against their own plain versions, at every ray-block size (a ray that
      differs must be a proven knife edge of the slab test, and is printed);
      the fused cull's (#4) tally over the whole frame, and tally and (hit,
-     idx, t) against its plain model on three windows of rays;
+     idx, t) against its plain model on three windows of rays; the listed
+     kernel's (#7) tally and (hit, idx, t) against its plain model;
  23. large-scene main path: nearest_hit, nearest_emit_hit and classify_hit
      with no backend named take the fused-cull kernel at 9,216 triangles
      and the prepass + streamed kernel at 147,456 (launch counts), every
      field equal to backend="vpu"; backend="mm2" takes the listed kernel;
  24. large-scene times (CUDA events, median and range): each kernel bare
-     and wrapped (#4 and #5 bare on bounce rays too), the list build, the
-     unculled kernel on the same rays, nearest_hit whole, the ray-block
-     sizes, and the bounds from this run's own masks, for #4, #5 and #6
-     also from their tallies, with their issue floors from the SASS of
-     their row loops and of #5's box loop (utils/sass.py);
+     and wrapped (#4 and #5 bare on bounce rays too; #7 device-only), the
+     list build, the unculled kernel on the same rays, nearest_hit whole,
+     the ray-block sizes, and the bounds from this run's own masks, for
+     #4, #5, #6 and #7 also from their tallies, with their issue floors
+     from the SASS of their row loops and of #5's box loop (utils/sass.py);
  25. the unculled chunked sweep (kernel #8): (hit, idx, t) bit for bit
      against kernel #2 and its plain version on 1M camera and 1M bounce
      rays at 36, 9,216 and 147,456 triangles and three ray-block sizes,
@@ -148,8 +153,8 @@ their issue floor), the card's `nvidia-smi` name and power limit, and
 repository root.
 
 `whitted_ab` and `trace_ab` (not run by `main`) time the Whitted kernel,
-and the trace kernels #4, #5, #6 and #8, built from other sources against
-each other in turns, e.g. this tree's against an earlier commit's;
+and the trace kernels #2, #4, #5, #6, #7 and #8, built from other sources
+against each other in turns, e.g. this tree's against an earlier commit's;
 `raster_ab` (run by phase 14) does the same for the raster kernels #10
 and #11 with their binning.
 """
@@ -1344,6 +1349,7 @@ def wavefront_phases(dev, card: str, cam_mean: float, cam_mpaths: float) -> list
     from software_rasterizer_tpu_torch.ops import path as tp
     from software_rasterizer_tpu_torch.ops import path_kernel as pk
     from software_rasterizer_tpu_torch.ops import trace_kernel as tk
+    from software_rasterizer_tpu_torch.ops import trace_tiers as tt
     from software_rasterizer_tpu_torch.ops.camera import camera_rays
     from software_rasterizer_tpu_torch.ops.shading import ShaderType
     from software_rasterizer_tpu_torch.render import pipeline_from_config
@@ -1381,13 +1387,21 @@ def wavefront_phases(dev, card: str, cam_mean: float, cam_mpaths: float) -> list
     # lanes that missed start their second ray at the eye
     o2 = torch.where(hit.hit[:, None], hit.coords + 1e-6 * hit.normal, o).contiguous()
     d2 = torch.where(hit.hit[:, None], w, d).contiguous()
-    trace_err, lines = 0.0, []
+    trace_err, lines, work2 = 0.0, [], {}
     for name, (o_, d_) in {"camera": (o, d), "bounce": (o2, d2)}.items():
         k = tk.trace_nearest_vpu(rt.tri_table, rt.n_tri, o_, d_)
+        # the kernel's tally against its plain model (trace_tiers.nearest_tally_plain)
+        tally = torch.zeros(tk.TALLY_ENTRIES, dtype=torch.int64, device=dev)
+        k_t = tk.trace_nearest_vpu(rt.tri_table, rt.n_tri, o_, d_, tally=tally)
         torch.cuda.synchronize()
         p = tk.trace_nearest_vpu_plain(rt.tri_table, rt.n_tri, o_, d_)
         if k[0].shape != (n,) or k[1].dtype != torch.int64 or k[2].dtype != torch.float32:
             fail(f"trace kernel outputs have the wrong shape or type on {name} rays")
+        work2[name] = tuple(int(x) for x in tally.tolist())
+        want = tt.nearest_tally_plain(rt.tri_table, rt.n_tri, o_, d_)
+        if work2[name] != want or not all(torch.equal(a, b) for a, b in zip(k_t, k)):
+            fail(f"#2 tally on {name} rays: {work2[name]}, plain model {want} "
+                 f"({tk.TALLY_NAMES}), or its (hit, idx, t) differ from the launch without")
         bad = int(((k[0] != p[0]) | (k[1] != p[1]) | (k[2] != p[2])).sum())
         trace_err = max(trace_err, float((k[2] - p[2]).abs().max()))
         hk = ti.nearest_hit(rt, o_, d_)
@@ -1399,9 +1413,13 @@ def wavefront_phases(dev, card: str, cam_mean: float, cam_mpaths: float) -> list
             if bool(differ.any()):
                 fields.append(f)
                 off |= differ
+        steps, voted = work2[name][:2]
         lines.append(f"{name} rays: {bad}/{n} differ in (hit, idx, t), "
                      f"{int(k[0].sum())} hit; nearest_hit fields differ on "
-                     f"{int(off.sum())} rays" + (f" ({', '.join(fields)})" if fields else ""))
+                     f"{int(off.sum())} rays" + (f" ({', '.join(fields)})" if fields else "")
+                     + f"; tally = plain model, s {voted / steps:.4f} ({voted}/{steps} "
+                     f"warp-steps voted), {work2[name][7]} of {work2[name][2]} tests pass "
+                     f"stage 1")
         if bad > allowed or int(off.sum()) > allowed:
             fail(f"trace kernel disagrees with plain: {lines[-1]}")
     phase(15, f"trace kernel vs plain, {rt.n_tri} triangles: " + "; ".join(lines)
@@ -1585,6 +1603,7 @@ def wavefront_phases(dev, card: str, cam_mean: float, cam_mpaths: float) -> list
 
     t_trace_bare = cuda_times(lambda: tk.launch_trace_nearest(
         rt.tri_table, rt.n_tri, o, d), reps)
+    t_trace_dev = device_times(lambda: tk.launch_trace_nearest(rt.tri_table, rt.n_tri, o, d))
     t_trace = cuda_times(lambda: tk.trace_nearest_vpu(rt.tri_table, rt.n_tri, o, d), reps)
     t_trace2 = cuda_times(lambda: tk.trace_nearest_vpu(rt.tri_table, rt.n_tri, o2, d2), reps)
     t_nh = cuda_times(lambda: ti.nearest_hit(rt, o, d), reps)
@@ -1611,7 +1630,8 @@ def wavefront_phases(dev, card: str, cam_mean: float, cam_mpaths: float) -> list
     wave_mpaths = n * SPP / med(t_acc) / 1e3
     phase(18, f"wavefront {WIDTH}x{HEIGHT} = {n} rays, {rt.n_tri} triangles, ms as "
               f"median [min-max] of {reps} after a warm-up, on {card}: trace kernel "
-              f"bare {spread(t_trace_bare)}, wrapper {spread(t_trace)} on camera rays "
+              f"bare {spread(t_trace_bare)}, device-only {spread(t_trace_dev)} (a CUDA graph "
+              f"of 20 launches), wrapper {spread(t_trace)} on camera rays "
               f"and {spread(t_trace2)} on bounce rays; nearest_hit whole "
               f"{spread(t_nh)}; state stack {spread(t_state)}; bounce kernel bare "
               f"{spread(t_bounce_bare)} at {MAX_BOUNCES} bounces, "
@@ -1637,6 +1657,15 @@ def wavefront_phases(dev, card: str, cam_mean: float, cam_mpaths: float) -> list
     # and read, and every lane's done row written and read back
     b_t, by_t = bound(tensor_bytes(rt.tri_table, o, d) + 13 * n,
                       58.0 * n * rt.n_tri)
+    # the trace kernel from its own tally (the function's work: stage 1 of
+    # every test, the whole test where the ray's own stage 1 passed), beside
+    # every test whole above; its issue floor from the SASS of its row loop
+    from software_rasterizer_tpu_torch.utils.cuda_build import library_path
+
+    (b_tt, by_tt), (b_tw, by_tw) = vote_tally_bounds(
+        tensor_bytes(rt.tri_table, o, d) + 13 * n, work2["camera"])
+    floor2, loop2 = vote_floor(library_path("trace_nearest"), "trace_nearest_kernelILb1ELb0EE",
+                               tk.NEAREST_RAYS, *work2["camera"][:2])
     n_live0 = int(live.sum())
     work_bytes = (2 * 4 * n_live0 + 2 * 4 * (pk.BOUNCE_SCRATCH_ROWS + 1) * (
         lane_bounces[MAX_BOUNCES] - n_live0) + 2 * 4 * pk.BOUNCE_DONE_ROWS * n)
@@ -1669,7 +1698,14 @@ def wavefront_phases(dev, card: str, cam_mean: float, cam_mpaths: float) -> list
         f"b{b} {(clock[b + 2] - clock[b + 1]) / 1e3:.1f} ({alive[b]})"
         for b in range(MAX_BOUNCES) if clock[b + 2] > 0]
         + [f"copy-out {(clock[-1] - clock[last]) / 1e3:.1f}"])
-    phase(18, f"bounds: trace {b_t:.4f} ms by {by_t}, bounce {b_b:.4f} ms by {by_b} "
+    phase(18, f"bounds: trace from its tally {b_tt:.4f} ms by {by_tt} ({work2['camera'][2]} "
+              f"tests, {work2['camera'][7]} of them passing stage 1), {b_tw:.4f} ms by "
+              f"{by_tw} for its warps' work, {b_t:.4f} ms by {by_t} for every test whole, "
+              f"issue floor {floor2:.4f} ms ({loop2['per_row'] / tk.NEAREST_RAYS:g} SASS "
+              f"instructions a row and ray, {loop2['skip'] / tk.NEAREST_RAYS:g} of them skipped "
+              f"by a failed vote, x {work2['camera'][0]} warp-steps, {work2['camera'][1]} "
+              f"voted; device-only {med(t_trace_dev) / floor2:.2f}x the floor); "
+              f"bounce {b_b:.4f} ms by {by_b} "
               f"({lane_bounces[MAX_BOUNCES]} lane-bounces of this frame; with the "
               f"workspace's {work_bytes / 1e6:.1f} MB {b_bw:.4f} ms by {by_bw}); {b_loop}; bounce "
               f"issue floor {b_floor:.4f} ms ({b_sass['per_row']:g} SASS instructions a row "
@@ -1683,9 +1719,13 @@ def wavefront_phases(dev, card: str, cam_mean: float, cam_mpaths: float) -> list
          "source": "software_rasterizer_tpu_torch/csrc/trace_nearest.cu",
          "replaces": "software_rasterizer_tpu/ops/pallas_trace.py:431",
          "launches": launches[0], "max_abs_err": trace_err,
-         "ms": med(t_trace), "bare_ms": med(t_trace_bare),
-         "plain_ms": med(t_trace_plain), "bound_ms": b_t, "bound_by": by_t,
-         "library_ms": None},
+         "ms": med(t_trace), "bare_ms": med(t_trace_bare), "device_ms": med(t_trace_dev),
+         "plain_ms": med(t_trace_plain), "bound_ms": b_tt, "bound_by": by_tt,
+         "library_ms": None, "bound_ms_voted_warps": b_tw, "bound_ms_every_test": b_t,
+         "issue_floor_ms": floor2,
+         "sass_per_row_and_ray": loop2["per_row"] / tk.NEAREST_RAYS,
+         "sass_skipped_per_row_and_ray": loop2["skip"] / tk.NEAREST_RAYS,
+         "tally": {kind: dict(zip(tk.TALLY_NAMES, w)) for kind, w in work2.items()}},
         {"name": "path_bounce", "route": "cuda",
          "source": "software_rasterizer_tpu_torch/csrc/path_bounce.cu",
          "replaces": "software_rasterizer_tpu/ops/pallas_path.py:635",
@@ -1975,18 +2015,20 @@ def large_scene_phases(dev, card: str):
             explained[name, kind] = knife
     # the ray block's size changes no result: every thread shape of the kernels
     rt = scenes["mid"]["rt"]
-    o_, d_ = scenes["mid"]["rays"]["camera"]
-    ref = tk.trace_nearest_vpu(rt.tri_table, rt.n_tri, o_, d_)
-    a = (rt.tri_table, rt.chunk_lo, rt.chunk_hi, o_, d_)
-    for b in BLOCK_SIZES:
-        for tier, fn in (("mm2c", tt.trace_nearest_mm2c), ("mm2", tt.trace_nearest_mm2),
-                         ("mm2s", tt.trace_nearest_mm2_stream)):
-            off = differing(fn(*a, chunk=rt.cull_chunk, block=b), ref)
-            if bool((off & ~explained["mid", "camera"]).any()):
-                fail(f"{tier} at block={b}: {int(off.sum())} rays differ from kernel #2")
+    for kind, (o_, d_) in scenes["mid"]["rays"].items():
+        ref = tk.trace_nearest_vpu(rt.tri_table, rt.n_tri, o_, d_)
+        a = (rt.tri_table, rt.chunk_lo, rt.chunk_hi, o_, d_)
+        for b in BLOCK_SIZES:
+            for tier, fn in (("mm2c", tt.trace_nearest_mm2c), ("mm2", tt.trace_nearest_mm2),
+                             ("mm2s", tt.trace_nearest_mm2_stream)):
+                off = differing(fn(*a, chunk=rt.cull_chunk, block=b), ref)
+                if bool((off & ~explained["mid", kind]).any()):
+                    fail(f"{tier} at block={b} on {kind} rays: {int(off.sum())} rays differ "
+                         f"from kernel #2")
     phase(22, f"tiers vs kernel #2 over the whole table and vs their plain versions, "
               f"(hit, idx, t) bit for bit, blocks of {block} rays: " + "; ".join(lines)
-              + f"; blocks of {BLOCK_SIZES} rays give the same on the mid scene")
+              + f"; blocks of {BLOCK_SIZES} rays give the same on the mid scene's camera "
+              f"and bounce rays")
 
     # the fused cull's work (#4): its tally on the whole frame, and on three
     # windows of rays against its plain model (trace_tiers.fused_warp_plain),
@@ -2019,6 +2061,43 @@ def large_scene_phases(dev, card: str):
                      f"slab tests")
     phase(22, "the fused cull (#4), its tally over the whole frame; tally and (hit, idx, t) "
               f"= its plain model on 3 windows of {LARGE_WINDOW} rays: " + "; ".join(lines))
+
+    # the listed kernel's work (#7) on the mid scene's prepass lists: its
+    # tally and (hit, idx, t) against its plain model
+    # (trace_tiers.listed_warp_plain(vote=False)), the whole frame or, where
+    # the model would take minutes, three windows of rays
+    work7, lines = {}, []
+
+    def listed_all_tally(o_, d_, counts_, lists_):
+        tally = torch.zeros(tt.TALLY_ENTRIES, dtype=torch.int64, device=dev)
+        k = tt.launch_trace_listed(rt.tri_table, counts_, lists_, o_, d_, rt.cull_chunk, block,
+                                   tally=tally)
+        return k, tuple(int(x) for x in tally.tolist())
+
+    for kind, (o_, d_) in scenes["mid"]["rays"].items():
+        mask = masks["mid", kind]
+        k, work7[kind] = listed_all_tally(o_, d_, *tt.chunk_lists(mask))
+        whole = float(mask.sum()) * rt.cull_chunk * block <= PLAIN_TESTS_LIMIT
+        starts = [0] if whole else [0, n // 2, n - LARGE_WINDOW]
+        for s0 in starts:
+            s1 = n if whole else s0 + LARGE_WINDOW
+            c_, l_ = tt.chunk_lists(mask[s0 // block:-(-s1 // block)])
+            kw_, work_w = (k, work7[kind]) if whole else listed_all_tally(
+                o_[s0:s1], d_[s0:s1], c_, l_)
+            p_, want = tt.listed_warp_plain(rt.tri_table, rt.chunk_lo, rt.chunk_hi, c_, l_,
+                                            o_[s0:s1], d_[s0:s1], rt.cull_chunk, block,
+                                            vote=False)
+            if work_w != want or bool(differing(kw_, p_).any()):
+                fail(f"#7 on mid {kind} rays [{s0}, {s1}): tally {work_w}, plain model "
+                     f"{want} ({tt.TALLY_NAMES}); {int(differing(kw_, p_).sum())} rays "
+                     f"differ from the model")
+        steps, voted, tests, full, _, _, _, passes = work7[kind]
+        how = "whole frame" if whole else f"{len(starts)} windows of {LARGE_WINDOW} rays"
+        lines.append(f"mid {kind}: s {voted / steps:.4f} ({voted}/{steps} warp-steps voted), "
+                     f"{full}/{tests} full tests, {passes} passing stage 1; tally and (hit, "
+                     f"idx, t) = plain model ({how})")
+    phase(22, "the listed kernel (#7) on the masks' lists, its tally against its plain model: "
+              + "; ".join(lines))
 
     # ---- 23. the path: nearest_hit and its relatives pick the tier
     want = {"mid": (3, 0, 0, 0), "large": (0, 3, 0, 3)}
@@ -2104,6 +2183,8 @@ def large_scene_phases(dev, card: str):
             "lists": cuda_times(lambda: tt.chunk_lists(mask), reps),
             "mm2 bare": cuda_times(lambda: tt.launch_trace_listed(
                 rt.tri_table, counts_, lists_, o_, d_, **kw), reps),
+            "mm2 device-only": device_times(lambda: tt.launch_trace_listed(
+                rt.tri_table, counts_, lists_, o_, d_, **kw)),
             "mm2": cuda_times(lambda: tt.trace_nearest_mm2(*a, o_, d_, **kw), reps),
             "mm2s bare": cuda_times(lambda: tt.launch_trace_listed(
                 rt.tri_table, counts_, lists_, o_, d_, stream=True, chunk_lo=rt.chunk_lo,
@@ -2125,7 +2206,8 @@ def large_scene_phases(dev, card: str):
                      + ", ".join(f"{k} {spread(v)}" for k, v in t.items()))
     phase(24, f"large-scene rays, {n} camera rays, blocks of {block} rays unless said, "
               f"ms as median [min-max] of {reps} after a warm-up (kernel #2 and "
-              f"cull=False of 3) on {card}: " + "; ".join(times))
+              f"cull=False of 3; device-only: a CUDA graph of 20 launches, 5 replays) on "
+              f"{card}: " + "; ".join(times))
 
     # bounds, from this run's own masks: a listed (block, chunk) pair is
     # chunk x block tests of ~58 float32 operations, a slab test ~21; the
@@ -2185,6 +2267,12 @@ def large_scene_phases(dev, card: str):
     _, rays6 = tt.launch_shape(block)
     floor6, loop6 = vote_floor(library_path("trace_culled"),
                                f"trace_listed_stream_kernelILi{rays6}ELb0E", rays6, w6[0], w6[1])
+    # #7 from its own tally, as #6 (no slab tests); its floor from its row loop
+    w7 = work7["camera"]
+    (b7f, by7f), (b7w, by7w) = vote_tally_bounds(
+        tensor_bytes(mid.tri_table, o4, d4) + 13 * n + 4 * nb * (1 + mid.chunk_lo.shape[0]), w7)
+    floor7, loop7 = vote_floor(library_path("trace_culled"),
+                               f"trace_listed_all_kernelILi{rays6}ELb0E", rays6, w7[0], w7[1])
     phase(24, f"bounds: mm2c (mid) from its tally {b4t:.4f} ms by {by4t} ({w4[2]} tests, "
               f"{w4[7]} of them passing stage 1, {w4[4]} slab tests), {b4w:.4f} ms by {by4w} "
               f"for its warps' work, {b4:.4f} ms by {by4} for every test of the block vote "
@@ -2203,7 +2291,12 @@ def large_scene_phases(dev, card: str):
               f"({tests6:.3g}), issue floor "
               f"{floor6:.4f} ms ({loop6['per_row'] / rays6:g} SASS instructions a row and "
               f"ray, {loop6['skip'] / rays6:g} of them skipped by a failed vote, x "
-              f"{w6[0]} warp-steps, {w6[1]} voted), mm2 (mid) {b7:.4f} ms by {by7}")
+              f"{w6[0]} warp-steps, {w6[1]} voted); mm2 (mid) from its tally {b7f:.4f} ms by "
+              f"{by7f} ({w7[2]} tests, {w7[7]} of them passing stage 1), {b7w:.4f} ms by {by7w} "
+              f"for its warps' work, {b7:.4f} ms by {by7} for every test of the mask, issue "
+              f"floor {floor7:.4f} ms ({loop7['per_row'] / rays6:g} SASS instructions a row and "
+              f"ray, {loop7['skip'] / rays6:g} of them skipped by a failed vote, x {w7[0]} "
+              f"warp-steps, {w7[1]} voted)")
 
     src = "software_rasterizer_tpu_torch/csrc/trace_culled.cu"
     jax_file = "software_rasterizer_tpu/ops/pallas_trace.py"
@@ -2245,8 +2338,15 @@ def large_scene_phases(dev, card: str):
          "sass_skipped_per_row_and_ray": loop6["skip"] / rays6,
          "tally": {f"{name} {kind}": dict(zip(tt.TALLY_NAMES, w))
                    for (name, kind), w in work6.items()}},
-        entry("trace_listed", 634, launches[2], tier_err["mm2"], med(tm["mm2"]),
-              med(tm["mm2 bare"]), tier_plain_ms["mid", "camera", "mm2"], b7, by7),
+        {**entry("trace_listed", 634, launches[2], tier_err["mm2"], med(tm["mm2"]),
+                 med(tm["mm2 bare"]), tier_plain_ms["mid", "camera", "mm2"], b7f, by7f),
+         "device_ms": med(tm["mm2 device-only"]),
+         "bare_ms_range": [tm["mm2 bare"][0], tm["mm2 bare"][-1]],
+         "bound_ms_voted_warps": b7w, "bound_ms_every_test": b7,
+         "issue_floor_ms": floor7,
+         "sass_per_row_and_ray": loop7["per_row"] / rays6,
+         "sass_skipped_per_row_and_ray": loop7["skip"] / rays6,
+         "tally": {f"mid {kind}": dict(zip(tt.TALLY_NAMES, w)) for kind, w in work7.items()}},
     ], scenes
 
 
@@ -2937,33 +3037,73 @@ def whitted_ab(csrc_dirs: dict, rounds: int = 4, repeats: int = 5) -> dict:
     return res
 
 
-def trace_ab(csrc_dirs: dict, rounds: int = 4, repeats: int = 5) -> dict:
-    """Times kernels #4 (trace_fused_cull_kernel), #5 (cull_prepass_kernel),
-    #6 (trace_listed_stream_kernel) and #8 (trace_unculled_kernel) as built
-    from other sources, in turns in one process on one card:
+def _tree_module(path: pathlib.Path, modname: str, lib):
+    """The module at `path` (another tree's ops/ module) loaded under
+    `modname`, its C binding (`_cuda_lib`, else `_cuda_fn`: each calls
+    cuda_build.load_library) bound to the loaded library `lib` instead of
+    the package's own build."""
+    import importlib.util
+
+    from software_rasterizer_tpu_torch.utils import cuda_build
+
+    if not path.exists():
+        fail(f"no {path}: the tree holds no such module")
+    spec = importlib.util.spec_from_file_location(modname, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    getter = getattr(mod, "_cuda_lib", None) or mod._cuda_fn
+    load = cuda_build.load_library
+    cuda_build.load_library = lambda name_, sources, lib=lib: lib
+    try:
+        bound_to = getter()
+    finally:
+        cuda_build.load_library = load
+    setattr(mod, getter.__name__, lambda o=bound_to: o)
+    return mod
+
+
+def trace_ab(csrc_dirs: dict, rounds: int = 4, repeats: int = 5, launches: int = 20) -> dict:
+    """Times kernels #2 (trace_nearest_kernel), #4 (trace_fused_cull_kernel),
+    #5 (cull_prepass_kernel), #6 (trace_listed_stream_kernel), #7 (the listed
+    sweep of every listed chunk) and #8 (trace_unculled_kernel) as built from
+    other sources, in turns in one process on one card:
 
         python3 -c "import chip_smoke as c; c.trace_ab({'parent': 'DIR', 'this':
             'software_rasterizer_tpu_torch/csrc'})"
 
-    `csrc_dirs` maps a name to a directory that holds a trace_culled.cu (and
-    the headers it includes). Each source is
-    called through the interface it exports: without srt_trace_tally_entries
-    the one before #6's boxes and tally (#8 taking the JAX chunk); without
-    srt_cull_tally_entries #5 without super boxes and #4 and #5 without a
-    tally. Each is built with the package's nvcc flags; its bare launch is
-    timed on phase 20's camera and bounce rays, ray blocks of 64 (#4 at
-    9,216 triangles; #5 at 9,216 and 147,456; #6 at 147,456 on the
-    prepass's lists; #8 at 9,216 and on Cornell, blocks of MM_BLOCK),
-    `rounds` rounds of `repeats` launches, the order of the builds reversed
-    every other round. Every build's (hit, idx, t) must equal the first's
-    and kernel #2's bit for bit (for #4 a ray off kernel #2 must be a proven
-    slab knife edge), and every build's #5 mask the plain version's. Prints
-    a line a case, each build's SASS instructions a row and ray of the row
-    loops of #4, #6 and #8 and a box and ray slot of #5's box loop
-    (utils/sass.py) and its issue floor on this run's work (the block vote's
-    for a build without the per-warp vote, else the plain models'), the
-    plain models' s and w, and the builds' ptxas register and spill lines;
-    returns {case: {build: sorted ms}}."""
+    `csrc_dirs` maps a name to the csrc/ directory of a package tree (an
+    earlier commit's software_rasterizer_tpu_torch unpacked under _checkout/,
+    say) that holds trace_nearest.cu and trace_culled.cu (and the headers
+    they include) beside ops/trace_kernel.py and ops/trace_tiers.py. Each
+    source is called through the interface it exports: without
+    srt_trace_nearest_rays #2 without a tally, one ray a thread; without
+    srt_trace_tally_entries the one before #6's boxes and tally (#8 taking
+    the JAX chunk); without srt_cull_tally_entries #5 without super boxes and
+    #4 and #5 without a tally. Each is built with the package's nvcc flags;
+    its bare launch (the C function called directly) is timed on phase 20's
+    camera and bounce rays, ray blocks of 64 (#2 on Cornell, and on camera
+    rays at 9,216 triangles, where it reads the table through the cache; #4
+    and #7 at 9,216 triangles, #7 on the prepass's lists; #5 at 9,216 and
+    147,456; #6 at 147,456 on the prepass's lists; #8 at 9,216 and on
+    Cornell, blocks of MM_BLOCK), `rounds` rounds of `repeats` launches, the
+    order of the builds reversed every other round. For #2 and #7 also, in
+    the same turns: the wrapper (the tree's own trace_nearest_vpu, or
+    trace_nearest_mm2 with its prepass and lists, from its ops/ modules
+    loaded under their own names and bound to this build), the device-only
+    time of the bare launch (`launches` launches in one CUDA graph, one
+    replay between two events; not for #2 at 9,216 triangles, where the
+    device binds) and the host's time to enqueue the wrapper and the bare
+    launch. Every build's (hit, idx, t) must equal the first's and kernel
+    #2's bit for bit (for #4 a ray off kernel #2 must be a proven slab knife
+    edge, for #7 too, whose prepass lists a chunk by the block's slab tests),
+    and every build's #5 mask the plain version's. Prints a line a
+    case, each build's SASS instructions a row and ray of the row loops of
+    #2, #4, #6, #7 and #8 and a box and ray slot of #5's box loop
+    (utils/sass.py) and its issue floor on this run's work (the block
+    vote's, or every warp-step's, for a build without the per-warp vote,
+    else the plain models'), the plain models' s and w, and the builds'
+    ptxas register and spill lines; returns {case: {build: sorted ms}}, and
+    for #2 and #7 {case: {build: {reading: sorted ms}}}."""
     import ctypes
 
     import torch
@@ -2987,20 +3127,22 @@ def trace_ab(csrc_dirs: dict, rounds: int = 4, repeats: int = 5) -> dict:
     cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name, d in csrc_dirs.items():
-        out = cuda_build.BUILD_DIR / f"ab_trace_{name}.so"
-        procs[name] = (out, subprocess.Popen(
-            [cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS, "-o", str(out),
-             str(pathlib.Path(d) / "trace_culled.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    libs, newer, cull_new = {}, {}, {}
-    vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    own = tt._cuda_lib()
-    for name, (out, proc) in procs.items():
+        for lib_name, src in (("trace", "trace_culled.cu"), ("nearest", "trace_nearest.cu")):
+            out = cuda_build.BUILD_DIR / f"ab_{lib_name}_{name}.so"
+            procs[name, lib_name] = (out, subprocess.Popen(
+                [cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS, "-o", str(out),
+                 str(pathlib.Path(d) / src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    for (name, lib_name), (out, proc) in procs.items():
         log = proc.communicate()[0]
         if proc.returncode != 0:
-            fail(f"nvcc failed on {csrc_dirs[name]}: {log}")
-        (OUT_DIR / f"ab_trace_{name}_build.log").write_text(log)
-        lib = ctypes.CDLL(str(out))
+            fail(f"nvcc failed on {csrc_dirs[name]} ({lib_name}): {log}")
+        (OUT_DIR / f"ab_{lib_name}_{name}_build.log").write_text(log)
+    libs, nlibs, newer, cull_new, near_rays, mods = {}, {}, {}, {}, {}, {}
+    vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    own = tt._cuda_lib()
+    for name in names:
+        lib = ctypes.CDLL(str(procs[name, "trace"][0]))
         newer[name] = hasattr(lib, "srt_trace_tally_entries")
         cull_new[name] = hasattr(lib, "srt_cull_tally_entries")
         if newer[name]:
@@ -3021,6 +3163,32 @@ def trace_ab(csrc_dirs: dict, rounds: int = 4, repeats: int = 5) -> dict:
                    lib.srt_trace_fused_cull):
             fn.restype = ci
         libs[name] = lib
+        nlib = ctypes.CDLL(str(procs[name, "nearest"][0]))
+        # kernel #2: since its two-stage form it takes a tally and names its
+        # ray slots a thread; before, one ray a thread and no tally
+        if hasattr(nlib, "srt_trace_nearest_rays"):
+            nlib.srt_trace_nearest_rays.argtypes = []
+            nlib.srt_trace_nearest_rays.restype = ci
+            near_rays[name] = nlib.srt_trace_nearest_rays()
+            nlib.srt_trace_nearest.argtypes = [vp, ci, vp, vp, ci, vp, vp, vp, vp, vp]
+        else:
+            near_rays[name] = None
+            nlib.srt_trace_nearest.argtypes = [vp, ci, vp, vp, ci, vp, vp, vp, vp]
+        nlib.srt_trace_nearest.restype = ci
+        nlibs[name] = nlib
+        pkg = pathlib.Path(csrc_dirs[name]).resolve().parent
+        mods[name] = (
+            _tree_module(pkg / "ops" / "trace_kernel.py", f"ab_trace_kernel_{name}", nlib),
+            _tree_module(pkg / "ops" / "trace_tiers.py", f"ab_trace_tiers_{name}", lib))
+
+    def call2(name, rt, o_, d_, out):
+        hit, idx, t = out
+        a = (rt.tri_table.data_ptr(), rt.n_tri, o_.data_ptr(), d_.data_ptr(), o_.shape[0],
+             hit.data_ptr(), idx.data_ptr(), t.data_ptr())
+        strm = torch.cuda.current_stream().cuda_stream
+        rc = nlibs[name].srt_trace_nearest(*a, *((None,) if near_rays[name] else ()), strm)
+        if rc != 0:
+            fail(f"ab {name}: trace_nearest launch failed: cudaError {rc}")
 
     def call4(name, rt, sup, o_, d_, out):
         hit, idx, t = out
@@ -3046,12 +3214,12 @@ def trace_ab(csrc_dirs: dict, rounds: int = 4, repeats: int = 5) -> dict:
         if rc != 0:
             fail(f"ab {name}: cull_prepass launch failed: cudaError {rc}")
 
-    def call6(name, rt, counts, lists, o_, d_, out):
+    def call6(name, rt, counts, lists, o_, d_, out, stream_rows=1):
         hit, idx, t = out
         strm = torch.cuda.current_stream().cuda_stream
         a = (rt.tri_table.data_ptr(), rt.tri_table.shape[0], rt.cull_chunk)
-        tail = (o_.data_ptr(), d_.data_ptr(), n, block, 1, hit.data_ptr(), idx.data_ptr(),
-                t.data_ptr())
+        tail = (o_.data_ptr(), d_.data_ptr(), n, block, stream_rows, hit.data_ptr(),
+                idx.data_ptr(), t.data_ptr())
         if newer[name]:
             rc = libs[name].srt_trace_listed(*a, rt.chunk_lo.data_ptr(), rt.chunk_hi.data_ptr(),
                                              counts.data_ptr(), lists.data_ptr(),
@@ -3079,9 +3247,11 @@ def trace_ab(csrc_dirs: dict, rounds: int = 4, repeats: int = 5) -> dict:
 
     # the cases: (kernel, scene, rays)
     kinds = ("camera", "bounce")
-    cases = [("#4", "mid", k) for k in kinds]
+    cases = [("#2", "cornell", k) for k in kinds] + [("#2", "mid", "camera")]
+    cases += [("#4", "mid", k) for k in kinds]
     cases += [("#5", s_, k) for s_ in ("mid", "large") for k in kinds]
     cases += [("#6", "large", k) for k in kinds]
+    cases += [("#7", "mid", k) for k in kinds]
     cases += [("#8", s_, k) for s_ in ("mid", "cornell") for k in kinds]
     makers = {"cornell": build_cornell_scene,
               "mid": lambda: stress_cornell(build_cornell_scene, subdivide_mesh,
@@ -3101,24 +3271,40 @@ def trace_ab(csrc_dirs: dict, rounds: int = 4, repeats: int = 5) -> dict:
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     rate = sms * SCHEDULERS_PER_SM * max_sm_clock_hz()
     # the row loops (instructions a row and ray slot) and #5's box loop
-    # (instructions a box and ray slot)
-    loop_of = {"#4": ("trace_fused_cull_kernelILi1E", 1, sass.row_loop),
-               "#5": ("cull_prepass_kernelILi1E", 1, sass.box_loop),
-               "#6": ("trace_listed_stream_kernelILi1E", 1, sass.row_loop),
-               "#8": ("trace_unculled_kernelILi4E", 4, sass.row_loop)}
+    # (instructions a box and ray slot): each kernel's library, the names
+    # of its instance in each form (the first that a build holds), its ray
+    # slots a thread (#2: the build's) and the counter
+    loop_of = {"#2": ("nearest", ("trace_nearest_kernelILb1ELb0EE", "trace_nearest_kernelILb1EE"),
+                      None, sass.row_loop),
+               "#4": ("trace", ("trace_fused_cull_kernelILi1ELb0E", "trace_fused_cull_kernelILi1EE"),
+                      1, sass.row_loop),
+               "#5": ("trace", ("cull_prepass_kernelILi1ELb0E", "cull_prepass_kernelILi1EE"), 1,
+                      sass.box_loop),
+               "#6": ("trace", ("trace_listed_stream_kernelILi1ELb0E",
+                                "trace_listed_stream_kernelILi1EE"), 1, sass.row_loop),
+               "#7": ("trace", ("trace_listed_all_kernelILi1ELb0E", "trace_listed_kernelILi1EE"),
+                      1, sass.row_loop),
+               "#8": ("trace", ("trace_unculled_kernelILi4ELb0E", "trace_unculled_kernelILi4EE"),
+                      4, sass.row_loop)}
+
+    def slots(name, kern):
+        """ray slots a thread of the measured instance of `kern` in build `name`"""
+        return (near_rays[name] or 1) if kern == "#2" else loop_of[kern][2]
+
     loops = {}
     for name in names:
-        lib_path = cuda_build.BUILD_DIR / f"ab_trace_{name}.so"
-        for kern, (pat, rays, count) in loop_of.items():
+        for kern, (lib_name, pats, _, count) in loop_of.items():
+            lib_path = procs[name, lib_name][0]
             fn_sass = None
-            for p_ in (pat + "Lb0E", pat + "E"):
+            for p_ in pats:
                 try:
                     fn_sass = sass.kernel_sass(lib_path, p_)
                     break
                 except ValueError:
                     continue
             if fn_sass is None:
-                fail(f"ab {name}: no single {pat} in the SASS")
+                fail(f"ab {name}: no single {' or '.join(pats)} in the SASS")
+            rays = slots(name, kern)
             lp = loops[name, kern] = count(fn_sass, rays)
             mix = ", ".join(f"{o} {c / rays:g}" for o, c in lp["mix"].items())
             if kern == "#5":
@@ -3128,18 +3314,21 @@ def trace_ab(csrc_dirs: dict, rounds: int = 4, repeats: int = 5) -> dict:
             else:
                 print(f"[ab] {name} {kern}: {lp['per_row'] / rays:g} SASS instructions a row "
                       f"and ray, {lp['skip'] / rays:g} of them skipped by a failed vote (loop "
-                      f"of {lp['span']}, {lp['unroll']} rows an iteration): {mix}", flush=True)
+                      f"of {lp['span']}, {lp['unroll']} rows an iteration, {rays} ray slots a "
+                      f"thread): {mix}", flush=True)
+    want = "|".join(re.escape(p_) for _, pats, _, _ in loop_of.values() for p_ in pats)
     for name in names:
-        # ptxas's lines for the measured kernels (1 ray a thread, 4 for #8),
-        # without the tally
+        # ptxas's lines for the measured kernels (1 ray a thread, 4 for #8,
+        # #2's own), without the tally
         kern, regs = None, []
-        want = "|".join(f"{pat}(?:Lb0E|E)" for pat, _, _ in loop_of.values())
-        for ln in (OUT_DIR / f"ab_trace_{name}_build.log").read_text().splitlines():
-            m = re.search(rf"Compiling entry function '[^']*?({want})", ln)
-            if "Compiling entry function" in ln:
-                kern = m.group(1) if m else None
-            elif kern and ("registers" in ln or "spill" in ln):
-                regs.append(f"{kern}: {ln.split(':', 1)[-1].strip()}")
+        for lib_name in ("nearest", "trace"):
+            log = (OUT_DIR / f"ab_{lib_name}_{name}_build.log").read_text()
+            for ln in log.splitlines():
+                m = re.search(rf"Compiling entry function '[^']*?({want})", ln)
+                if "Compiling entry function" in ln:
+                    kern = m.group(1) if m else None
+                elif kern and ("registers" in ln or "spill" in ln):
+                    regs.append(f"{kern}: {ln.split(':', 1)[-1].strip()}")
         print(f"[ab] {name} ptxas: " + "; ".join(regs), flush=True)
 
     any_new = any(cull_new.values())
@@ -3152,7 +3341,7 @@ def trace_ab(csrc_dirs: dict, rounds: int = 4, repeats: int = 5) -> dict:
         sup = tt.super_bounds(rt.chunk_lo, rt.chunk_hi)
         rows_c = torch.clamp(rt.tri_table.shape[0] - rt.cull_chunk * torch.arange(
             nc, device=dev), max=rt.cull_chunk)
-        extra = ""
+        extra, wrap = "", None
         if kern == "#5":
             ref = tt.cull_prepass_plain(rt.chunk_lo, rt.chunk_hi, o_, d_, block)
             # every warp votes on every chunk box (the flat loop), or the
@@ -3174,7 +3363,35 @@ def trace_ab(csrc_dirs: dict, rounds: int = 4, repeats: int = 5) -> dict:
                 call5(b, rt, sup, o_, d_, out)
         else:
             ref = tk.trace_nearest_vpu(rt.tri_table, rt.n_tri, o_, d_)
-            if kern == "#4":
+            if kern == "#2":
+                if sname == "cornell":
+                    p_ = tk.trace_nearest_vpu_plain(rt.tri_table, rt.n_tri, o_, d_)
+                    if any(not torch.equal(x, y) for x, y in zip(ref, p_)):
+                        fail(f"ab #2 {sname} {kind}: kernel #2 differs from its plain version")
+                # every warp of every block sweeps every row with each of its
+                # ray slots; the vote's passes from the plain model (its
+                # tally), for a build that votes
+                steps_of = {}
+                for b in names:
+                    sl = slots(b, kern)
+                    warps = -(-n // (tk.NEAREST_THREADS * sl)) * (tk.NEAREST_THREADS // 32)
+                    steps = warps * sl * rt.n_tri
+                    voted = None
+                    if near_rays[b]:
+                        work = tt.nearest_tally_plain(rt.tri_table, rt.n_tri, o_, d_, rays=sl)
+                        if work[0] != steps:
+                            fail(f"ab #2: the model counts {work[0]} warp-steps, {steps} here")
+                        voted = work[1]
+                        extra += (f", plain model at {sl} ray slots a thread (build {b}) s "
+                                  f"{voted / steps:.4f} ({voted}/{steps})")
+                    steps_of[b] = (steps, voted)
+
+                def run(b, out):
+                    call2(b, rt, o_, d_, out)
+
+                def wrap(b):
+                    return mods[b][0].trace_nearest_vpu(rt.tri_table, rt.n_tri, o_, d_)
+            elif kern == "#4":
                 # the block vote sweeps every row of a visited (block, chunk)
                 # pair with every warp of the block
                 visit = (tt._block_enters(rt.chunk_lo, rt.chunk_hi, o_, d_, block)
@@ -3191,21 +3408,43 @@ def trace_ab(csrc_dirs: dict, rounds: int = 4, repeats: int = 5) -> dict:
 
                 def run(b, out):
                     call4(b, rt, sup, o_, d_, out)
-            elif kern == "#6":
+            elif kern in ("#6", "#7"):
                 mask = tt.cull_prepass(rt.chunk_lo, rt.chunk_hi, o_, d_, block)
                 counts, lists = tt.chunk_lists(mask)
-                _, work = tt.listed_warp_plain(rt.tri_table, rt.chunk_lo, rt.chunk_hi, counts,
-                                               lists, o_, d_, rt.cull_chunk, block)
                 # a build without the per-warp vote sweeps every listed chunk
-                # with every warp of the block
+                # with every warp of the block, as #7 always does
                 all_steps = int((mask.long() * rows_c[None]).sum()) * (threads // 32) * r_
-                steps_of = {b: ((work[0], work[1]) if newer[b] else (all_steps, None))
-                            for b in names}
-                extra = (f", plain model s {work[1] / work[0]:.4f} ({work[1]}/{work[0]}), "
-                         f"w {work[6] / work[5]:.4f} ({work[6]}/{work[5]})")
+                if kern == "#6":
+                    _, work = tt.listed_warp_plain(rt.tri_table, rt.chunk_lo, rt.chunk_hi,
+                                                   counts, lists, o_, d_, rt.cull_chunk, block)
+                    steps_of = {b: ((work[0], work[1]) if newer[b] else (all_steps, None))
+                                for b in names}
+                    extra = (f", plain model s {work[1] / work[0]:.4f} ({work[1]}/{work[0]}), "
+                             f"w {work[6] / work[5]:.4f} ({work[6]}/{work[5]})")
 
-                def run(b, out):
-                    call6(b, rt, counts, lists, o_, d_, out)
+                    def run(b, out):
+                        call6(b, rt, counts, lists, o_, d_, out)
+                else:
+                    voted = None
+                    if any(near_rays.values()):
+                        _, work = tt.listed_warp_plain(rt.tri_table, rt.chunk_lo, rt.chunk_hi,
+                                                       counts, lists, o_, d_, rt.cull_chunk,
+                                                       block, vote=False)
+                        if work[0] != all_steps:
+                            fail(f"ab #7: the model counts {work[0]} warp-steps, "
+                                 f"{all_steps} here")
+                        voted = work[1]
+                        extra = f", plain model s {voted / all_steps:.4f} ({voted}/{all_steps})"
+                    # the two-stage form of #7 came with #2's (srt_trace_nearest_rays)
+                    steps_of = {b: (all_steps, voted if near_rays[b] else None) for b in names}
+
+                    def run(b, out):
+                        call6(b, rt, counts, lists, o_, d_, out, stream_rows=0)
+
+                    def wrap(b):
+                        return mods[b][1].trace_nearest_mm2(rt.tri_table, rt.chunk_lo,
+                                                            rt.chunk_hi, o_, d_,
+                                                            chunk=rt.cull_chunk, block=block)
             else:
                 work = tt.unculled_tally_plain(rt.tri_table, o_, d_, tt.MM_BLOCK)
                 steps_of = {b: ((work[0], work[1]) if newer[b] else (work[0], None))
@@ -3232,7 +3471,10 @@ def trace_ab(csrc_dirs: dict, rounds: int = 4, repeats: int = 5) -> dict:
                          f"in {int((outs[b] != ref).sum())} entries")
                 continue
             off = (outs[b][0] != ref[0]) | (outs[b][1] != ref[1]) | (outs[b][2] != ref[2])
-            if kern == "#4" and bool(off.any()):
+            if wrap is not None:
+                w_ = wrap(b)
+                off |= (w_[0] != ref[0]) | (w_[1] != ref[1]) | (w_[2] != ref[2])
+            if kern in ("#4", "#7") and bool(off.any()):
                 r = torch.nonzero(off).flatten()
                 proof = slab_knife_edge_rays(
                     rt.chunk_lo.cpu().numpy(), rt.chunk_hi.cpu().numpy(), rt.cull_chunk,
@@ -3243,12 +3485,31 @@ def trace_ab(csrc_dirs: dict, rounds: int = 4, repeats: int = 5) -> dict:
                 knife += f"; {b}: {r.numel()} proven knife edges"
             elif bool(off.any()):
                 fail(f"ab {kern} {sname} {kind}: {b}'s (hit, idx, t) differ from kernel #2")
-        times = {b: [] for b in names}
+        key = f"{kern} {sname} {kind}"
+        # #2 and #7: the wrapper, the device-only time (not where the device
+        # binds) and the host's enqueue beside the bare launch
+        more = wrap is not None
+        graphed = more and not (kern == "#2" and sname == "mid")
+        graphs = {b: graph_of(lambda b=b: run(b, outs[b]), launches) for b in names} \
+            if graphed else {}
+        times = {b: {r: [] for r in ("bare", "wrapper", "device", "wrapper_host", "bare_host")}
+                 for b in names}
         for rnd in range(rounds):
             for b in (names if rnd % 2 == 0 else names[::-1]):
-                times[b] += cuda_times(lambda: run(b, outs[b]), repeats)
-        key = f"{kern} {sname} {kind}"
-        res[key] = {b: sorted(t) for b, t in times.items()}
+                t = times[b]
+                t["bare"] += cuda_times(lambda: run(b, outs[b]), repeats)
+                if not more:
+                    continue
+                t["wrapper"] += cuda_times(lambda: wrap(b), repeats)
+                if b in graphs:
+                    t["device"] += replay_times(graphs[b], launches, repeats)
+                t["wrapper_host"] += host_times(lambda: wrap(b), repeats)
+                t["bare_host"] += host_times(lambda: run(b, outs[b]), repeats)
+        del graphs
+        if more:
+            res[key] = {b: {r: sorted(v) for r, v in t.items() if v} for b, t in times.items()}
+        else:
+            res[key] = {b: sorted(t["bare"]) for b, t in times.items()}
         floors = []
         for b in names:
             lp = loops[b, kern]
@@ -3256,15 +3517,22 @@ def trace_ab(csrc_dirs: dict, rounds: int = 4, repeats: int = 5) -> dict:
             if kern == "#5":
                 floors.append(f"{b} {lp['per_vote'] * st / rate * 1e3:.4f} ({st} votes)")
                 continue
-            rays = loop_of[kern][1]
+            rays = slots(b, kern)
             per, skip = lp["per_row"] / rays, lp["skip"] / rays
             fl = per * st - (skip * (st - voted) if voted is not None else 0.0)
             floors.append(f"{b} {fl / rate * 1e3:.4f} ({st} warp-steps)")
         what = "mask equal to the plain version's" if kern == "#5" else \
             "(hit, idx, t) equal to kernel #2's" + knife
-        print(f"[ab] {key} ({rt.n_tri} triangles, {n} rays, bare launch, ms as median "
-              f"[min-max] of {rounds * repeats} in turns, on {card}): "
-              + ", ".join(f"{b} {spread(res[key][b])}" for b in names)
+        if more:
+            readings = "; ".join(
+                f"{b} " + ", ".join(f"{r.replace('_', ' ')} {spread(v)}"
+                                    for r, v in res[key][b].items()) for b in names)
+            what += " (the wrappers' too)"
+        else:
+            readings = ", ".join(f"{b} {spread(res[key][b])}" for b in names)
+        print(f"[ab] {key} ({rt.n_tri} triangles, {n} rays, bare launch unless said, ms as "
+              f"median [min-max] of {rounds * repeats} in turns, device-only over {launches} "
+              f"launches of a CUDA graph, host: enqueue only, on {card}): " + readings
               + f"; {what}{extra}; issue floor ms " + ", ".join(floors), flush=True)
     return res
 
@@ -3364,7 +3632,6 @@ def raster_ab(trees: dict, rounds: int = 4, repeats: int = 5, launches: int = 20
     on this frame's list entries, and the builds' ptxas lines; returns
     {kernel: {build: {reading: sorted ms}}}."""
     import ctypes
-    import importlib.util
     import inspect
 
     import torch
@@ -3395,22 +3662,9 @@ def raster_ab(trees: dict, rounds: int = 4, repeats: int = 5, launches: int = 20
         for ln in log.splitlines():
             if "registers" in ln or "spill" in ln or "entry function" in ln:
                 print(f"[ab] {name}: {ln.strip()}", flush=True)
-        spec = importlib.util.spec_from_file_location(
-            f"ab_raster_kernel_{name}", pathlib.Path(trees[name]) / pkg / "ops" / "raster_kernel.py")
-        mod = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mod)
-        lib = ctypes.CDLL(str(out))
-        # the module binds its C functions through load_library: hand it
-        # this build, and keep what it bound
-        getter = getattr(mod, "_cuda_lib", None) or mod._cuda_fn
-        load = cuda_build.load_library
-        cuda_build.load_library = lambda name_, sources, lib=lib: lib
-        try:
-            bound_fn = getter()
-        finally:
-            cuda_build.load_library = load
-        setattr(mod, getter.__name__, lambda o=bound_fn: o)
-        mods[name], libs[name] = mod, out
+        mods[name] = _tree_module(pathlib.Path(trees[name]) / pkg / "ops" / "raster_kernel.py",
+                                  f"ab_raster_kernel_{name}", ctypes.CDLL(str(out)))
+        libs[name] = out
 
     def setup(variant):
         scene = raster_scene(variant, levels)

@@ -48,6 +48,104 @@ __device__ __forceinline__ float mt_test(const Ray& r, const float* __restrict__
   return ok ? t : kBig;
 }
 
+// ---- the two-stage Moller-Trumbore test of #2, #4, #6, #7 and #8
+//
+// Stage 1 computes p, det, inv, tvec and u with mt_test's expressions in
+// mt_test's order, and its predicate `pass` is the first three terms of
+// mt_test's `ok`: |det| >= 1e-6, u >= 0, u <= 1. The warp votes on `pass`;
+// stage 2 (q, v, t and the rest of `ok`) runs only if some lane passed.
+// Why the result is mt_test's bit for bit:
+//   * `ok` is a conjunction that starts with `pass`, so a lane that fails
+//     `pass` gets kBig from mt_test whatever v and t are, and kBig never
+//     replaces a running best under the strict < (best_t <= kBig). Such a
+//     lane leaves its best alone here too: in a warp that skips stage 2,
+//     and in one that runs it, where `ok` is `pass && ...` again;
+//   * a lane that passes runs stage 2 on stage 1's own det, inv, tvec and
+//     u, so every value it computes is mt_test's: the same expressions in
+//     the same order, each multiply and add rounded on its own
+//     (-fmad=false), the IEEE 1.0f / det before u as in mt_test;
+//   * NaN: a NaN in u or det makes `pass` false (every comparison with a
+//     NaN is false), as it makes `ok` false; a zero row has det = 0, an
+//     absent ray (d = 0) too; det at exactly +-1e-6 passes in both, as
+//     fabsf(det) >= 1e-6f is the same comparison.
+// So the winners equal mt_test's sweep and the plain versions.
+struct Stage1 {
+  float px, py, pz, inv, tx, ty, tz, u;
+  bool pass;
+};
+
+__device__ __forceinline__ Stage1 mt_stage1(const Ray& r, const float* __restrict__ g) {
+  const float v0x = g[0], v0y = g[1], v0z = g[2];
+  const float e1x = g[3], e1y = g[4], e1z = g[5];
+  const float e2x = g[6], e2y = g[7], e2z = g[8];
+  Stage1 s;
+  s.px = r.dy * e2z - r.dz * e2y;
+  s.py = r.dz * e2x - r.dx * e2z;
+  s.pz = r.dx * e2y - r.dy * e2x;
+  const float det = e1x * s.px + e1y * s.py + e1z * s.pz;
+  s.inv = 1.0f / (fabsf(det) < 1e-6f ? 1.0f : det);
+  s.tx = r.ox - v0x;
+  s.ty = r.oy - v0y;
+  s.tz = r.oz - v0z;
+  s.u = (s.tx * s.px + s.ty * s.py + s.tz * s.pz) * s.inv;
+  s.pass = fabsf(det) >= 1e-6f && s.u >= 0.0f && s.u <= 1.0f;
+  return s;
+}
+
+// t of the hit, or kBig: the rest of mt_test after stage 1
+__device__ __forceinline__ float mt_stage2(const Ray& r, const float* __restrict__ g,
+                                           const Stage1& s) {
+  const float e1x = g[3], e1y = g[4], e1z = g[5];
+  const float e2x = g[6], e2y = g[7], e2z = g[8];
+  // q = tvec x e1
+  const float qx = s.ty * e1z - s.tz * e1y;
+  const float qy = s.tz * e1x - s.tx * e1z;
+  const float qz = s.tx * e1y - s.ty * e1x;
+  const float v = (r.dx * qx + r.dy * qy + r.dz * qz) * s.inv;
+  const float t = (e2x * qx + e2y * qy + e2z * qz) * s.inv;
+  const bool ok = s.pass && v >= 0.0f && s.u + v <= 1.0f && t >= 1e-6f;
+  return ok ? t : kBig;
+}
+
+// The work the two-stage kernels count when the caller passes a tally
+// (kTallyEntries unsigned 64-bit totals, ops/trace_kernel.TALLY_NAMES):
+// warp-steps (one warp, one row, one ray slot j), the warp-steps whose vote
+// passed (stage 2 ran), the active rays' (ray, row) tests, those of them in
+// voted steps (full tests), the active rays' slab tests (#4, #6), the
+// (warp, chunk) votes of #6 (listed chunks) and #4 (the chunks of the
+// supers a warp enters) with those the warp skipped (no active ray of it
+// enters the box), and the tests whose own stage 1 passed. #2 and #7 make
+// no slab test and no chunk vote. A thread counts its own; the warp sums
+// them at the end.
+constexpr int kTallyEntries = 8;
+struct VoteTally {
+  uint32_t steps = 0, voted = 0, tests = 0, full = 0, slabs = 0, pairs = 0, skipped = 0,
+           passes = 0;
+  __device__ __forceinline__ void flush(unsigned long long* total) const {
+    // warp-uniform counts are the same in every lane: lane 0 adds its own
+    const uint32_t tests_w = __reduce_add_sync(0xffffffffu, tests);
+    const uint32_t full_w = __reduce_add_sync(0xffffffffu, full);
+    const uint32_t slabs_w = __reduce_add_sync(0xffffffffu, slabs);
+    const uint32_t passes_w = __reduce_add_sync(0xffffffffu, passes);
+    if ((threadIdx.x & 31) != 0) return;
+    const uint32_t v[kTallyEntries] = {steps,   voted, tests_w, full_w,
+                                       slabs_w, pairs, skipped, passes_w};
+#pragma unroll
+    for (int k = 0; k < kTallyEntries; ++k)
+      if (v[k]) atomicAdd(total + k, (unsigned long long)v[k]);
+  }
+
+  // one warp-step of a ray slot: its vote `any`, whether the thread's ray
+  // is there (`active`) and passed stage 1 (`pass`)
+  __device__ __forceinline__ void step(bool any, bool active, bool pass) {
+    steps += 1;
+    voted += any;
+    tests += active;
+    full += any && active;
+    passes += pass && active;
+  }
+};
+
 // min and max that hand a NaN on, as torch.minimum / torch.maximum do
 // (fminf / fmaxf drop it): PTX min.NaN / max.NaN, one FMNMX.NAN each on
 // sm_80+ (the select form `(a < b || a != a) ? a : b` took ~2.5

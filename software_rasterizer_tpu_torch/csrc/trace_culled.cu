@@ -4,8 +4,8 @@
 // Five kernels, replacing five Pallas kernels of the JAX package's
 // ops/pallas_trace.py:
 //   cull_prepass_kernel         _cull_prepass_kernel  (a (nb, nc) mask)
-//   trace_listed_kernel         _trace_kernel2        (lists, resident table)
-//   trace_listed_stream_kernel  _trace_kernel3        (lists, table streamed)
+//   trace_listed_all_kernel     _trace_kernel2        (lists, every listed chunk)
+//   trace_listed_stream_kernel  _trace_kernel3        (lists, a warp's box vote)
 //   trace_fused_cull_kernel     _trace_kernel2c       (two-level cull fused in)
 //   trace_unculled_kernel       _trace_kernel         (every chunk, no boxes)
 //
@@ -19,8 +19,9 @@
 // walked in ascending order under a strict <), t = 1e30 and index -1 on a
 // miss. The Pallas kernels' bilinear matmul form, coefficient layouts and
 // mask bit plane are TPU form, not semantics: every (ray, row) test here
-// is trace_common.cuh's mt_test or its two-stage form below, so all tiers
-// equal the unculled sweep bit for bit.
+// is the two-stage form of trace_common.cuh's mt_test (mt_stage1 /
+// mt_stage2, the proof beside them), so all tiers equal the unculled sweep
+// bit for bit.
 //
 // Bound: FP32 ALU work, ~58 operations a (ray, row) test and ~21 a slab
 // test; the bytes (24 in and 13 out a ray, 48 a row) are far below it.
@@ -28,20 +29,19 @@
 // kernels sit near their issue floor, not their memory.
 // Design: one CUDA block a ray block (#5: 256 / block of them). A thread
 // owns up to kMaxRays rays of its block (ray tid + j * blockDim.x), held in
-// registers with their running best. In #7 a visited chunk is staged in
-// shared memory once for the whole block; every thread then reads the same
-// row, so the loads broadcast and a row is reused for all of a thread's
-// rays. Its votes are __syncthreads_or; a thread with no ray (the tail of
-// the last block) stays in every barrier and never votes.
+// registers with their running best; a thread with no ray (the tail of the
+// last block) holds an absent ray with d = 0 and takes part in every vote.
 //
-// #4, #6 and #8 test in two stages with a warp vote (Lanes::sweep_voted):
-// most (ray, row) pairs fail on |det| or u, and when every lane of a warp
-// fails there, the warp skips the rest of the test. In #4 and #6 each warp
-// walks on its own (stream_rows), voting on the chunk boxes (#6: its
-// block's listed chunks; #4: the chunks of the super-chunks it enters) and
-// staging the rows of the chunks it enters in a double buffer of its own.
-// #5 votes per warp on the super-chunk boxes first and skips a super's
-// chunk boxes only where that is proven exact (the proof is beside it).
+// #4, #6, #7 and #8 test in two stages with a warp vote
+// (Lanes::sweep_voted): most (ray, row) pairs fail on |det| or u, and when
+// every lane of a warp fails there, the warp skips the rest of the test.
+// In #4, #6 and #7 each warp walks on its own (stream_rows), staging the
+// rows of the chunks it sweeps in a double buffer of its own: #7 every
+// chunk of its block's list, #6 those of them whose boxes some ray of the
+// warp enters, #4 the chunks of the super-chunks it enters that some ray
+// of it enters. #5 votes per warp on the super-chunk boxes first and skips
+// a super's chunk boxes only where that is proven exact (the proof is
+// beside it).
 
 #include <cuda_pipeline.h>
 
@@ -51,9 +51,11 @@ namespace {
 
 using srt::InvDir;
 using srt::kBig;
+using srt::kTallyEntries;
 using srt::Ray;
+using srt::VoteTally;
 
-constexpr int kMaxChunk = 256;   // rows of a chunk staged in shared memory
+constexpr int kMaxChunk = 256;   // rows of a chunk (ops/trace_tiers.MAX_CHUNK)
 constexpr int kMaxThreads = 256;
 constexpr int kMaxRays = 8;      // rays a thread, so block <= 2048
 constexpr int kSuper = 8;        // chunks a super-chunk (MM2C_SUPER)
@@ -66,93 +68,6 @@ constexpr unsigned kFull = 0xffffffffu;
 // #8 at 9,216 the same at 128, 256 and 512.
 constexpr int kSliceListed = 64;
 constexpr int kSliceMM = 256;
-
-// ---- the two-stage Moller-Trumbore test of #4, #6 and #8
-//
-// Stage 1 computes p, det, inv, tvec and u with mt_test's expressions in
-// mt_test's order (trace_common.cuh), and its predicate `pass` is the
-// first three terms of mt_test's `ok`: |det| >= 1e-6, u >= 0, u <= 1. The
-// warp votes on `pass`; stage 2 (q, v, t and the rest of `ok`) runs only
-// if some lane passed. Why the result is mt_test's bit for bit:
-//   * `ok` is a conjunction that starts with `pass`, so a lane that fails
-//     `pass` gets kBig from mt_test whatever v and t are, and kBig never
-//     replaces a running best under the strict < (best_t <= kBig). Such a
-//     lane leaves its best alone here too: in a warp that skips stage 2,
-//     and in one that runs it, where `ok` is `pass && ...` again;
-//   * a lane that passes runs stage 2 on stage 1's own det, inv, tvec and
-//     u, so every value it computes is mt_test's: the same expressions in
-//     the same order, each multiply and add rounded on its own
-//     (-fmad=false), the IEEE 1.0f / det before u as in mt_test;
-//   * NaN: a NaN in u or det makes `pass` false (every comparison with a
-//     NaN is false), as it makes `ok` false; a zero row has det = 0, an
-//     absent ray (d = 0) too; det at exactly +-1e-6 passes in both, as
-//     fabsf(det) >= 1e-6f is the same comparison.
-// So the winners equal mt_test's sweep, the plain versions and kernel #2.
-struct Stage1 {
-  float px, py, pz, inv, tx, ty, tz, u;
-  bool pass;
-};
-
-__device__ __forceinline__ Stage1 mt_stage1(const Ray& r, const float* __restrict__ g) {
-  const float v0x = g[0], v0y = g[1], v0z = g[2];
-  const float e1x = g[3], e1y = g[4], e1z = g[5];
-  const float e2x = g[6], e2y = g[7], e2z = g[8];
-  Stage1 s;
-  s.px = r.dy * e2z - r.dz * e2y;
-  s.py = r.dz * e2x - r.dx * e2z;
-  s.pz = r.dx * e2y - r.dy * e2x;
-  const float det = e1x * s.px + e1y * s.py + e1z * s.pz;
-  s.inv = 1.0f / (fabsf(det) < 1e-6f ? 1.0f : det);
-  s.tx = r.ox - v0x;
-  s.ty = r.oy - v0y;
-  s.tz = r.oz - v0z;
-  s.u = (s.tx * s.px + s.ty * s.py + s.tz * s.pz) * s.inv;
-  s.pass = fabsf(det) >= 1e-6f && s.u >= 0.0f && s.u <= 1.0f;
-  return s;
-}
-
-// t of the hit, or kBig: the rest of mt_test after stage 1
-__device__ __forceinline__ float mt_stage2(const Ray& r, const float* __restrict__ g,
-                                           const Stage1& s) {
-  const float e1x = g[3], e1y = g[4], e1z = g[5];
-  const float e2x = g[6], e2y = g[7], e2z = g[8];
-  // q = tvec x e1
-  const float qx = s.ty * e1z - s.tz * e1y;
-  const float qy = s.tz * e1x - s.tx * e1z;
-  const float qz = s.tx * e1y - s.ty * e1x;
-  const float v = (r.dx * qx + r.dy * qy + r.dz * qz) * s.inv;
-  const float t = (e2x * qx + e2y * qy + e2z * qz) * s.inv;
-  const bool ok = s.pass && v >= 0.0f && s.u + v <= 1.0f && t >= 1e-6f;
-  return ok ? t : kBig;
-}
-
-// The work #4, #6 and #8 count when the caller passes a tally (kTallyEntries
-// unsigned 64-bit totals, ops/trace_tiers.TALLY_NAMES): warp-steps (one
-// warp, one row, one ray slot j), the warp-steps whose vote passed (stage 2
-// ran), the active rays' (ray, row) tests, those of them in voted steps
-// (full tests), the active rays' slab tests (#4, #6), the (warp, chunk)
-// votes of #6 (listed chunks) and #4 (the chunks of the supers a warp
-// enters) with those the warp skipped (no active ray of it enters the
-// box), and the tests whose own stage 1 passed. A thread counts
-// its own; the warp sums them at the end.
-constexpr int kTallyEntries = 8;
-struct VoteTally {
-  uint32_t steps = 0, voted = 0, tests = 0, full = 0, slabs = 0, pairs = 0, skipped = 0,
-           passes = 0;
-  __device__ __forceinline__ void flush(unsigned long long* total) const {
-    // warp-uniform counts are the same in every lane: lane 0 adds its own
-    const uint32_t tests_w = __reduce_add_sync(kFull, tests);
-    const uint32_t full_w = __reduce_add_sync(kFull, full);
-    const uint32_t slabs_w = __reduce_add_sync(kFull, slabs);
-    const uint32_t passes_w = __reduce_add_sync(kFull, passes);
-    if ((threadIdx.x & 31) != 0) return;
-    const uint32_t v[kTallyEntries] = {steps,   voted, tests_w, full_w,
-                                       slabs_w, pairs, skipped, passes_w};
-#pragma unroll
-    for (int k = 0; k < kTallyEntries; ++k)
-      if (v[k]) atomicAdd(total + k, (unsigned long long)v[k]);
-  }
-};
 
 // A thread's rays and their running best.
 template <int R>
@@ -186,22 +101,6 @@ struct Lanes {
     }
   }
 
-  // sweep `rows` staged rows whose first global index is `first`
-  __device__ __forceinline__ void sweep(const float* __restrict__ s_rows,
-                                        int rows, int first) {
-    for (int f = 0; f < rows; ++f) {
-      const float* g = s_rows + 12 * f;
-#pragma unroll
-      for (int j = 0; j < R; ++j) {
-        const float tm = srt::mt_test(ray[j], g);
-        if (tm < best_t[j]) {  // strict <: the lowest index wins a tie
-          best_t[j] = tm;
-          best_f[j] = first + f;
-        }
-      }
-    }
-  }
-
   // `rows` staged rows whose first global index is `first`, each tested
   // in two stages with a warp vote for each ray slot j (the whole warp
   // calls this together). With kCount, `tl` gets the steps and tests.
@@ -216,17 +115,11 @@ struct Lanes {
                            rc.x, rc.y, rc.z, rc.w};
 #pragma unroll
       for (int j = 0; j < R; ++j) {
-        const Stage1 st = mt_stage1(ray[j], g);
+        const srt::Stage1 st = srt::mt_stage1(ray[j], g);
         const bool any = __any_sync(kFull, st.pass);
-        if (kCount) {
-          tl.steps += 1;
-          tl.voted += any;
-          tl.tests += active[j];
-          tl.full += any && active[j];
-          tl.passes += st.pass && active[j];
-        }
+        if (kCount) tl.step(any, active[j], st.pass);
         if (any) {
-          const float tm = mt_stage2(ray[j], g, st);
+          const float tm = srt::mt_stage2(ray[j], g, st);
           if (tm < best_t[j]) {  // strict <: the lowest index wins a tie
             best_t[j] = tm;
             best_f[j] = first + f;
@@ -273,15 +166,6 @@ struct Lanes {
 __device__ __forceinline__ int chunk_rows(int c, int chunk, int n_rows) {
   const int left = n_rows - c * chunk;
   return left < chunk ? (left < 0 ? 0 : left) : chunk;
-}
-
-// copy chunk c's rows into shared memory (every thread of the block)
-__device__ __forceinline__ void stage(float* __restrict__ s_rows,
-                                      const float* __restrict__ tri, int c,
-                                      int chunk, int rows) {
-  const float4* src = reinterpret_cast<const float4*>(tri + (size_t)c * chunk * 12);
-  float4* dst = reinterpret_cast<float4*>(s_rows);
-  for (int i = threadIdx.x; i < rows * 3; i += blockDim.x) dst[i] = src[i];
 }
 
 // ---- #5, the (nb, nc) mask: any ray of block b enters chunk c's box.
@@ -502,32 +386,6 @@ cull_prepass_kernel(const float* __restrict__ lo, const float* __restrict__ hi, 
   if (kCount && live) tl.flush(tally);
 }
 
-// ---- the listed chunks of each block, the table read chunk by chunk
-template <int R>
-__global__ void __launch_bounds__(kMaxThreads)
-trace_listed_kernel(const float* __restrict__ tri, int n_rows, int chunk,
-                    const int* __restrict__ counts,
-                    const int* __restrict__ lists, long long list_stride,
-                    const float* __restrict__ orig,
-                    const float* __restrict__ dir, int n, int block,
-                    uint8_t* __restrict__ hit, int64_t* __restrict__ idx,
-                    float* __restrict__ t_out) {
-  __shared__ __align__(16) float s_rows[kMaxChunk * 12];
-  Lanes<R> lanes;
-  lanes.load(orig, dir, n, block);
-  const int cnt = counts[blockIdx.x];
-  const int* list = lists + (size_t)blockIdx.x * list_stride;
-  for (int i = 0; i < cnt; ++i) {
-    const int c = list[i];
-    const int rows = chunk_rows(c, chunk, n_rows);
-    __syncthreads();  // the last sweep has left the buffer
-    stage(s_rows, tri, c, chunk, rows);
-    __syncthreads();
-    lanes.sweep(s_rows, rows, c * chunk);
-  }
-  lanes.store(n, block, hit, idx, t_out);
-}
-
 // ---- the streamed sweep of #6 and #4: each warp on its own, a cursor
 // handing it the next slice of rows it must test, the rows streamed slice
 // by slice with cp.async into the warp's own double buffer, the next slice
@@ -563,8 +421,12 @@ struct RowSlice {
   int f0, cnt;
 };
 
-// #6: the warp's position in its block's list: entry i, rows [f, f_end) of
-// its chunk not yet staged
+// #6 and #7: the warp's position in its block's list: entry i, rows
+// [f, f_end) of its chunk not yet staged. With kVote (#6) the warp votes on
+// each listed chunk's box and skips a chunk none of its rays enters;
+// without (#7) it sweeps every listed chunk, as _trace_kernel2 sweeps the
+// block's, and the boxes are not read.
+template <bool kVote>
 struct ListCursor {
   const int* __restrict__ list;
   int cnt;
@@ -584,13 +446,15 @@ struct ListCursor {
       }
       if (++i >= cnt) return false;
       const int c = list[i];
-      const bool e = lanes.template enters_each<kCount>(lo + 3 * c, hi + 3 * c, tl);
-      const bool any = __any_sync(kFull, e);
-      if (kCount) {
-        tl.pairs += 1;
-        tl.skipped += !any;
+      if (kVote) {
+        const bool e = lanes.template enters_each<kCount>(lo + 3 * c, hi + 3 * c, tl);
+        const bool any = __any_sync(kFull, e);
+        if (kCount) {
+          tl.pairs += 1;
+          tl.skipped += !any;
+        }
+        if (!any) continue;
       }
-      if (!any) continue;
       f = c * chunk;
       f_end = min((c + 1) * chunk, n_rows);
     }
@@ -694,8 +558,32 @@ trace_listed_stream_kernel(const float* __restrict__ tri, int n_rows, int chunk,
   Lanes<R> lanes;
   lanes.load(orig, dir, n, block);
   VoteTally tl;
-  ListCursor cur = {lists + (size_t)blockIdx.x * list_stride, counts[blockIdx.x], lo, hi,
-                    chunk, n_rows, -1, 0, 0};
+  ListCursor<true> cur = {lists + (size_t)blockIdx.x * list_stride, counts[blockIdx.x], lo,
+                          hi, chunk, n_rows, -1, 0, 0};
+  stream_rows<R, kCount>(lanes, cur, tri, stage, tl);
+  if (kCount) tl.flush(tally);
+  lanes.store(n, block, hit, idx, t_out);
+}
+
+// ---- #7: every listed chunk of each block, no box vote: each warp sweeps
+// exactly its block's listed rows, as _trace_kernel2 and trace_listed_plain
+// do, so its winners are theirs bit for bit
+template <int R, bool kCount>
+__global__ void __launch_bounds__(kMaxThreads)
+trace_listed_all_kernel(const float* __restrict__ tri, int n_rows, int chunk,
+                        const int* __restrict__ counts,
+                        const int* __restrict__ lists, long long list_stride,
+                        const float* __restrict__ orig,
+                        const float* __restrict__ dir, int n, int block,
+                        uint8_t* __restrict__ hit, int64_t* __restrict__ idx,
+                        float* __restrict__ t_out, unsigned long long* __restrict__ tally) {
+  extern __shared__ float4 s_listed[];
+  ListedStage& stage = reinterpret_cast<ListedStage*>(s_listed)[threadIdx.x >> 5];
+  Lanes<R> lanes;
+  lanes.load(orig, dir, n, block);
+  VoteTally tl;
+  ListCursor<false> cur = {lists + (size_t)blockIdx.x * list_stride, counts[blockIdx.x],
+                           nullptr, nullptr, chunk, n_rows, -1, 0, 0};
   stream_rows<R, kCount>(lanes, cur, tri, stage, tl);
   if (kCount) tl.flush(tally);
   lanes.store(n, block, hit, idx, t_out);
@@ -798,14 +686,6 @@ int launch_dyn(void (*kernel)(KArgs...), int blocks, int threads, int smem, cuda
 // Every entry returns cudaGetLastError() of its launch, or
 // cudaErrorInvalidValue for a shape the kernels do not take.
 
-#define SRT_DISPATCH_RAYS(rays, KERNEL, ...)                              \
-  switch (rays) {                                                         \
-    case 1: KERNEL<1><<<blocks, threads, 0, s>>>(__VA_ARGS__); break;     \
-    case 2: KERNEL<2><<<blocks, threads, 0, s>>>(__VA_ARGS__); break;     \
-    case 4: KERNEL<4><<<blocks, threads, 0, s>>>(__VA_ARGS__); break;     \
-    default: KERNEL<8><<<blocks, threads, 0, s>>>(__VA_ARGS__); break;    \
-  }
-
 // The instance KERNEL<R, kCount> for `rays` ray slots a thread, counting
 // into a tally when `count`.
 #define SRT_INSTANCE(KERNEL, rays, C)                                              \
@@ -814,8 +694,8 @@ int launch_dyn(void (*kernel)(KArgs...), int blocks, int threads, int smem, cuda
 #define SRT_PICK(KERNEL, rays, count) \
   ((count) ? SRT_INSTANCE(KERNEL, rays, true) : SRT_INSTANCE(KERNEL, rays, false))
 
-// The number of entries of the tally of #4, #6 and #8 (an (entries,) uint64
-// buffer, or null for no count).
+// The number of entries of the tally of #4, #6, #7 and #8 (an (entries,)
+// uint64 buffer, or null for no count).
 extern "C" int srt_trace_tally_entries() { return kTallyEntries; }
 
 // The number of entries of #5's tally.
@@ -842,10 +722,10 @@ extern "C" int srt_cull_prepass(const float* lo, const float* hi, int nc, const 
                     hi2, orig, dir, n, block, per_cta, tile, mask, tally);
 }
 
-// stream_rows 0: #7, trace_listed_kernel (lo, hi and tally unread);
+// stream_rows 0: #7, trace_listed_all_kernel (lo and hi unread);
 // stream_rows 1: #6, trace_listed_stream_kernel, which votes per warp on
-// the boxes lo / hi (nc = ceil(n_rows / chunk) rows each) and adds its
-// counts to `tally` unless it is null
+// the boxes lo / hi (nc = ceil(n_rows / chunk) rows each). Either adds its
+// counts to `tally` unless it is null.
 extern "C" int srt_trace_listed(const float* tri, int n_rows, int chunk,
                                 const float* lo, const float* hi,
                                 const int* counts, const int* lists,
@@ -859,15 +739,15 @@ extern "C" int srt_trace_listed(const float* tri, int n_rows, int chunk,
     return (int)cudaErrorInvalidValue;
   if (n <= 0) return 0;
   const int blocks = (n + block - 1) / block;
+  const int smem = (threads / 32) * (int)sizeof(ListedStage);
   cudaStream_t s = (cudaStream_t)stream;
   if (stream_rows)
     return launch_dyn(SRT_PICK(trace_listed_stream_kernel, rays, tally != nullptr), blocks,
-                      threads, (threads / 32) * (int)sizeof(ListedStage), s, tri, n_rows,
-                      chunk, lo, hi, counts, lists, list_stride, orig, dir, n, block, hit,
-                      idx, t, tally);
-  SRT_DISPATCH_RAYS(rays, trace_listed_kernel, tri, n_rows, chunk, counts, lists,
-                    list_stride, orig, dir, n, block, hit, idx, t)
-  return (int)cudaGetLastError();
+                      threads, smem, s, tri, n_rows, chunk, lo, hi, counts, lists,
+                      list_stride, orig, dir, n, block, hit, idx, t, tally);
+  return launch_dyn(SRT_PICK(trace_listed_all_kernel, rays, tally != nullptr), blocks,
+                    threads, smem, s, tri, n_rows, chunk, counts, lists, list_stride, orig,
+                    dir, n, block, hit, idx, t, tally);
 }
 
 // #4: `tally` as in srt_trace_listed.

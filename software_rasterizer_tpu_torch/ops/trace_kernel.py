@@ -14,6 +14,13 @@ rejected by det = 0; NaN comparisons are false, so a NaN ray misses.
     vectorized over rays, looping over triangles, in the kernel's
     operation order.
 
+The kernel tests each (ray, row) pair in two stages with a warp vote
+between them (`mt_plane_two_stage` is the plain form, equal to `mt_plane`
+bit for bit), and adds the work it did to a `tally` if given: an
+(`TALLY_ENTRIES`,) int64 tensor in `TALLY_NAMES` order, the layout of
+every two-stage kernel (ops/trace_tiers.py); its plain model is
+`trace_tiers.nearest_tally_plain`.
+
 `nearest_hit` takes this kernel for scenes of up to 1024 triangles and
 the chunk-culled tiers of `ops/trace_tiers.py` above; the kernel itself
 takes any triangle count (the loop runs n_tri times) and is what those
@@ -28,6 +35,27 @@ from typing import Tuple
 import torch
 
 BIG = 1e30
+# threads a block of the kernel, and ray slots a thread: thread k of block
+# b holds rays b * NEAREST_THREADS * NEAREST_RAYS + k + j * NEAREST_THREADS,
+# j < NEAREST_RAYS, so a slot's warp holds 32 consecutive rays
+# (csrc/trace_nearest.cu kThreads, kRays). NEAREST_RAYS is a tuning value
+# that changes no result: of 1, 2 and 4, 2 took the least time on an H100
+# (chip_smoke.trace_ab in turns, PERF.md)
+NEAREST_THREADS = 128
+NEAREST_RAYS = 2
+# The tally of the two-stage kernels #2, #4, #6, #7 and #8
+# (csrc/trace_common.cuh VoteTally), in order: warp-steps (a warp, a row, a
+# ray slot j of its threads), the warp-steps whose stage-1 vote passed
+# (stage 2 ran), the active rays' (ray, row) tests, those of them in voted
+# steps (full tests), the active rays' slab tests (#6: on listed chunks'
+# boxes; #4: on super and chunk boxes), the (warp, chunk) votes (#6: on
+# listed chunks; #4: on the chunks of the supers the warp enters) and those
+# the warp skipped (none of its rays enters the box), and the tests whose
+# own ray passed stage 1. s = voted / steps, w = skipped / warp_chunks. #2
+# and #7 make no slab test and no chunk vote.
+TALLY_NAMES = ("steps", "voted", "tests", "full_tests", "slab_tests", "warp_chunks",
+               "warp_chunks_skipped", "stage1_passes")
+TALLY_ENTRIES = len(TALLY_NAMES)
 
 # kernel launches made by trace_nearest_vpu (the plain version is not
 # counted); a caller may reset it to 0 to count one run
@@ -59,6 +87,24 @@ def _check_operands(tri_table, n_tri, orig, d) -> int:
     return orig.shape[0]
 
 
+def check_tally(tally, device, entries: int = TALLY_ENTRIES) -> None:
+    """A tally of the two-stage kernels ((TALLY_ENTRIES,) int64) or one of
+    `entries` entries, contiguous, on the rays' device (or None)."""
+    if tally is None:
+        return
+    _check("tally", tally.reshape(1, -1), torch.int64, entries, device)
+    if tally.shape != (entries,) or not tally.is_contiguous():
+        raise ValueError(f"tally must be a contiguous ({entries},) tensor, got "
+                         f"{tuple(tally.shape)}")
+
+
+def _aligned(tri_table: torch.Tensor) -> torch.Tensor:
+    """The table contiguous and on a 16-byte boundary (rows are read as
+    float4)."""
+    tri_table = tri_table.contiguous()
+    return tri_table if tri_table.data_ptr() % 16 == 0 else tri_table.clone()
+
+
 # ---------------------------------------------------------------- CUDA
 
 
@@ -69,7 +115,12 @@ def _cuda_fn():
     fn = lib.srt_trace_nearest
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, ci, vp, vp, ci, vp, vp, vp, vp]
+        lib.srt_trace_nearest_rays.argtypes = []
+        lib.srt_trace_nearest_rays.restype = ci
+        if lib.srt_trace_nearest_rays() != NEAREST_RAYS:
+            raise RuntimeError(f"trace_nearest.cu holds {lib.srt_trace_nearest_rays()} rays "
+                               f"a thread, trace_kernel.py {NEAREST_RAYS}")
+        fn.argtypes = [vp, ci, vp, vp, ci, vp, vp, vp, vp, vp]
         fn.restype = ci
     return fn
 
@@ -80,16 +131,18 @@ def build_kernel() -> None:
 
 
 def launch_trace_nearest(tri_table: torch.Tensor, n_tri: int,
-                         orig: torch.Tensor, d: torch.Tensor
+                         orig: torch.Tensor, d: torch.Tensor, tally=None
                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch csrc/trace_nearest.cu on the current stream. Checks every
-    operand and raises on a launch error."""
+    """Launch csrc/trace_nearest.cu on the current stream; its work goes
+    into `tally` ((TALLY_ENTRIES,) int64) if given. Checks every operand
+    and raises on a launch error."""
     global LAUNCHES
     device = orig.device
     if device.type != "cuda":
         raise ValueError(f"launch_trace_nearest needs CUDA tensors, got {device}")
     n = _check_operands(tri_table, n_tri, orig, d)
-    tri_table, orig, d = tri_table.contiguous(), orig.contiguous(), d.contiguous()
+    check_tally(tally, device)
+    tri_table, orig, d = _aligned(tri_table), orig.contiguous(), d.contiguous()
     hit = torch.empty(n, dtype=torch.bool, device=device)
     idx = torch.empty(n, dtype=torch.int64, device=device)
     t = torch.empty(n, dtype=torch.float32, device=device)
@@ -97,7 +150,8 @@ def launch_trace_nearest(tri_table: torch.Tensor, n_tri: int,
         return hit, idx, t
     stream = torch.cuda.current_stream(device).cuda_stream
     rc = _cuda_fn()(tri_table.data_ptr(), n_tri, orig.data_ptr(), d.data_ptr(),
-                    n, hit.data_ptr(), idx.data_ptr(), t.data_ptr(), stream)
+                    n, hit.data_ptr(), idx.data_ptr(), t.data_ptr(),
+                    None if tally is None else tally.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"trace_nearest kernel launch failed: cudaError {rc}")
     LAUNCHES += 1
@@ -105,18 +159,27 @@ def launch_trace_nearest(tri_table: torch.Tensor, n_tri: int,
 
 
 def trace_nearest_vpu(tri_table: torch.Tensor, n_tri: int, orig: torch.Tensor,
-                      d: torch.Tensor
+                      d: torch.Tensor, tally=None
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Nearest triangle of the (N,3) float32 rays `orig`, `d` over the
     first `n_tri` rows of `tri_table` (F,12). Returns (hit (N,) bool, idx
     (N,) int64 with -1 on a miss, t (N,) float32 with 1e30 on a miss).
-    CUDA rays run the kernel; CPU rays run `trace_nearest_vpu_plain`."""
+    CUDA rays run the kernel; CPU rays run `trace_nearest_vpu_plain`.
+    `tally` ((TALLY_ENTRIES,) int64) gets the kernel's work, or on the CPU
+    its model's (`trace_tiers.nearest_tally_plain`)."""
     device = orig.device
     if device.type == "cpu":
-        return trace_nearest_vpu_plain(tri_table, n_tri, orig, d)
+        out = trace_nearest_vpu_plain(tri_table, n_tri, orig, d)
+        if tally is not None:
+            from software_rasterizer_tpu_torch.ops.trace_tiers import nearest_tally_plain
+
+            check_tally(tally, device)
+            tally += torch.tensor(nearest_tally_plain(tri_table, n_tri, orig, d),
+                                  dtype=torch.int64)
+        return out
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
-    return launch_trace_nearest(tri_table, n_tri, orig, d)
+    return launch_trace_nearest(tri_table, n_tri, orig, d, tally)
 
 
 # --------------------------------------------------------- plain version
@@ -199,16 +262,16 @@ def mt_plane(orig: torch.Tensor, d: torch.Tensor, rows: torch.Tensor,
 
 def mt_stage1_plane(orig: torch.Tensor, d: torch.Tensor,
                     rows: torch.Tensor) -> torch.Tensor:
-    """(N, C) bool: stage 1 of the two-stage test of kernels #6 and #8
-    (csrc/trace_culled.cu mt_stage1), |det| >= 1e-6 and u in [0, 1] with
-    `mt_plane`'s expressions; what each warp votes on."""
+    """(N, C) bool: stage 1 of the two-stage test of kernels #2, #4, #6, #7
+    and #8 (csrc/trace_common.cuh mt_stage1), |det| >= 1e-6 and u in [0, 1]
+    with `mt_plane`'s expressions; what each warp votes on."""
     return _mt_stage1(orig, d, rows)[0]
 
 
 def mt_plane_two_stage(orig: torch.Tensor, d: torch.Tensor,
                        rows: torch.Tensor) -> torch.Tensor:
     """The two-stage test's plain form: stage 1, then stage 2 on the
-    pairs whose stage 1 passed, BIG elsewhere (csrc/trace_culled.cu
+    pairs whose stage 1 passed, BIG elsewhere (csrc/trace_common.cuh
     mt_stage1 / mt_stage2). Equal to `mt_plane` bit for bit: its `ok`
     begins with stage 1's predicate."""
     st = _mt_stage1(orig, d, rows)

@@ -21,7 +21,9 @@ t. `block` and `chunk` change the work, never a result.
     does (`fused_warp_plain` models it).
   * `cull_prepass` + `chunk_lists` + `trace_nearest_mm2`: the (nb, nc)
     mask as a tensor, its ascending lists of surviving chunks, and the
-    sweep over each block's list; `cull=False` lists every chunk. The
+    sweep over each block's list, each warp of a ray block sweeping every
+    listed chunk with its rows streamed as below (`listed_warp_plain(vote=
+    False)` models it); `cull=False` lists every chunk. The
     prepass kernel votes per warp on the super-chunk boxes first and skips
     a super's chunks only where that is proven exact (`ray_proven`,
     `super_proven`; `cull_prepass_warp_plain` models it), so its mask is
@@ -33,11 +35,12 @@ t. `block` and `chunk` change the work, never a result.
   * `trace_nearest_mm`: no boxes and no lists, every chunk of the table
     staged in turn for every ray block (`nearest_hit(backend="mm")`).
 
-The fused, streamed and unculled kernels test each (ray, row) pair in two
-stages with a warp vote (`trace_kernel.mt_plane_two_stage`), and take a
-`tally`: an (`TALLY_ENTRIES`,) int64 tensor that gets the work they did
-(`TALLY_NAMES`). `fused_warp_plain`, `listed_warp_plain` and
-`unculled_tally_plain` are the plain models of that work, and of the
+The fused, listed, streamed and unculled kernels test each (ray, row) pair
+in two stages with a warp vote (`trace_kernel.mt_plane_two_stage`), as
+kernel #2 does, and take a `tally`: an (`TALLY_ENTRIES`,) int64 tensor
+that gets the work they did (`TALLY_NAMES`). `fused_warp_plain`,
+`listed_warp_plain`, `unculled_tally_plain` and, for kernel #2,
+`nearest_tally_plain` are the plain models of that work, and of the
 per-warp sweeps' results. The prepass kernel's tally has
 `CULL_TALLY_ENTRIES` entries (`CULL_TALLY_NAMES`).
 
@@ -67,7 +70,14 @@ import torch
 from software_rasterizer_tpu_torch.ops.bvh import _inv_dir, slab_test
 from software_rasterizer_tpu_torch.ops.trace_kernel import (
     BIG,
+    NEAREST_RAYS,
+    NEAREST_THREADS,
+    TALLY_ENTRIES,
+    TALLY_NAMES,
+    _aligned,
     _check,
+    _check_operands,
+    check_tally,
     mt_plane,
     mt_stage1_plane,
     plane_winner,
@@ -98,18 +108,8 @@ WALK_SLICE = 128
 # threads of a CUDA block of the tier kernels (csrc/trace_culled.cu
 # kMaxThreads)
 MAX_THREADS = 256
-# The tally of the two-stage kernels #4, #6 and #8 (csrc/trace_culled.cu
-# VoteTally), in order: warp-steps (a warp, a row, a ray slot j of its
-# threads), the warp-steps whose stage-1 vote passed (stage 2 ran), the
-# active rays' (ray, row) tests, those of them in voted steps (full
-# tests), the active rays' slab tests (#6: on listed chunks' boxes; #4: on
-# super and chunk boxes), the (warp, chunk) votes (#6: on listed chunks;
-# #4: on the chunks of the supers the warp enters) and those the warp
-# skipped (none of its rays enters the box), and the tests whose own ray
-# passed stage 1. s = voted / steps, w = skipped / warp_chunks.
-TALLY_NAMES = ("steps", "voted", "tests", "full_tests", "slab_tests", "warp_chunks",
-               "warp_chunks_skipped", "stage1_passes")
-TALLY_ENTRIES = len(TALLY_NAMES)
+# The tally of the two-stage kernels, TALLY_NAMES and TALLY_ENTRIES, is
+# trace_kernel.py's (kernel #2 counts the same entries).
 # The tally of the prepass kernel #5 (csrc/trace_culled.cu CullTally), in
 # order: the active rays' slab tests on super boxes and on chunk boxes, the
 # (warp, super) pairs, those whose vote no ray passed (the super's chunks
@@ -123,7 +123,7 @@ CULL_TALLY_ENTRIES = len(CULL_TALLY_NAMES)
 # reset them to 0 to count one run
 LAUNCHES_MM2C = 0   # trace_fused_cull_kernel
 LAUNCHES_CULL = 0   # cull_prepass_kernel
-LAUNCHES_MM2 = 0    # trace_listed_kernel
+LAUNCHES_MM2 = 0    # trace_listed_all_kernel
 LAUNCHES_MM2S = 0   # trace_listed_stream_kernel
 LAUNCHES_MM = 0     # trace_unculled_kernel
 
@@ -306,25 +306,6 @@ def _outputs(n: int, device):
             torch.empty(n, dtype=torch.float32, device=device))
 
 
-def _aligned(tri_table: torch.Tensor) -> torch.Tensor:
-    """The table contiguous and on a 16-byte boundary (rows are copied as
-    float4)."""
-    tri_table = tri_table.contiguous()
-    return tri_table if tri_table.data_ptr() % 16 == 0 else tri_table.clone()
-
-
-def _check_tally(tally, device, entries: int = TALLY_ENTRIES) -> None:
-    """A tally of kernels #4, #6 and #8 ((TALLY_ENTRIES,) int64) or of #5
-    (`entries` = CULL_TALLY_ENTRIES), contiguous, on the rays' device (or
-    None)."""
-    if tally is None:
-        return
-    _check("tally", tally.reshape(1, -1), torch.int64, entries, device)
-    if tally.shape != (entries,) or not tally.is_contiguous():
-        raise ValueError(f"tally must be a contiguous ({entries},) tensor, got "
-                         f"{tuple(tally.shape)}")
-
-
 def _check_supers(lo2, hi2, nc: int, device) -> None:
     if _check_boxes(lo2, hi2, device) != -(-nc // MM2C_SUPER):
         raise ValueError(f"{lo2.shape[0]} super-chunk boxes for {nc} chunks")
@@ -347,7 +328,7 @@ def launch_cull_prepass(chunk_lo, chunk_hi, orig, d, block: int, supers=None,
     nc = _check_boxes(chunk_lo, chunk_hi, device)
     lo2, hi2 = super_bounds(chunk_lo, chunk_hi) if supers is None else supers
     _check_supers(lo2, hi2, nc, device)
-    _check_tally(tally, device, CULL_TALLY_ENTRIES)
+    check_tally(tally, device, CULL_TALLY_ENTRIES)
     mask = torch.empty((-(-n // block), nc), dtype=torch.uint8, device=device)
     if mask.numel() == 0:
         return mask
@@ -367,10 +348,10 @@ def launch_cull_prepass(chunk_lo, chunk_hi, orig, d, block: int, supers=None,
 def launch_trace_listed(tri_table, counts, lists, orig, d, chunk: int,
                         block: int, stream: bool = False, chunk_lo=None,
                         chunk_hi=None, tally=None) -> Trace:
-    """Launch `trace_listed_kernel` or, with `stream`,
+    """Launch `trace_listed_all_kernel` or, with `stream`,
     `trace_listed_stream_kernel` on the current stream. `lists` is (nb, nc)
     or one shared row (1, nc). The streamed kernel also takes the chunk
-    boxes `chunk_lo/hi` (nc,3), on which each warp votes, and adds its
+    boxes `chunk_lo/hi` (nc,3), on which each warp votes. Either adds its
     work to `tally` ((TALLY_ENTRIES,) int64) if given. Checks every operand
     and raises on a launch error."""
     global LAUNCHES_MM2, LAUNCHES_MM2S
@@ -387,9 +368,9 @@ def launch_trace_listed(tri_table, counts, lists, orig, d, chunk: int,
             raise ValueError("the streamed kernel needs the chunk boxes chunk_lo / chunk_hi")
         if _check_boxes(chunk_lo, chunk_hi, device) != nc:
             raise ValueError(f"{chunk_lo.shape[0]} chunk boxes for {nc} chunks")
-        _check_tally(tally, device)
-    elif chunk_lo is not None or chunk_hi is not None or tally is not None:
-        raise ValueError("chunk boxes and tally are the streamed kernel's")
+    elif chunk_lo is not None or chunk_hi is not None:
+        raise ValueError("chunk boxes are the streamed kernel's")
+    check_tally(tally, device)
     hit, idx, t = _outputs(n, device)
     if n == 0:
         return hit, idx, t
@@ -428,7 +409,7 @@ def launch_trace_fused_cull(tri_table, chunk_lo, chunk_hi, lo2, hi2, orig, d,
     _check_table(tri_table, chunk, nc, device)
     _check_supers(lo2, hi2, nc, device)
     nsc = lo2.shape[0]
-    _check_tally(tally, device)
+    check_tally(tally, device)
     hit, idx, t = _outputs(n, device)
     if n == 0:
         return hit, idx, t
@@ -458,7 +439,7 @@ def launch_trace_unculled(tri_table, orig, d, block: int, tally=None) -> Trace:
     n = _check_rays(orig, d)
     _check_block(block)
     _check("tri_table", tri_table, torch.float32, 12, device)
-    _check_tally(tally, device)
+    check_tally(tally, device)
     hit, idx, t = _outputs(n, device)
     if n == 0:
         return hit, idx, t
@@ -532,7 +513,7 @@ def trace_nearest_mm(tri_table, orig, d, chunk: int = MM_MAX_CHUNK,
     if _on_cpu(orig.device):
         out = trace_nearest_mm_plain(tri_table, orig, d, chunk, block)
         if tally is not None:
-            _check_tally(tally, orig.device)
+            check_tally(tally, orig.device)
             tally += torch.tensor(unculled_tally_plain(tri_table, orig, d, block),
                                   dtype=torch.int64)
         return out
@@ -553,24 +534,26 @@ def _listed(tri_table, chunk_lo, chunk_hi, orig, d, chunk, block, cull, stream,
     if _on_cpu(orig.device):
         if tally is None:
             return trace_listed_plain(tri_table, counts, lists, orig, d, chunk, block)
-        _check_tally(tally, orig.device)
+        check_tally(tally, orig.device)
         out, work = listed_warp_plain(tri_table, chunk_lo, chunk_hi, counts, lists,
-                                      orig, d, chunk, block)
+                                      orig, d, chunk, block, vote=stream)
         tally += torch.tensor(work, dtype=torch.int64)
         return out
     if stream:
         return launch_trace_listed(tri_table, counts, lists, orig, d, chunk, block,
                                    stream=True, chunk_lo=chunk_lo, chunk_hi=chunk_hi,
                                    tally=tally)
-    return launch_trace_listed(tri_table, counts, lists, orig, d, chunk, block)
+    return launch_trace_listed(tri_table, counts, lists, orig, d, chunk, block, tally=tally)
 
 
 def trace_nearest_mm2(tri_table, chunk_lo, chunk_hi, orig, d, chunk: int = 128,
-                      block: int = DEFAULT_BLOCK, cull: bool = True) -> Trace:
+                      block: int = DEFAULT_BLOCK, cull: bool = True, tally=None) -> Trace:
     """Nearest triangle over each ray block's list of surviving chunks
-    (`cull_prepass` + `chunk_lists`); `cull=False` visits every chunk."""
+    (`cull_prepass` + `chunk_lists`); `cull=False` visits every chunk.
+    `tally` ((TALLY_ENTRIES,) int64) gets the kernel's work, or on the CPU
+    its model's (`listed_warp_plain(vote=False)`)."""
     return _listed(tri_table, chunk_lo, chunk_hi, orig, d, chunk, block, cull,
-                   stream=False)
+                   stream=False, tally=tally)
 
 
 def trace_nearest_mm2_stream(tri_table, chunk_lo, chunk_hi, orig, d,
@@ -704,17 +687,24 @@ def launch_shape(block: int) -> Tuple[int, int]:
     return threads, 1 if r <= 1 else 2 if r <= 2 else 4 if r <= 4 else 8
 
 
-def warp_rays(n: int, block: int, device) -> torch.Tensor:
-    """(nb, warps, R, WARP) int64: the ray each lane of each warp holds in
-    slot j (ray block b's warp w, lane l: ray b * block + w * WARP + l +
-    j * threads), -1 where the lane holds no ray (past the block or N)."""
-    threads, rays = launch_shape(block)
+def _block_lanes(n: int, block: int, threads: int, rays: int, device) -> torch.Tensor:
+    """(nb, warps, rays, WARP) int64: the ray each lane of each warp holds
+    in slot j when thread k of a CUDA block holds rays k + j * threads of
+    its `block` rays (block b's warp w, lane l: ray b * block + w * WARP +
+    l + j * threads), -1 where the lane holds no ray (past the block or
+    N)."""
     nb = -(-n // block)
     local = (torch.arange(threads // WARP, device=device)[:, None, None] * WARP
              + torch.arange(rays, device=device)[None, :, None] * threads
              + torch.arange(WARP, device=device)[None, None, :])
     ids = torch.arange(nb, device=device)[:, None, None, None] * block + local[None]
     return torch.where((local[None] < block) & (ids < n), ids, -1)
+
+
+def warp_rays(n: int, block: int, device) -> torch.Tensor:
+    """`_block_lanes` of the tier kernels' ray blocks of `block` rays
+    (`launch_shape`)."""
+    return _block_lanes(n, block, *launch_shape(block), device)
 
 
 def _lane_rays(orig, d, ids):
@@ -747,33 +737,59 @@ def _vote_counts(o_, d_, valid, rows) -> Tuple[int, int, int, int, int]:
     return n_slots * n_rows, voted, int(active.sum()) * n_rows, full, passes
 
 
-def unculled_tally_plain(tri_table, orig, d, block: int = MM_BLOCK) -> Tuple[int, ...]:
-    """The work kernel #8 adds to its tally on these rays (`TALLY_NAMES`
-    order): every warp of every ray block sweeps every row of the table,
-    each (row, ray slot) a warp-step, voted when some lane's ray passes
-    stage 1 (`mt_stage1_plane`); a lane without a ray holds the zero ray
-    and never passes. No slab tests, no listed chunks."""
-    n = _check_rays(orig, d)
-    o_, d_, valid = _lane_rays(orig, d, warp_rays(n, block, orig.device))
+def _rows_tally(orig, d, ids, rows) -> Tuple[int, ...]:
+    """The tally (`TALLY_NAMES` order) of the warps of the lanes `ids`
+    each sweeping every row of `rows` with every slot: each (row, slot) a
+    warp-step, voted when some lane's ray passes stage 1
+    (`mt_stage1_plane`); a lane without a ray holds the zero ray and never
+    passes. No slab tests, no chunk votes. Steps over rows to bound the
+    planes."""
+    o_, d_, valid = _lane_rays(orig, d, ids)
     work = [0] * TALLY_ENTRIES
     span = max(1, _PLAIN_STEP // max(o_.shape[0], 1))
-    for r0 in range(0, tri_table.shape[0], span):
-        steps, voted, tests, full, passes = _vote_counts(o_, d_, valid,
-                                                         tri_table[r0:r0 + span])
+    for r0 in range(0, rows.shape[0], span):
+        steps, voted, tests, full, passes = _vote_counts(o_, d_, valid, rows[r0:r0 + span])
         for k, x in ((0, steps), (1, voted), (2, tests), (3, full), (7, passes)):
             work[k] += x
     return tuple(work)
 
 
+def unculled_tally_plain(tri_table, orig, d, block: int = MM_BLOCK) -> Tuple[int, ...]:
+    """The work kernel #8 adds to its tally on these rays: every warp of
+    every ray block sweeps every row of the table (`_rows_tally`)."""
+    n = _check_rays(orig, d)
+    return _rows_tally(orig, d, warp_rays(n, block, orig.device), tri_table)
+
+
+def nearest_warp_rays(n: int, rays: int, device) -> torch.Tensor:
+    """(warps, rays, WARP) int64: the ray each lane of each warp of kernel
+    #2 holds in slot j when a thread holds `rays` slots (`_block_lanes` of
+    blocks of NEAREST_THREADS threads and NEAREST_THREADS * rays rays), -1
+    at or past N: an absent ray, which the warp sweeps with all the same."""
+    return _block_lanes(n, NEAREST_THREADS * rays, NEAREST_THREADS, rays,
+                        device).reshape(-1, rays, WARP)
+
+
+def nearest_tally_plain(tri_table, n_tri: int, orig, d,
+                        rays: int = NEAREST_RAYS) -> Tuple[int, ...]:
+    """The work kernel #2 adds to its tally on these rays when a thread
+    holds `rays` ray slots: every warp of the grid (`nearest_warp_rays`)
+    sweeps the first `n_tri` rows (`_rows_tally`)."""
+    n = _check_operands(tri_table, n_tri, orig, d)
+    return _rows_tally(orig, d, nearest_warp_rays(n, rays, orig.device), tri_table[:n_tri])
+
+
 def listed_warp_plain(tri_table, chunk_lo, chunk_hi, counts, lists, orig, d,
-                      chunk: int, block: int):
+                      chunk: int, block: int, vote: bool = True):
     """A plain model of kernel #6 (trace_listed_stream_kernel): ray block b's
     listed chunks lists[b, :counts[b]] (ascending), each warp of the block
     voting on each one's box (`slab_test` of each of its rays) and sweeping
     its rows only if some ray of the warp enters it. Returns (hit, idx, t),
     equal to `trace_listed_plain` bit for bit (a warp skips only chunks
     none of its rays can hit), and the work the kernel adds to its tally,
-    in `TALLY_NAMES` order."""
+    in `TALLY_NAMES` order. Without `vote`, kernel #7
+    (trace_listed_all_kernel): every warp sweeps every listed chunk, no
+    slab test and no chunk vote is made, and the boxes are only checked."""
     n = _check_rays(orig, d)
     _check_block(block)
     nc = _check_boxes(chunk_lo, chunk_hi, orig.device)
@@ -792,14 +808,17 @@ def listed_warp_plain(tri_table, chunk_lo, chunk_hi, counts, lists, orig, d,
     work = [0] * TALLY_ENTRIES
     for c in torch.nonzero(visit.any(dim=0)).flatten().tolist():
         ids = lanes[torch.nonzero(visit[:, c]).flatten()].reshape(-1, rays, WARP)
-        o_, d_, valid = _lane_rays(orig, d, ids)
-        enter = torch.zeros_like(valid)
-        enter[valid] = slab_test(o_[valid], d_[valid], chunk_lo[c:c + 1],
-                                 chunk_hi[c:c + 1])[:, 0]
-        warp_in = enter.reshape(-1, rays * WARP).any(dim=1)
-        work[4] += int(valid.sum())
-        work[5] += ids.shape[0]
-        work[6] += int((~warp_in).sum())
+        if vote:
+            o_, d_, valid = _lane_rays(orig, d, ids)
+            enter = torch.zeros_like(valid)
+            enter[valid] = slab_test(o_[valid], d_[valid], chunk_lo[c:c + 1],
+                                     chunk_hi[c:c + 1])[:, 0]
+            warp_in = enter.reshape(-1, rays * WARP).any(dim=1)
+            work[4] += int(valid.sum())
+            work[5] += ids.shape[0]
+            work[6] += int((~warp_in).sum())
+        else:
+            warp_in = torch.ones(ids.shape[0], dtype=torch.bool, device=dev)
         g = tri_table[c * chunk:min((c + 1) * chunk, n_rows)]
         if g.shape[0] == 0 or not bool(warp_in.any()):
             continue

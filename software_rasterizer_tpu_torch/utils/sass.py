@@ -18,10 +18,11 @@ ray and row) and no other MUFU function: the sphere loop holds square roots, the
 sampling code logarithms and sines. The count is static: every
 instruction of the loop body, a conditional block included, once. It
 needs the CUDA toolkit's cuobjdump; only the machine with the card has it.
-For the two-stage test of kernels #6 and #8 it also counts the
-instructions a warp skips when its stage-1 vote fails (`--rays 1` for
-trace_listed_stream_kernel, 4 for trace_unculled_kernel at its blocks of
-1024 rays).
+For the two-stage test of kernels #2, #4, #6, #7 and #8 it also counts
+the instructions a warp skips when its stage-1 vote fails (`--rays 2` for
+trace_nearest_kernel, 1 for trace_listed_stream_kernel,
+trace_listed_all_kernel and trace_fused_cull_kernel at blocks of 64 rays,
+4 for trace_unculled_kernel at its blocks of 1024 rays).
 
 With `--boxes` it counts the box loop of the cull prepass
 (cull_prepass_kernel) instead, which holds no reciprocal: the innermost
