@@ -141,7 +141,19 @@ Phases, one line each; any failure exits non-zero:
  29. the large-scene main path: pipeline_from_config -> PathTracing.draw()
      and RayTracing.draw() on both scenes at 1024x1024 through the culled
      kernels (launch counts), frames equal to phases 26 and 28, times,
-     Mpaths/s beside the full sweep's, bounds.
+     Mpaths/s beside the full sweep's, bounds;
+ 30. sharding on one card: 4 ranks spawned (torch.multiprocessing,
+     "spawn") share the card in one process group (parallel.initialize's
+     rule takes gloo), each rendering its slice through the port's
+     sharded renders (parallel/): path on (1, 4) and (2, 2) meshes (#1)
+     and on the 9,216-triangle box (#1b), Whitted on Cornell, two
+     emitters at spp 1 and 4 (#9) and the large box (#9b), raster rows
+     deferred (#10) and shaded (#11); every frame (and z-buffer, stats)
+     bit for bit against the single-rank render (the (2, 2) path
+     against its two partial sums), one launch a rank and call, each
+     rank's kernel call, the sharded call and its collectives alone
+     (CUDA events) beside the single-rank call; and NCCL's answer to two
+     ranks on one card.
 
 The last lines are a JSON line of per-kernel results (time beside the
 card's bound for the same work; the Whitted kernel's `launches` is phase
@@ -161,6 +173,7 @@ and #11 with their binning.
 
 from __future__ import annotations
 
+import functools
 import json
 import pathlib
 import re
@@ -238,6 +251,12 @@ HBM_RATE = 3.35e12
 SCHEDULERS_PER_SM = 4
 # repeats of a timed kernel in phases 5 and 18
 TIME_REPS = 10
+# phase 30: ranks sharing the one card, the large scene's spp, repeats of
+# each timed call, and the ranks of the NCCL probe
+SHARD_RANKS = 4
+SHARD_LARGE_SPP = 4
+SHARD_REPS = 5
+NCCL_PROBE_RANKS = 2
 # earlier readings of the culled path kernels on an NVIDIA H100 80GB HBM3 at
 # 700 W (the kernel table of PERF.md, section 6), printed beside this run's:
 # the 16-spp frame of the camera kernel and 16 bounces of the frame's primary
@@ -594,6 +613,7 @@ def main() -> int:
     whitted["launches_two_emitters"] = picks["launches"]
     whitted["max_abs_err"] = max(whitted["max_abs_err"], picks["max_abs_err"])
     whitted["culled"] = culled["whitted"]
+    sharding_phase(dev, card)
 
     print(json.dumps({"kernels": [{
         "name": "path_camera",
@@ -3871,6 +3891,353 @@ def whitted_emitter_phases(dev, card: str) -> dict:
               f"split key, a second draw differs; ms as median [min-max] of 20 on "
               f"{card}: " + "; ".join(times))
     return {"launches": launches, "max_abs_err": max_err}
+
+
+def shard_scenes(dev):
+    """Phase 30's scenes at WIDTH x HEIGHT on `dev`, as each rank builds
+    them for itself: name -> (device scene, fovy); "raster" -> (geometry,
+    frame, active shader types)."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_scenes import stress_cornell, two_emitter_cornell
+
+    from software_rasterizer_tpu_torch import models
+    from software_rasterizer_tpu_torch.ops import raster as tr
+    from software_rasterizer_tpu_torch.ops.intersect import prepare_rt_scene
+    from software_rasterizer_tpu_torch.scenes import build_cornell_scene
+    from software_rasterizer_tpu_torch.scenes.stress import subdivide_mesh
+
+    def rt_of(scene):
+        scene.set_ndc_matrix(WIDTH, HEIGHT)
+        return prepare_rt_scene(scene.rt_geometry(), scene.rt_frame(), dev), scene.fovy
+
+    rscene = raster_scene("three")
+    rscene.set_ndc_matrix(WIDTH, HEIGHT)
+    host = rscene.raster_geometry()
+    return {
+        "cornell": rt_of(build_cornell_scene()),
+        "large": rt_of(stress_cornell(build_cornell_scene, subdivide_mesh, LARGE_LEVELS[0])),
+        "two": rt_of(two_emitter_cornell(models, build_cornell_scene)),
+        "raster": (tr.prepare_raster_geometry(host, dev),
+                   tr.prepare_raster_frame(rscene.raster_frame(), dev),
+                   tuple(sorted(set(int(t) for t in host.shader_type)))),
+    }
+
+
+# phase 30's cases: name -> (mesh, scene, kind, spp); kind "path", "whitted",
+# "raster" or "raster_shaded"
+SHARD_CASES = {
+    "path": ((1, SHARD_RANKS), "cornell", "path", SPP),
+    "path_spp": ((2, SHARD_RANKS // 2), "cornell", "path", SPP),
+    "path_large": ((1, SHARD_RANKS), "large", "path", SHARD_LARGE_SPP),
+    "whitted": ((1, SHARD_RANKS), "cornell", "whitted", 1),
+    "whitted_two": ((1, SHARD_RANKS), "two", "whitted", 1),
+    "whitted_two_spp": ((2, SHARD_RANKS // 2), "two", "whitted", WHITTED_EMITTER_SPP),
+    "whitted_large": ((1, SHARD_RANKS), "large", "whitted", 1),
+    "raster": ((1, SHARD_RANKS), "raster", "raster", 1),
+    "raster_shaded": ((2, SHARD_RANKS // 2), "raster", "raster_shaded", 1),
+}
+
+
+def shard_rank_cases(device: str = "cuda") -> dict:
+    """Phase 30 on one rank of the group (every rank runs it): each case
+    through the port's sharded render with the launch counts set to 0
+    just before and read just after; then, for each case and in step
+    with the other ranks, the times (CUDA events, SHARD_REPS each) of
+    this rank's kernel call on its own slice, of the sharded call, and of
+    the sharded call's collectives alone on tensors of the same shapes.
+    Rank 0 returns the frames; every rank their digests."""
+    import hashlib
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from software_rasterizer_tpu_torch.ops import path_kernel as pk
+    from software_rasterizer_tpu_torch.ops import raster as tr
+    from software_rasterizer_tpu_torch.ops import raster_kernel as rk
+    from software_rasterizer_tpu_torch.ops import whitted_kernel as wk
+    from software_rasterizer_tpu_torch.ops.camera import camera_rays
+    from software_rasterizer_tpu_torch.ops.path_kernel import path_camera_render
+    from software_rasterizer_tpu_torch.ops.whitted_kernel import whitted_uber_trace
+    from software_rasterizer_tpu_torch.parallel import (
+        make_render_mesh,
+        process_info,
+        sharded_path_render,
+        sharded_raster_render,
+        sharded_whitted_render,
+    )
+    from software_rasterizer_tpu_torch.parallel.multihost import gather_rows
+
+    info = process_info()
+    rank = info["process_index"]
+    meshes = {shape: make_render_mesh(*shape, device=device) for shape in
+              {c[0] for c in SHARD_CASES.values()}}
+    dev = next(iter(meshes.values())).device
+    scenes = shard_scenes(dev)
+    counters = {"#1": (pk, "LAUNCHES"), "#1b": (pk, "LAUNCHES_CULLED"),
+                "#9": (wk, "LAUNCHES"), "#9b": (wk, "LAUNCHES_CULLED"),
+                "#10": (rk, "LAUNCHES"), "#11": (rk, "LAUNCHES_SHADED")}
+    n = WIDTH * HEIGHT
+    out = {"info": info, "device": str(dev), "frames": {}, "digests": {},
+           "launches": {}, "stats": {}, "ms": {},
+           "coords": {s: (m.spp_index, m.tile_index) for s, m in meshes.items()}}
+
+    def sync_barrier():
+        torch.cuda.synchronize()
+        dist.barrier()
+
+    def event_ms(fn) -> float:
+        sync_barrier()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end)
+
+    for name, (shape, scene_name, kind, spp) in SHARD_CASES.items():
+        m = meshes[shape]
+        if kind == "path":
+            rt, fovy = scenes[scene_name]
+            lanes, spp_per = n // m.n_tile, spp // m.n_spp
+
+            def call():
+                return sharded_path_render(rt, m, WIDTH, HEIGHT, fovy, SEED, spp=spp,
+                                           max_bounces=MAX_BOUNCES)
+
+            def own():
+                return path_camera_render(rt, SEED, WIDTH, HEIGHT, fovy, spp_per,
+                                          start_sample=m.spp_index * spp_per,
+                                          lane_offset=m.tile_index * lanes, n_lanes=lanes,
+                                          max_bounces=MAX_BOUNCES)
+
+            piece = torch.zeros((lanes, 3), dtype=torch.float32, device=dev)
+
+            def collectives():
+                t = piece.clone()
+                if m.n_spp > 1:
+                    dist.all_reduce(t, group=m.group("spp"))
+                return gather_rows(t, m.group("tile")) if m.n_tile > 1 else t
+        elif kind == "whitted":
+            rt, fovy = scenes[scene_name]
+            lanes = n // m.n_devices
+            o, d = camera_rays(rt.eye.cpu().numpy(), fovy, WIDTH, HEIGHT, dev)
+            o = o[m.index * lanes:(m.index + 1) * lanes].contiguous()
+            d = d[m.index * lanes:(m.index + 1) * lanes].contiguous()
+
+            def call():
+                return sharded_whitted_render(rt, m, WIDTH, HEIGHT, fovy, SEED, spp=spp,
+                                              max_depth=WHITTED_DEPTH, with_stats=True)
+
+            def own():
+                return whitted_uber_trace(rt, o, d, WHITTED_DEPTH, key=SEED, spp=spp,
+                                          lane_offset=m.index * lanes)
+
+            piece = torch.zeros((lanes, 3), dtype=torch.float32, device=dev)
+            counts = torch.zeros(2, dtype=torch.int64, device=dev)
+
+            def collectives():
+                dist.all_reduce(counts.clone(), group=m.group())
+                return gather_rows(piece, m.group())
+        else:
+            geom, frame, active = scenes["raster"]
+            shaded = kind == "raster_shaded"
+            shard_h = HEIGHT // m.n_devices
+
+            def call():
+                return sharded_raster_render(geom, frame, m, HEIGHT, WIDTH,
+                                             active_types=active, shaded=shaded,
+                                             with_stats=True)
+
+            def own():
+                return tr.render_raster_frame(geom, frame, shard_h, WIDTH,
+                                              active_types=active, shaded=shaded,
+                                              row0=m.index * shard_h)
+
+            img_piece = torch.zeros((shard_h, WIDTH, 3), dtype=torch.float32, device=dev)
+            z_piece = torch.zeros((shard_h, WIDTH), dtype=torch.float32, device=dev)
+            dropped = torch.zeros((), dtype=torch.int32, device=dev)
+
+            def collectives():
+                dist.all_reduce(dropped.clone(), group=m.group())
+                return gather_rows(img_piece, m.group()), gather_rows(z_piece, m.group())
+
+        sync_barrier()
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
+        res = call()
+        torch.cuda.synchronize()
+        out["launches"][name] = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()
+                                 if getattr(mod, attr)}
+        if kind == "path":
+            arrays = {"image": res}
+        elif kind == "whitted":
+            arrays = {"image": res[0]}
+            out["stats"][name] = {k: int(v.sum()) for k, v in res[1].items()}
+        else:
+            arrays = {"image": res[0], "z": res[1]}
+            out["stats"][name] = {"bin_dropped": int(res[2]["bin_dropped"]),
+                                  "kernel": res[2]["kernel"]}
+        arrays = {k: v.cpu().numpy() for k, v in arrays.items()}
+        out["digests"][name] = {k: hashlib.sha256(v.tobytes()).hexdigest()
+                                for k, v in arrays.items()}
+        if rank == 0:
+            out["frames"][name] = arrays
+
+        own()
+        call()
+        collectives()
+        out["ms"][name] = {
+            "own": [event_ms(own) for _ in range(SHARD_REPS)],
+            "call": [event_ms(call) for _ in range(SHARD_REPS)],
+            "collectives": [event_ms(collectives) for _ in range(SHARD_REPS)],
+        }
+    return out
+
+
+def nccl_probe() -> float:
+    """One all-reduce in an NCCL group (phase 30 runs it with two ranks on
+    the one card, where NCCL refuses them)."""
+    import torch
+    import torch.distributed as dist
+
+    t = torch.ones(1, device="cuda")
+    dist.all_reduce(t)
+    torch.cuda.synchronize()
+    return float(t)
+
+
+def sharding_phase(dev, card: str) -> None:
+    """Phase 30: the sharded renders of parallel/ on SHARD_RANKS ranks
+    that share this card (see the module docstring)."""
+    import numpy as np
+    import torch
+
+    from software_rasterizer_tpu_torch.ops import path_kernel as pk
+    from software_rasterizer_tpu_torch.ops import raster as tr
+    from software_rasterizer_tpu_torch.ops.path import path_render
+    from software_rasterizer_tpu_torch.ops.whitted import whitted_render
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_shards import run_ranks
+
+    torch.cuda.empty_cache()   # the earlier phases' cached blocks, for the ranks
+    t0 = time.perf_counter()
+    ranks = run_ranks(SHARD_RANKS, shard_rank_cases, (dev.type,), device=dev.type,
+                      timeout=600)
+    group_s = time.perf_counter() - t0
+    info = ranks[0]["info"]
+    if info["process_count"] != SHARD_RANKS or info["backend"] != "gloo":
+        fail(f"sharding: process_info {info}: expected {SHARD_RANKS} ranks on gloo "
+             f"(ranks sharing one card)")
+    for r, res in enumerate(ranks):
+        for shape, coord in res["coords"].items():
+            if coord != (r // shape[1], r % shape[1]):
+                fail(f"sharding: rank {r} at {coord} on the {shape} mesh")
+    coords = "; ".join(f"rank {r} on {res['device']}: " + ", ".join(
+        f"{s[0]}x{s[1]} {c}" for s, c in sorted(res["coords"].items()))
+        for r, res in enumerate(ranks))
+    phase(30, f"sharding on one card: {SHARD_RANKS} ranks, backend {info['backend']} "
+              f"(parallel.initialize's rule: {SHARD_RANKS} ranks share "
+              f"{torch.cuda.device_count()} card), world {info['process_count']}, "
+              f"(spp, tile) coordinates {coords}; group spawned and run in {group_s:.1f}s")
+
+    scenes = shard_scenes(dev)
+    frames = ranks[0]["frames"]
+    refs, lines = {}, []
+    for name, (shape, scene_name, kind, spp) in SHARD_CASES.items():
+        for r, res in enumerate(ranks[1:], 1):
+            if res["digests"][name] != ranks[0]["digests"][name]:
+                fail(f"sharding {name}: rank {r}'s frame differs from rank 0's")
+        want_kernel = {"path": "#1b" if scene_name == "large" else "#1",
+                       "whitted": "#9b" if scene_name == "large" else "#9",
+                       "raster": "#10", "raster_shaded": "#11"}[kind]
+        launches = [res["launches"][name] for res in ranks]
+        if any(lc != {want_kernel: 1} for lc in launches):
+            fail(f"sharding {name}: launches per rank {launches}, expected "
+                 f"{{'{want_kernel}': 1}} on each")
+        got = frames[name]
+        extra = ""
+        if kind == "path":
+            rt, fovy = scenes[scene_name]
+            mono = functools.partial(path_render, rt, WIDTH, HEIGHT, fovy, SEED, spp=spp,
+                                     max_bounces=MAX_BOUNCES)
+            want = mono().cpu().numpy()
+            if shape[0] == 1:
+                same = np.array_equal(got["image"], want)
+                extra = "== path_render bit for bit"
+            else:
+                half = spp // shape[0]
+                parts = [pk.path_camera_render(rt, SEED, WIDTH, HEIGHT, fovy, half,
+                                               start_sample=s0, max_bounces=MAX_BOUNCES).T
+                         for s0 in range(0, spp, half)]
+                psum = parts[0]
+                for part in parts[1:]:
+                    psum = psum + part
+                psum = (psum / float(spp)).reshape(HEIGHT, WIDTH, 3).cpu().numpy()
+                same = np.array_equal(got["image"], psum)
+                extra = (f"== the {shape[0]} partial sums bit for bit; max |diff| from "
+                         f"path_render {np.abs(got['image'] - want).max():.3g}")
+            if not same:
+                fail(f"sharding {name}: the frame differs: {extra}")
+            extra += f"; {WIDTH * HEIGHT // shape[1]} lanes x {spp // shape[0]} spp a rank"
+        elif kind == "whitted":
+            rt, fovy = scenes[scene_name]
+            mono = functools.partial(whitted_render, rt, WIDTH, HEIGHT, fovy, SEED, spp=spp,
+                                     max_depth=WHITTED_DEPTH, with_stats=True)
+            img, st = mono()
+            st = {k: int(v.sum()) for k, v in st.items()}
+            if not np.array_equal(got["image"], img.cpu().numpy()):
+                fail(f"sharding {name}: the frame differs from whitted_render")
+            if ranks[0]["stats"][name] != st:
+                fail(f"sharding {name}: stats {ranks[0]['stats'][name]} != {st}")
+            extra = f"== whitted_render bit for bit, stats {st} equal"
+        else:
+            geom, frame, active = scenes["raster"]
+            shaded = kind == "raster_shaded"
+            mono = functools.partial(tr.render_raster_frame, geom, frame, HEIGHT, WIDTH,
+                                     active_types=active, shaded=shaded, with_stats=True)
+            img, z, st = mono()
+            if not (np.array_equal(got["image"], img.cpu().numpy())
+                    and np.array_equal(got["z"], z.cpu().numpy())):
+                fail(f"sharding {name}: image or z differs from the whole frame")
+            mine = ranks[0]["stats"][name]
+            if mine["kernel"] != st["kernel"]:
+                fail(f"sharding {name}: kernel {mine['kernel']} != {st['kernel']}")
+            extra = (f"image and z == the whole frame bit for bit ({st['kernel']}); "
+                     f"bin_dropped summed over the ranks {mine['bin_dropped']}, whole "
+                     f"frame {int(st['bin_dropped'])}; shard_h "
+                     f"{HEIGHT // SHARD_RANKS}")
+        refs[name] = mono
+        lines.append(f"{name} {shape[0]}x{shape[1]} ({scene_name}, spp {spp}, "
+                     f"{want_kernel} x1 a rank): {extra}")
+    print("[phase 30] " + "; ".join(lines), flush=True)
+
+    times = []
+    for name, mono in refs.items():
+        mono_ms = statistics.median(cuda_times(mono, SHARD_REPS))
+        per = {k: [statistics.median(res["ms"][name][k]) for res in ranks]
+               for k in ("own", "call", "collectives")}
+        times.append(f"{name}: rank kernel call {min(per['own']):.3f}-{max(per['own']):.3f}, "
+                     f"sharded call {min(per['call']):.3f}-{max(per['call']):.3f}, "
+                     f"collectives alone {min(per['collectives']):.3f}-"
+                     f"{max(per['collectives']):.3f}; single rank {mono_ms:.3f}")
+    print(f"[phase 30] 4 ranks sharing one H100: the cost of sharding, not scaling; "
+          f"ms, the lowest-highest of the ranks' medians of {SHARD_REPS} (CUDA events) on "
+          f"{card}: " + "; ".join(times), flush=True)
+
+    try:
+        run_ranks(NCCL_PROBE_RANKS, nccl_probe, device="cuda", timeout=180,
+                  backend="nccl")
+        nccl = f"NCCL accepted {NCCL_PROBE_RANKS} ranks on one card"
+    except RuntimeError as e:  # the refusal is what the probe records
+        said = [ln.strip() for ln in str(e).splitlines()
+                if "Duplicate GPU" in ln or "ncclInvalidUsage" in ln or "NCCL error" in ln]
+        nccl = ("NCCL refused: " + " | ".join(said) if said
+                else "failed otherwise: " + str(e).strip().splitlines()[-1])
+    print(f"[phase 30] {NCCL_PROBE_RANKS} ranks on one card with backend nccl: {nccl}",
+          flush=True)
 
 
 if __name__ == "__main__":

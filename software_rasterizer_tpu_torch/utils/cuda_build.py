@@ -5,12 +5,15 @@ Each library is compiled at first use from `csrc/` into
 and flags, so an edit rebuilds and an unchanged tree reuses the file.
 The sources export plain C functions; nothing includes PyTorch's headers,
 which keeps a build to seconds. A failed build raises with nvcc's output.
-Each library has its own lock, so threads can build several at once.
+Each library has its own lock, so threads can build several at once, and
+its own lock file in `_build/`, so of several processes (the ranks of a
+sharded render) one builds and the others wait and load.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import pathlib
@@ -18,7 +21,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
-from typing import Dict, List, Sequence
+from typing import Callable, Dict, List, Sequence
 
 PACKAGE_DIR = pathlib.Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -67,6 +70,34 @@ def _digest(sources: Sequence[pathlib.Path]) -> str:
     return h.hexdigest()[:16]
 
 
+def build_once(out: pathlib.Path, lock: pathlib.Path,
+               build: Callable[[str], None]) -> bool:
+    """Make `out` by `build(tmp)`, which writes a temporary file in
+    `out`'s directory that is then moved into place, unless `out` exists.
+    An exclusive `flock` on the file `lock` serializes the check and the
+    build across processes; the lock goes with its process, so a build
+    cut off leaves none behind. Returns True when this call built `out`."""
+    if out.exists():
+        return False
+    out.parent.mkdir(parents=True, exist_ok=True)
+    with open(lock, "a") as lk:
+        fcntl.flock(lk, fcntl.LOCK_EX)
+        try:
+            if out.exists():
+                return False
+            fd, tmp = tempfile.mkstemp(suffix=out.suffix, dir=out.parent)
+            os.close(fd)
+            try:
+                build(tmp)
+            except BaseException:
+                os.unlink(tmp)
+                raise
+            os.replace(tmp, out)
+            return True
+        finally:
+            fcntl.flock(lk, fcntl.LOCK_UN)
+
+
 def load_library(name: str, sources: List[str]) -> ctypes.CDLL:
     """Compile csrc/<sources> into _build/lib<name>-<hash>.so (once) and
     load it. Raises RuntimeError with nvcc's output if the build fails."""
@@ -77,19 +108,17 @@ def load_library(name: str, sources: List[str]) -> ctypes.CDLL:
             return _LIBS[name]
         srcs = [CSRC_DIR / s for s in sources]
         out = BUILD_DIR / f"lib{name}-{_digest(srcs)}.so"
-        if not out.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
+
+        def nvcc(tmp: str) -> None:
             cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *map(str, srcs)]
             proc = subprocess.run(cmd, capture_output=True, text=True)
             BUILD_LOGS[name] = proc.stdout + proc.stderr
             if proc.returncode != 0:
-                os.unlink(tmp)
                 raise RuntimeError(
                     f"nvcc failed ({proc.returncode}) building {name}:\n"
                     f"{' '.join(cmd)}\n{BUILD_LOGS[name]}")
-            os.replace(tmp, out)
+
+        build_once(out, BUILD_DIR / f"{name}.lock", nvcc)
         lib = ctypes.CDLL(str(out))
         _LIBS[name] = lib
         return lib
