@@ -154,6 +154,16 @@ Phases, one line each; any failure exits non-zero:
      rank's kernel call, the sharded call and its collectives alone
      (CUDA events) beside the single-rank call; and NCCL's answer to two
      ranks on one card.
+ 31. the host layer and the entry point: on phase 20's scenes, the
+     native (utils/native.py, C++) and Python build_bvh, host seconds, node
+     and leaf order and boxes equal; debug_mode around Cornell
+     PathTracing.draw(), RayTracing.draw() and TraditionalRasterizer.draw()
+     on the card (silent), and around a path draw with a NaN kd
+     (FloatingPointError from the camera kernel's wrapper);
+     utils/profiling.trace around a path draw, whose summary lists
+     path_camera_kernel; examples/cornell_pt at 256x256, 16 spp on the card:
+     single shot, --batch 4 with a checkpoint, --tiles 4, each a PNG with a
+     finite, nonzero mean.
 
 The last lines are a JSON line of per-kernel results (time beside the
 card's bound for the same work; the Whitted kernel's `launches` is phase
@@ -257,6 +267,8 @@ SHARD_RANKS = 4
 SHARD_LARGE_SPP = 4
 SHARD_REPS = 5
 NCCL_PROBE_RANKS = 2
+# phase 31: the entry point's frame side (the JAX example's default)
+CORNELL_PT_SIZE = 256
 # earlier readings of the culled path kernels on an NVIDIA H100 80GB HBM3 at
 # 700 W (the kernel table of PERF.md, section 6), printed beside this run's:
 # the 16-spp frame of the camera kernel and 16 bounces of the frame's primary
@@ -614,6 +626,7 @@ def main() -> int:
     whitted["max_abs_err"] = max(whitted["max_abs_err"], picks["max_abs_err"])
     whitted["culled"] = culled["whitted"]
     sharding_phase(dev, card)
+    host_layer_phase(dev, card, large)
 
     print(json.dumps({"kernels": [{
         "name": "path_camera",
@@ -1858,7 +1871,8 @@ def large_scene_phases(dev, card: str):
                             backend=ti._trace_backend(f_pad))
         lines.append(f"{name}: {rt.n_tri} triangles ({f_pad} rows), nc {rt.chunk_lo.shape[0]} "
                      f"at granule {rt.cull_chunk}, tier {scenes[name]['backend']}, "
-                     f"{int(hit.hit.sum())}/{n} camera rays hit, host {host_s:.2f}s")
+                     f"{int(hit.hit.sum())}/{n} camera rays hit, host {host_s:.2f}s "
+                     f"(native BVH build and OBJ scan)")
     if scenes["mid"]["backend"] != "mm2c" or scenes["large"]["backend"] != "mm2s":
         fail(f"tiers by triangle count: {lines}")
     phase(20, "stress_cornell -> prepare_rt_scene on the card, 1,048,576 camera rays "
@@ -4238,6 +4252,196 @@ def sharding_phase(dev, card: str) -> None:
                 else "failed otherwise: " + str(e).strip().splitlines()[-1])
     print(f"[phase 30] {NCCL_PROBE_RANKS} ranks on one card with backend nccl: {nccl}",
           flush=True)
+
+
+def png_pixels(path):
+    """(H,W,3) uint8 of a PNG as `utils/image_io.write_png` writes it (8-bit
+    RGB, unfiltered scanlines): read without PIL, which the card's machine
+    may lack."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    data = pathlib.Path(path).read_bytes()
+    pos, idat, w, h = 8, b"", 0, 0
+    while pos < len(data):
+        n, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        if tag == b"IHDR":
+            w, h = struct.unpack(">II", body[:8])
+        elif tag == b"IDAT":
+            idat += body
+        pos += 12 + n
+    raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
+    if raw[:, 0].any():
+        fail(f"{path}: filtered scanlines")
+    return raw[:, 1:].reshape(h, w, 3)
+
+
+def host_layer_phase(dev, card: str, scenes: dict) -> None:
+    """Phase 31: the host layer and the entry point. On phase 20's two
+    stress scenes, the native and Python `build_bvh` over the scene's
+    triangles in scene order (what `Scene.rt_geometry` builds over): host
+    seconds, node order, leaf order and boxes equal, `area` within rtol
+    1e-6. `debug_mode` around a Cornell `PathTracing.draw()`,
+    `RayTracing.draw()` and `TraditionalRasterizer.draw()` on the card
+    (none raises), and around a path draw of Cornell with a NaN in one
+    material's kd (FloatingPointError from the camera kernel's wrapper).
+    `profiling.trace` around one Cornell path draw: its summary lists
+    `path_camera_kernel`. `examples/cornell_pt` at CORNELL_PT_SIZE, 16 spp
+    on the card, single shot, --batch 4 with a checkpoint and --tiles 4:
+    each writes a PNG with a finite, nonzero mean, through its kernels."""
+    import contextlib
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from software_rasterizer_tpu_torch.config import RenderConfig
+    from software_rasterizer_tpu_torch.examples import cornell_pt
+    from software_rasterizer_tpu_torch.ops import bvh as tb
+    from software_rasterizer_tpu_torch.ops import path_kernel as pk
+    from software_rasterizer_tpu_torch.ops import raster_kernel as rk
+    from software_rasterizer_tpu_torch.ops import trace_kernel as tk
+    from software_rasterizer_tpu_torch.ops import whitted_kernel as wk
+    from software_rasterizer_tpu_torch.render import pipeline_from_config
+    from software_rasterizer_tpu_torch.scenes import build_cornell_scene
+    from software_rasterizer_tpu_torch.utils import profiling
+    from software_rasterizer_tpu_torch.utils.debug import debug_mode
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    # ---- the BVH builds
+    lines = []
+    for name, sc in scenes.items():
+        g = sc["scene"].rt_geometry(bvh_order=False)
+        tv = g.positions[g.faces[g.face_valid]]
+        lo, hi = tb.primitive_bounds(tv[:, 0], tv[:, 1], tv[:, 2])
+        areas = tb.triangle_areas(tv[:, 0], tv[:, 1], tv[:, 2])
+        secs = {}
+        for use_native in (True, False):
+            t0 = time.perf_counter()
+            secs[use_native] = (tb.build_bvh(lo, hi, areas, use_native=use_native),
+                                time.perf_counter() - t0)
+        (nat, nat_s), (py, py_s) = secs[True], secs[False]
+        same = all(np.array_equal(getattr(nat, f), getattr(py, f))
+                   for f in ("bb_min", "bb_max", "left", "right", "prim"))
+        if not same or not np.array_equal(tb.leaf_order(nat), tb.leaf_order(py)) \
+                or not np.allclose(nat.area, py.area, rtol=1e-6, atol=0.0):
+            fail(f"{name}: the native BVH differs from the Python one")
+        rel = float(np.max(np.abs(nat.area - py.area) / np.abs(py.area)))
+        lines.append(f"{name}: {tv.shape[0]} triangles, native {nat_s:.4f} s, Python "
+                     f"{py_s:.4f} s ({py_s / nat_s:.1f}x); node and leaf order and boxes "
+                     f"equal, area max rel {rel:.2e} in {int((nat.area != py.area).sum())}/"
+                     f"{nat.area.size} nodes")
+    phase(31, "build_bvh on the host (phase 20's scenes in scene order): " + "; ".join(lines))
+
+    # ---- phase 20's host work (stress_cornell -> prepare_rt_scene on the
+    # card) on the native paths, as phase 20 takes it, and on the Python
+    # BVH build and OBJ scan, the route before utils/native.py; in turns
+    import software_rasterizer_tpu_torch.scenes.cornell as cornell_mod
+    from software_rasterizer_tpu_torch.ops.intersect import prepare_rt_scene
+    from software_rasterizer_tpu_torch.scenes.stress import subdivide_mesh
+    from torch_scenes import stress_cornell
+
+    def host_s(levels, use_native):
+        saved = tb.build_bvh, cornell_mod.load_obj_source
+        if not use_native:
+            tb.build_bvh = functools.partial(saved[0], use_native=False)
+            cornell_mod.load_obj_source = functools.partial(saved[1], use_native=False)
+        try:
+            t0 = time.perf_counter()
+            scene = stress_cornell(build_cornell_scene, subdivide_mesh, levels)
+            scene.set_ndc_matrix(WIDTH, HEIGHT)
+            prepare_rt_scene(scene.rt_geometry(), scene.rt_frame(), dev)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+        finally:
+            tb.build_bvh, cornell_mod.load_obj_source = saved
+
+    lines = []
+    for name, levels in zip(scenes, LARGE_LEVELS):
+        got = {True: [], False: []}
+        for use_native in (True, False, False, True):
+            got[use_native].append(host_s(levels, use_native))
+        lines.append(f"{name}: native " + " / ".join(f"{t:.3f}" for t in got[True])
+                     + " s, Python " + " / ".join(f"{t:.3f}" for t in got[False]) + " s")
+    phase(31, "phase 20's host work (stress_cornell -> prepare_rt_scene, BVH leaf order "
+              "included), in turns native, Python, Python, native: " + "; ".join(lines))
+
+    # ---- debug_mode on the card
+    cfg = RenderConfig(width=WIDTH, height=HEIGHT, spp=SPP, max_bounces=MAX_BOUNCES,
+                       seed=SEED)
+    counts = {}
+    for kind, mod in (("path", pk), ("whitted", wk), ("raster", rk)):
+        render = pipeline_from_config(cfg, kind, device="cuda")
+        render.add_scene(build_cornell_scene())
+        mod.LAUNCHES = 0
+        with debug_mode():
+            render.draw()
+        torch.cuda.synchronize()
+        counts[kind] = mod.LAUNCHES
+        if mod.LAUNCHES < 1 or not np.isfinite(render.frame).all():
+            fail(f"debug_mode {kind} draw: {mod.LAUNCHES} launches, finite "
+                 f"{bool(np.isfinite(render.frame).all())}")
+    bad = build_cornell_scene()
+    bad.get_mesh_obj("left").material.Kd = (float("nan"), 0.0, 0.0)
+    render = pipeline_from_config(cfg, "path", device="cuda")
+    render.add_scene(bad)
+    try:
+        with debug_mode():
+            render.draw()
+        fail("debug_mode: a NaN kd on the card raised nothing")
+    except FloatingPointError as e:
+        raised = str(e)
+    if "path_camera_render" not in raised:
+        fail(f"debug_mode: the NaN was reported from elsewhere: {raised}")
+    phase(31, f"debug_mode around Cornell draw() on the card, {WIDTH}x{HEIGHT}: path, "
+              f"Whitted, raster silent (launches {counts}); a NaN kd raises "
+              f"FloatingPointError: {raised}")
+
+    # ---- profiling.trace around a Cornell path draw
+    render = pipeline_from_config(cfg, "path", device="cuda")
+    render.add_scene(build_cornell_scene())
+    render.draw()  # warm-up outside the trace
+    log_dir = OUT_DIR / "profile"
+    with profiling.trace(str(log_dir)):
+        render.draw()
+    rows = profiling.summarize_device_time(str(log_dir), top=8)
+    if not any("path_camera_kernel" in r[0] for r in rows):
+        fail(f"profiling: no path_camera_kernel among {rows}")
+    phase(31, f"profiling.trace around PathTracing.draw() {WIDTH}x{HEIGHT} {SPP} spp, top "
+              "kernels (device s, count): " + "; ".join(
+                  f"{n[:60]} {s:.6f} x{c}" for n, s, c in rows[:5]))
+
+    # ---- the entry point, in its three modes
+    lines = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for mode, extra in (("single shot", []),
+                            ("batch 4", ["--batch", "4", "--ckpt", f"{tmp}/ck.npz"]),
+                            ("tiles 4", ["--tiles", "4"])):
+            out = OUT_DIR / f"cornell_pt_{mode.replace(' ', '_')}.png"
+            before = (pk.LAUNCHES, pk.LAUNCHES_BOUNCE, tk.LAUNCHES)
+            said = io.StringIO()
+            with contextlib.redirect_stdout(said):
+                frame = cornell_pt.main(["--width", str(CORNELL_PT_SIZE), "--height",
+                                         str(CORNELL_PT_SIZE), "--spp", "16",
+                                         "--out", str(out), *extra])
+            torch.cuda.synchronize()
+            launched = [a - b for a, b in zip((pk.LAUNCHES, pk.LAUNCHES_BOUNCE,
+                                               tk.LAUNCHES), before)]
+            png = png_pixels(out)
+            if frame.shape != (CORNELL_PT_SIZE, CORNELL_PT_SIZE, 3) \
+                    or not np.isfinite(frame).all() or not frame.mean() > 0 \
+                    or not png.mean() > 0 or not sum(launched):
+                fail(f"cornell_pt {mode}: frame {frame.shape}, mean {frame.mean()}, "
+                     f"PNG mean {png.mean()}, launches {launched}")
+            timing = [ln for ln in said.getvalue().splitlines() if " spp on " in ln]
+            lines.append(f"{mode}: mean {frame.mean():.5f} (PNG {png.mean():.2f}), "
+                         f"launches camera/bounce/trace {launched}, {timing[-1]}")
+    phase(31, f"cornell_pt {CORNELL_PT_SIZE}x{CORNELL_PT_SIZE} 16 spp on the card "
+              f"({card}): " + "; ".join(lines))
 
 
 if __name__ == "__main__":

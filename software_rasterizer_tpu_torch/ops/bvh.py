@@ -8,13 +8,13 @@ surface area for area-weighted light sampling (:200-232); traversal
 prunes by slab AABB test and takes the nearer of both children
 (:103-140).
 
-Host half: `build_bvh` (NumPy) is the reference's exact build flattened
-to arrays, `leaf_order` extracts the DFS primitive order that
-`Scene.rt_geometry` uses to permute faces, and `chunk_bounds` boxes runs
-of leaf-ordered triangles. Device half, plain functions on tensors:
-`slab_test` (the conservative ray-box test behind every chunk cull),
-and the per-ray traversals `bvh_nearest_leaf`, `bvh_nearest_hit` and
-`bvh_sample_area` over a `FlatBVH.to(device)`. The JAX package writes
+Host half: `build_bvh` (C++ by default, or NumPy) is the reference's
+exact build flattened to arrays, `leaf_order` extracts the DFS
+primitive order that `Scene.rt_geometry` uses to permute faces, and
+`chunk_bounds` boxes runs of leaf-ordered triangles. Device half, plain
+functions on tensors: `slab_test` (the conservative ray-box test behind
+every chunk cull), and the per-ray traversals `bvh_nearest_leaf`,
+`bvh_nearest_hit` and `bvh_sample_area` over a `FlatBVH.to(device)`. The JAX package writes
 the traversals as a `while_loop` a ray under `vmap`; here all rays step
 together over an (N, max_depth) stack until none is live, each ray
 following exactly its own walk.
@@ -61,12 +61,24 @@ def triangle_areas(v0, v1, v2) -> np.ndarray:
     ).astype(np.float32)
 
 
-def build_bvh(bb_min: np.ndarray, bb_max: np.ndarray,
-              areas: np.ndarray) -> FlatBVH:
+def build_bvh(bb_min: np.ndarray, bb_max: np.ndarray, areas: np.ndarray,
+              use_native: bool = True) -> FlatBVH:
     """Median-split build over primitive AABBs (BVHAcceleration.cpp:142-198:
     split axis = longest centroid extent, sort + halve, leaf = 1 prim,
-    2-prim special case). Bit-identical to the JAX package's builder,
-    native or Python."""
+    2-prim special case). `use_native` takes the C++ builder
+    (`utils/native.py`, built at first use; a failed build raises), else
+    the Python one. What holds against the JAX package's builder:
+      * the native build is bit-identical to the JAX default (native)
+        build, `area` included;
+      * the Python build is bit-identical to the JAX Python build
+        (`use_native=False`);
+      * between the native and Python builds, node order, leaf order and
+        boxes are equal, and `area` agrees to rtol 1e-6: the native build
+        sums it in float32, the Python build in float64."""
+    if use_native and bb_min.shape[0] > 0:
+        from software_rasterizer_tpu_torch.utils.native import build_bvh_native
+
+        return FlatBVH(*build_bvh_native(bb_min, bb_max, areas))
     n = bb_min.shape[0]
     if n == 0:
         z = np.zeros((1, 3), np.float32)

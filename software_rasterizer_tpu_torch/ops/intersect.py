@@ -36,6 +36,7 @@ import torch
 
 from software_rasterizer_tpu_torch.ops import trace_kernel, trace_tiers
 from software_rasterizer_tpu_torch.ops.bvh import slab_test
+from software_rasterizer_tpu_torch.utils.debug import nan_check
 
 BIG = 1e30
 
@@ -447,19 +448,20 @@ def _trace_tris(scene: RTScene, orig, d, backend: Optional[str] = None):
     bit for bit. The returned t is the kernel's own; callers that need the
     oracle's t recompute it for the winner with `_mt_uv`."""
     backend = backend or _trace_backend(scene.v0.shape[0])
+    stage = f"nearest_hit's trace tier {backend!r}"
     if backend == "vpu":
-        return trace_kernel.trace_nearest_vpu(scene.tri_table, scene.n_tri,
-                                              orig, d)
+        return nan_check(stage, trace_kernel.trace_nearest_vpu(
+            scene.tri_table, scene.n_tri, orig, d))
     if backend == "mm":
-        return trace_tiers.trace_nearest_mm(scene.tri_table, orig, d)
+        return nan_check(stage, trace_tiers.trace_nearest_mm(scene.tri_table, orig, d))
     tiers = {"mm2c": trace_tiers.trace_nearest_mm2c,
              "mm2": trace_tiers.trace_nearest_mm2,
              "mm2s": trace_tiers.trace_nearest_mm2_stream}
     if backend not in tiers:
         raise ValueError(f"unknown trace backend {backend!r}; expected one of "
                          f"{TRACE_BACKENDS}")
-    return tiers[backend](scene.tri_table, scene.chunk_lo, scene.chunk_hi,
-                          orig, d, chunk=scene.cull_chunk)
+    return nan_check(stage, tiers[backend](
+        scene.tri_table, scene.chunk_lo, scene.chunk_hi, orig, d, chunk=scene.cull_chunk))
 
 
 # (ray, triangle) tests of one plane of `_intersect_tri_raw`

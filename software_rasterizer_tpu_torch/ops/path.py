@@ -79,6 +79,7 @@ from software_rasterizer_tpu_torch.ops.path_kernel import (
     fused_bounce_group,
     path_camera_render,
 )
+from software_rasterizer_tpu_torch.utils.debug import nan_check
 from software_rasterizer_tpu_torch.utils.rng import as_key, fold_in, key_bits
 
 EPSILON = 1e-5  # Scene.hpp m_epsilon
@@ -203,8 +204,8 @@ def path_trace(scene: RTScene, orig: torch.Tensor, d: torch.Tensor, key,
     radiance = torch.where((~hit.hit)[:, None], scene.background, 0.0)
 
     if fused is None or fused:
-        return _fused_path_trace(scene, hit, key, p_rr, max_bounces, radiance,
-                                 with_stats)
+        return nan_check("path_trace", _fused_path_trace(
+            scene, hit, key, p_rr, max_bounces, radiance, with_stats))
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(key_bits(key)))
@@ -260,6 +261,7 @@ def path_trace(scene: RTScene, orig: torch.Tensor, d: torch.Tensor, key,
             radiance = radiance.index_add(0, pixel, acc)
         else:
             radiance = radiance + acc
+    nan_check("path_trace", radiance)
     if with_stats:
         return radiance, {"dropped_lanes": dropped}
     return radiance
@@ -304,7 +306,7 @@ def path_render_accumulate(scene: RTScene, orig: torch.Tensor,
         acc = acc + _blocked_path_trace(
             scene, orig, d, fold_in(key, start_sample + s), p_rr, max_bounces,
             block, compact_schedule=compact_schedule, fused=fused)
-    return acc
+    return nan_check("path_render_accumulate", acc)
 
 
 def path_render_sum(scene: RTScene, width: int, height: int, fovy: float,

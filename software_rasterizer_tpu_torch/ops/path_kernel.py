@@ -51,6 +51,7 @@ from software_rasterizer_tpu_torch.ops.intersect import RTScene, _rows
 from software_rasterizer_tpu_torch.ops import trace_tiers
 from software_rasterizer_tpu_torch.ops.trace_kernel import mt_plane
 from software_rasterizer_tpu_torch.ops.trace_tiers import WARP, CullTables, walk_nearest_plain
+from software_rasterizer_tpu_torch.utils.debug import nan_check
 from software_rasterizer_tpu_torch.utils.rng import (
     bounce_uniform,
     lowbias32_uniform,
@@ -293,22 +294,22 @@ def path_camera_render(scene: RTScene, seed: int, width: int, height: int,
     kernel; CPU scenes run `path_camera_render_plain`."""
     device = scene.device
     if device.type == "cpu":
-        return path_camera_render_plain(
+        return nan_check("path_camera_render", path_camera_render_plain(
             scene, seed, width, height, fovy_deg, spp, start_sample,
-            lane_offset, n_lanes, p_rr, max_bounces, cull=cull)
+            lane_offset, n_lanes, p_rr, max_bounces, cull=cull))
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
     n = _lane_count(width, height, lane_offset, n_lanes, spp, max_bounces)
     attr, sph, n_sph = pack_scene_tables(scene)
     seeds = torch.as_tensor(sample_seeds(seed, start_sample, spp)).to(device)
-    return launch_path_camera(
+    return nan_check("path_camera_render", launch_path_camera(
         scene.tri_table.float().contiguous(), attr, sph,
         scene.emitter_cr.float().contiguous(), seeds,
         _camera_table(scene, fovy_deg, width, height),
         n_tri=scene.n_tri, n_sph=n_sph, n_emitters=scene.n_emitters,
         lane_offset=lane_offset, n_lanes=n, width=width, height=height,
         p_rr=p_rr, max_bounces=max_bounces,
-        cull_tables=pack_cull_tables(scene) if use_cull(scene, cull) else None)
+        cull_tables=pack_cull_tables(scene) if use_cull(scene, cull) else None))
 
 
 # --------------------------------------------------------- plain version
@@ -799,17 +800,17 @@ def fused_bounce_group(scene: RTScene, state: torch.Tensor,
     CUDA scenes run the kernel; CPU scenes run `fused_bounce_group_plain`."""
     device = scene.device
     if device.type == "cpu":
-        return fused_bounce_group_plain(scene, state, live, seed, n_bounces, p_rr,
-                                        cull=cull)
+        return nan_check("fused_bounce_group", fused_bounce_group_plain(
+            scene, state, live, seed, n_bounces, p_rr, cull=cull))
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
     attr, sph, n_sph = pack_scene_tables(scene)
-    return launch_path_bounce(
+    return nan_check("fused_bounce_group", launch_path_bounce(
         scene.tri_table.float().contiguous(), attr, sph,
         scene.emitter_cr.float().contiguous(), state.contiguous(),
         live.contiguous(), n_tri=scene.n_tri, n_sph=n_sph,
         n_emitters=scene.n_emitters, seed=seed, n_bounces=n_bounces, p_rr=p_rr,
-        cull_tables=pack_cull_tables(scene) if use_cull(scene, cull) else None)
+        cull_tables=pack_cull_tables(scene) if use_cull(scene, cull) else None))
 
 
 def _bounce_plain(tabs: _Tables, ecr: torch.Tensor, n_e: int, p_rr: float,

@@ -42,6 +42,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from software_rasterizer_tpu_torch.ops.path_kernel import _check_table
+from software_rasterizer_tpu_torch.utils.debug import nan_check
 
 BIG = 3.0e38        # the running best z starts here, not at +inf
 GEO_COLS = 12
@@ -524,8 +525,8 @@ def raster_tiles_fused(geo, attr, tri_bbox, keep, height: int, width: int,
     `kernel_tile` of the requested tile). `row0` rasterizes the absolute screen rows [row0,
     row0+height): bit-exact row-sharding.
     CUDA tensors run the kernel; CPU tensors run the plain version."""
-    return _fused_dict(*_raster_tiles(geo, attr, tri_bbox, keep, None, height,
-                                      width, tile_h, tile_w, cap, row0, False))
+    return nan_check("raster_tiles_fused", _fused_dict(*_raster_tiles(
+        geo, attr, tri_bbox, keep, None, height, width, tile_h, tile_w, cap, row0, False)))
 
 
 def raster_tiles_fused_plain(geo, attr, tri_bbox, keep, height: int,
@@ -548,9 +549,9 @@ def raster_tiles_shaded(geo, attr, tri_bbox, keep, lights, height: int,
     tex_id (H,W; -1 for non-texture pixels), bin_dropped. The final image
     is direct + tex_a*texel + tex_b*texel^2, the texel fetched by the
     caller. CUDA tensors run the kernel; CPU tensors the plain version."""
-    return _shaded_dict(*_raster_tiles(geo, attr, tri_bbox, keep, lights,
-                                       height, width, tile_h, tile_w, cap,
-                                       row0, False))
+    return nan_check("raster_tiles_shaded", _shaded_dict(*_raster_tiles(
+        geo, attr, tri_bbox, keep, lights, height, width, tile_h, tile_w, cap, row0,
+        False)))
 
 
 def raster_tiles_shaded_plain(geo, attr, tri_bbox, keep, lights, height: int,

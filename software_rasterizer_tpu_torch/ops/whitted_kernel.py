@@ -69,6 +69,7 @@ from software_rasterizer_tpu_torch.ops.path_kernel import (
 )
 from software_rasterizer_tpu_torch.ops.trace_tiers import WARP, CullTables, walk_nearest_plain
 from software_rasterizer_tpu_torch.ops.texture_ops import fetch_nearest
+from software_rasterizer_tpu_torch.utils.debug import nan_check
 from software_rasterizer_tpu_torch.utils.rng import _M32, fold_in, hash_uniform, key_bits
 
 EPS = 1e-5          # Scene.hpp:160
@@ -326,13 +327,13 @@ def whitted_uber_trace(scene: RTScene, orig: torch.Tensor, d: torch.Tensor,
     CPU scenes run `whitted_uber_trace_plain`."""
     device = scene.device
     if device.type == "cpu":
-        return whitted_uber_trace_plain(scene, orig, d, max_depth, shadow_bias,
-                                        key, spp, lane_offset, cull=cull)
+        return nan_check("whitted_uber_trace", whitted_uber_trace_plain(
+            scene, orig, d, max_depth, shadow_bias, key, spp, lane_offset, cull=cull))
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
     args, kw = whitted_launch_args(scene, orig, d, max_depth, shadow_bias, key, spp,
                                    lane_offset, cull)
-    return launch_whitted_uber(*args, **kw)
+    return nan_check("whitted_uber_trace", launch_whitted_uber(*args, **kw))
 
 
 # --------------------------------------------------------- plain version

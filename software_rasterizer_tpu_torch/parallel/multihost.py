@@ -5,7 +5,8 @@ Every rank runs the same program (SPMD). `initialize()` starts the
 process group and picks this rank's card, after which
 `parallel.mesh.make_render_mesh` lays the ("spp", "tile") mesh over the
 ranks and the sharded renders of parallel/render.py sum and gather
-through it. `gather_image` assembles row shards of a frame on every rank.
+through it. `gather_image` assembles a frame on every rank: row shards
+are gathered, a sharded render's frame (whole on every rank) is not.
 
 A single process no-ops cleanly, so the same entry point works with one
 rank or many.
@@ -112,9 +113,29 @@ def gather_rows(t: torch.Tensor, group=None) -> torch.Tensor:
     return torch.cat(parts)
 
 
+# the attribute `mark_whole_frame` sets on a tensor every rank holds whole
+_WHOLE = "_srt_whole_frame"
+
+
+def mark_whole_frame(t: torch.Tensor) -> torch.Tensor:
+    """Mark `t`, a frame every rank holds in full (a sharded render's
+    result), so that `gather_image` returns it without a collective.
+    Returns `t`; a tensor derived from it is not marked."""
+    setattr(t, _WHOLE, True)
+    return t
+
+
 def gather_image(img) -> np.ndarray:
-    """Assemble a frame whose rows are split over the ranks (rank r holds
-    block r) as a numpy array on every rank: every rank's `img` stacked
-    along the first axis in rank order. A no-op copy for one process."""
+    """Assemble a rendered image onto every rank as a numpy array, as the
+    JAX package's `gather_image` does for a global array and for
+    host-local rows: a frame returned by a sharded render
+    (`sharded_path_render`, `sharded_whitted_render(_exact)`,
+    `sharded_raster_render`; marked by `mark_whole_frame`) is already
+    whole on every rank and comes back as it is; any other `img` is a
+    block of rows (rank r holds block r), and every rank's block is
+    stacked along the first axis in rank order. A no-op copy for one
+    process."""
+    if getattr(img, _WHOLE, False):
+        return img.detach().cpu().numpy()
     t = torch.as_tensor(img)
     return gather_rows(t).cpu().numpy()

@@ -2,7 +2,9 @@
 the JAX package's parallel/render.py on `torch.distributed`.
 
 SPMD: every rank calls the same function with the same arguments and
-its own copy of the scene, and gets the whole frame back on its device.
+its own copy of the scene, and gets the whole frame back on its device,
+marked (`multihost.mark_whole_frame`) so that `gather_image` passes it
+through as one frame.
 
 Design:
   * geometry is REPLICATED: each rank builds and uploads its own scene;
@@ -49,7 +51,10 @@ from software_rasterizer_tpu_torch.ops.whitted_kernel import (
     whitted_uber_trace,
 )
 from software_rasterizer_tpu_torch.parallel.mesh import RenderMesh
-from software_rasterizer_tpu_torch.parallel.multihost import gather_rows
+from software_rasterizer_tpu_torch.parallel.multihost import (
+    gather_rows,
+    mark_whole_frame,
+)
 from software_rasterizer_tpu_torch.utils.rng import as_key, fold_in
 
 
@@ -136,7 +141,7 @@ def sharded_path_render(
                 block, block_offset=blk0, fused=fused)
     acc = _all_sum(acc, rmesh.group("spp") if n_spp > 1 else None)
     img_sum = _gather(acc, rmesh.group("tile") if n_tile > 1 else None)
-    return (img_sum / float(spp)).reshape(height, width, 3)
+    return mark_whole_frame((img_sum / float(spp)).reshape(height, width, 3))
 
 
 def sharded_whitted_render(
@@ -181,7 +186,7 @@ def sharded_whitted_render(
     rgb, nray = whitted_uber_trace(scene, orig, d, max_depth=max_depth,
                                    shadow_bias=shadow_bias, key=key, spp=spp,
                                    lane_offset=lane0)
-    img = _gather(rgb, rmesh.group()).reshape(height, width, 3)
+    img = mark_whole_frame(_gather(rgb, rmesh.group()).reshape(height, width, 3))
     if not with_stats:
         return img
     sums = _all_sum(nray.sum(dim=1), rmesh.group())
@@ -265,7 +270,8 @@ def sharded_raster_render(
         geom, frame, shard_h, width, cull=cull, active_types=active_types,
         with_stats=True, row0=rmesh.index * shard_h, shaded=shaded)
     group = rmesh.group()
-    img, zb = _gather(img, group), _gather(zb, group)
+    img = mark_whole_frame(_gather(img, group))
+    zb = mark_whole_frame(_gather(zb, group))
     if not with_stats:
         return img, zb
     stats = dict(stats)

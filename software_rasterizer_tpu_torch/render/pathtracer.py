@@ -37,6 +37,7 @@ from software_rasterizer_tpu_torch.ops.intersect import (
 )
 from software_rasterizer_tpu_torch.ops.path import path_render, path_render_sum
 from software_rasterizer_tpu_torch.render.pipeline import Primitive, RenderingPipeline
+from software_rasterizer_tpu_torch.utils.debug import nan_check
 
 
 class PathTracing(RenderingPipeline):
@@ -85,7 +86,7 @@ class PathTracing(RenderingPipeline):
             img = path_render(rt, self.width, self.height, scene.fovy,
                               self.seed, spp=self.spp, p_rr=scene.rr,
                               max_bounces=self.max_bounces)
-            self.frame = img.cpu().numpy()
+            self.frame = nan_check("PathTracing.draw", img).cpu().numpy()
 
     # -- progressive / resumable accumulation --------------------------------
 

@@ -25,6 +25,7 @@ from software_rasterizer_tpu_torch.ops.raster import (
 )
 from software_rasterizer_tpu_torch.ops.raster_kernel import TILE_H, TILE_W
 from software_rasterizer_tpu_torch.render.pipeline import Primitive, RenderingPipeline
+from software_rasterizer_tpu_torch.utils.debug import nan_check
 
 
 class TraditionalRasterizer(RenderingPipeline):
@@ -114,8 +115,8 @@ class TraditionalRasterizer(RenderingPipeline):
             else:
                 image, zbuf = rasterize_wireframe(
                     geom, frame, self.height, self.width)
-            image = image.cpu().numpy()
-            zbuf = zbuf.cpu().numpy()
+            image = nan_check("TraditionalRasterizer.draw", image).cpu().numpy()
+            zbuf = nan_check("TraditionalRasterizer.draw", zbuf).cpu().numpy()
             # multi-scene composition via shared z-buffer (Render.hpp:250-257)
             nearer = zbuf < self.zbuffer
             self.frame = np.where(nearer[..., None], image, self.frame)

@@ -7,7 +7,9 @@ The sources export plain C functions; nothing includes PyTorch's headers,
 which keeps a build to seconds. A failed build raises with nvcc's output.
 Each library has its own lock, so threads can build several at once, and
 its own lock file in `_build/`, so of several processes (the ranks of a
-sharded render) one builds and the others wait and load.
+sharded render) one builds and the others wait and load. `build_once`
+also serves the host library's g++ build (`utils/native.py`); its C++
+source is not a header, so it is not in the CUDA libraries' hash.
 """
 
 from __future__ import annotations

@@ -1,4 +1,5 @@
-"""Pure-Python Wavefront OBJ/MTL loader.
+"""Wavefront OBJ/MTL loader (the geometry scan in C++ by default,
+`utils/native.py`, or in Python).
 
 Replaces the reference's tinyobjloader + conversion layer
 (ObjLoader.cpp:78-233) with zero heavy deps. Reproduced behaviors:
@@ -249,22 +250,32 @@ def _scan_header_lines(text: str) -> Tuple[List[str], str]:
     return mtl_files, obj_name
 
 
-def load_obj(path: str, name: str = "") -> MeshData:
-    """Load an OBJ file into deduplicated SoA arrays."""
+def load_obj(path: str, name: str = "", use_native: bool = True) -> MeshData:
+    """Load an OBJ file into deduplicated SoA arrays (`use_native`: see
+    `load_obj_source`)."""
     with open(path, "r", errors="replace") as f:
         return load_obj_source(
             f.read(), name=name or os.path.basename(path),
-            base_dir=os.path.dirname(path),
+            base_dir=os.path.dirname(path), use_native=use_native,
         )
 
 
-def load_obj_source(text: str, name: str = "", base_dir: str = "") -> MeshData:
+def load_obj_source(text: str, name: str = "", base_dir: str = "",
+                    use_native: bool = True) -> MeshData:
     """Parse OBJ content from a string (same pipeline as `load_obj`).
 
-    The geometry scan is pure Python; assembly (dedup, V-flip, normal
-    synthesis) is vectorized NumPy. The output equals the native
-    scanner's (native/srt_native.cpp) that the JAX package may use.
+    `use_native` scans the v/vn/vt/f lines with the native scanner
+    (csrc/srt_native.cpp srt_parse_obj_counts / srt_parse_obj, through
+    `utils/native.py`; a failed build raises), else in Python; both give
+    the same arrays. Assembly (dedup, V-flip, normal synthesis) is
+    vectorized NumPy either way.
     """
+    if use_native:
+        from software_rasterizer_tpu_torch.utils import native
+
+        scanned = native.parse_obj_native(text)
+    else:
+        scanned = _scan_obj_python(text)
     mtl_files, obj_name = _scan_header_lines(text)
     mats: Dict[str, MtlMaterial] = {}
     for mf in mtl_files:
@@ -273,17 +284,15 @@ def load_obj_source(text: str, name: str = "", base_dir: str = "") -> MeshData:
             mats.update(parse_mtl(mp))
     material = _last_material(mats)
 
-    pos, nrm, uv, corners = _scan_obj_python(text)
-
+    pos, nrm, uv, corners = scanned
     return _assemble_mesh(
         pos, nrm, uv, corners, material, name or obj_name or "mesh"
     )
 
 
 def _scan_obj_python(text: str):
-    """Pure-Python OBJ geometry scan (the same outputs as the JAX
-    package's native scanner: positions, normals, uvs, fan-triangulated
-    corner triples)."""
+    """Pure-Python OBJ geometry scan (the same outputs as the native
+    scanner: positions, normals, uvs, fan-triangulated corner triples)."""
     positions: List[Tuple[float, float, float]] = []
     normals_in: List[Tuple[float, float, float]] = []
     uvs_in: List[Tuple[float, float]] = []
@@ -304,7 +313,7 @@ def _scan_obj_python(text: str):
         elif key == "f":
             corners = []
             # same 64-vertex face cap as the native scanner
-            # (native/srt_native.cpp fill buffer), so both paths parse
+            # (csrc/srt_native.cpp fill buffer), so both paths parse
             # identical geometry for pathological polygon faces
             for tok in vals[:64]:
                 fields = tok.split("/")

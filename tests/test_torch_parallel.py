@@ -358,6 +358,29 @@ def test_gather_image_and_process_info(ranks):
         assert np.array_equal(res["gather"], want)
 
 
+def test_gather_image_of_a_sharded_frame(ranks):
+    """A sharded render's frame is whole on every rank: `gather_image`
+    gives it back as one (H, W, 3) frame (the JAX `process_allgather` of
+    a global array), not stacked once a rank; row blocks still stack
+    (test_gather_image_and_process_info)."""
+    for res in ranks:
+        for fused in (True, False):
+            got = res["gather_path", fused]
+            assert got.shape == (H, W, 3)
+            assert np.array_equal(got, res["path"][(2, 2), fused])
+        for name in ("one", "two"):
+            img, ex = res["gather_whitted", name]
+            assert img.shape == ex.shape == (H, W, 3)
+            assert np.array_equal(img, res["whitted"][name][0])
+            assert np.array_equal(ex, res["whitted"][name][2])
+        for shaded in (False, True):
+            img, zb = res["gather_raster", shaded]
+            assert img.shape == (ts.RASTER_SIZE, ts.RASTER_SIZE, 3)
+            assert zb.shape == (ts.RASTER_SIZE, ts.RASTER_SIZE)
+            assert np.array_equal(img, res["raster"][shaded][0])
+            assert np.array_equal(zb, res["raster"][shaded][1])
+
+
 def test_single_process_is_left_alone():
     assert initialize(device="cpu") is False
     assert process_info() == {"process_index": 0, "process_count": 1, "local_devices": 1,

@@ -61,13 +61,18 @@ def test_bvh_build_and_leaf_order_equal():
     area = tbvh.triangle_areas(v[:, 0], v[:, 1], v[:, 2])
     assert np.array_equal(lo, jlo) and np.array_equal(hi, jhi)
     assert np.array_equal(area, jbvh.triangle_areas(v[:, 0], v[:, 1], v[:, 2]))
-    tb = tbvh.build_bvh(lo, hi, area)
+    # the Python builds of the two packages, bit for bit
+    tb = tbvh.build_bvh(lo, hi, area, use_native=False)
     jb = jbvh.build_bvh(jlo, jhi, area, use_native=False)
     for field in jb._fields:
         assert np.array_equal(getattr(tb, field), getattr(jb, field)), field
-    # the JAX package's native builder (when its library builds) gives
-    # the same tree; only its cumulative areas are summed in float32
+    # the default (native) builds of the two packages, bit for bit; they
+    # give the Python builds' tree, and only their cumulative areas are
+    # summed in float32
+    tn = tbvh.build_bvh(lo, hi, area)
     jn = jbvh.build_bvh(jlo, jhi, area)
+    for field in jn._fields:
+        assert np.array_equal(getattr(tn, field), getattr(jn, field)), field
     for field in ("bb_min", "bb_max", "left", "right", "prim"):
         assert np.array_equal(getattr(tb, field), getattr(jn, field)), field
     np.testing.assert_allclose(tb.area, jn.area, rtol=1e-5)

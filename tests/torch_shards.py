@@ -184,6 +184,8 @@ def cpu_cases() -> dict:
                                       max_bounces=BOUNCES, block=BLOCK, fused=fused)
             assert pk.LAUNCHES == before    # CPU tensors: the plain versions
             out["path"][shape, fused] = _np(img)
+            if shape == (2, 2):
+                out["gather_path", fused] = gather_image(img)
     frt, ffovy = cornell_rt(FUSED_W, "cpu")
     out["path_jax"] = _np(sharded_path_render(
         frt, meshes[2, 2], FUSED_W, FUSED_W, ffovy, FUSED_SEED, spp=SPP,
@@ -215,6 +217,7 @@ def cpu_cases() -> dict:
                                 _np(sharded_whitted_render(scene_rt, m22, W, H, sfovy,
                                                            WHITTED_SEED, spp=spp,
                                                            max_depth=WHITTED_DEPTH)))
+        out["gather_whitted", name] = (gather_image(img), gather_image(ex))
 
     scene, active = lit_raster_scene()
     geom, frame = scene.raster_geometry(), scene.raster_frame()
@@ -224,6 +227,7 @@ def cpu_cases() -> dict:
                                             active_types=active, shaded=shaded,
                                             with_stats=True)
         out["raster"][shaded] = (_np(img), _np(zb), int(st["bin_dropped"]), st["kernel"])
+        out["gather_raster", shaded] = (gather_image(img), gather_image(zb))
     out["raster_bad"] = _raises(lambda: sharded_raster_render(
         geom, frame, m22, RASTER_SIZE - 2, RASTER_SIZE, active_types=active))
 
