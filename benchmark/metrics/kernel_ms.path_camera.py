@@ -1,0 +1,10 @@
+"""kernel_ms.path_camera: device ms a frame of the path camera kernel's
+full sweep (`csrc/path_camera.cu`, `path_camera_kernel<false>`, #1), by
+name from the trace."""
+
+from harness.trace import named
+
+
+def read(ctx):
+    rec = ctx.trace
+    return None if rec is None else rec.kernel_ms_per_frame(named("path_camera_kernel<false>"))
