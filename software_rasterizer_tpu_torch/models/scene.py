@@ -39,6 +39,7 @@ from software_rasterizer_tpu_torch.models.objects import (
 from software_rasterizer_tpu_torch.utils import transforms as tf
 from software_rasterizer_tpu_torch.utils.log import logger
 from software_rasterizer_tpu_torch.utils.obj_loader import load_obj
+from software_rasterizer_tpu_torch.utils.profiling import span
 from software_rasterizer_tpu_torch.utils.texture import Texture
 
 
@@ -378,6 +379,7 @@ class Scene:
             light_int=li,
         )
 
+    @span("srt.scene_geometry")
     def rt_geometry(self, pad_faces_to: int = 128, bvh_order: bool = True) -> RTGeometry:
         """Flatten to trace arrays. `bvh_order` permutes the global face
         list into BVH leaf (DFS) order so fixed-size face chunks are

@@ -37,6 +37,7 @@ import torch
 from software_rasterizer_tpu_torch.ops import trace_kernel, trace_tiers
 from software_rasterizer_tpu_torch.ops.bvh import slab_test
 from software_rasterizer_tpu_torch.utils.debug import nan_check
+from software_rasterizer_tpu_torch.utils.profiling import span
 
 BIG = 1e30
 
@@ -223,6 +224,7 @@ def _pack_prim_tables(tv, tn, tuv, tri_mat, tri_tex, tri_obj, sc, sr, sph_mat,
     return prim_attr, prim_shadow, prim_cls
 
 
+@span("srt.scene_upload")
 def prepare_rt_scene(geom, frame, device) -> RTScene:
     """Transform geometry into trace space (Scene::updatePosition analog).
 

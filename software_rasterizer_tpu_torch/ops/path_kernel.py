@@ -52,6 +52,7 @@ from software_rasterizer_tpu_torch.ops import trace_tiers
 from software_rasterizer_tpu_torch.ops.trace_kernel import mt_plane
 from software_rasterizer_tpu_torch.ops.trace_tiers import WARP, CullTables, walk_nearest_plain
 from software_rasterizer_tpu_torch.utils.debug import nan_check
+from software_rasterizer_tpu_torch.utils.profiling import span
 from software_rasterizer_tpu_torch.utils.rng import (
     bounce_uniform,
     lowbias32_uniform,
@@ -222,6 +223,7 @@ def _check_tally(tally: Optional[torch.Tensor], device, slots: bool = False):
     return tally.data_ptr()
 
 
+@span("srt.launch.path_camera")
 def launch_path_camera(tri: torch.Tensor, attr: torch.Tensor,
                        sph: torch.Tensor, ecr: torch.Tensor,
                        seeds: torch.Tensor, cam: torch.Tensor, *,
@@ -300,16 +302,18 @@ def path_camera_render(scene: RTScene, seed: int, width: int, height: int,
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
     n = _lane_count(width, height, lane_offset, n_lanes, spp, max_bounces)
-    attr, sph, n_sph = pack_scene_tables(scene)
-    seeds = torch.as_tensor(sample_seeds(seed, start_sample, spp)).to(device)
+    with span("srt.path_tables"):
+        attr, sph, n_sph = pack_scene_tables(scene)
+        seeds = torch.as_tensor(sample_seeds(seed, start_sample, spp)).to(device)
+        cam = _camera_table(scene, fovy_deg, width, height)
+        tri = scene.tri_table.float().contiguous()
+        ecr = scene.emitter_cr.float().contiguous()
+        cull_tables = pack_cull_tables(scene) if use_cull(scene, cull) else None
     return nan_check("path_camera_render", launch_path_camera(
-        scene.tri_table.float().contiguous(), attr, sph,
-        scene.emitter_cr.float().contiguous(), seeds,
-        _camera_table(scene, fovy_deg, width, height),
+        tri, attr, sph, ecr, seeds, cam,
         n_tri=scene.n_tri, n_sph=n_sph, n_emitters=scene.n_emitters,
         lane_offset=lane_offset, n_lanes=n, width=width, height=height,
-        p_rr=p_rr, max_bounces=max_bounces,
-        cull_tables=pack_cull_tables(scene) if use_cull(scene, cull) else None))
+        p_rr=p_rr, max_bounces=max_bounces, cull_tables=cull_tables))
 
 
 # --------------------------------------------------------- plain version

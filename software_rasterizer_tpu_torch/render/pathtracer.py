@@ -38,6 +38,7 @@ from software_rasterizer_tpu_torch.ops.intersect import (
 from software_rasterizer_tpu_torch.ops.path import path_render, path_render_sum
 from software_rasterizer_tpu_torch.render.pipeline import Primitive, RenderingPipeline
 from software_rasterizer_tpu_torch.utils.debug import nan_check
+from software_rasterizer_tpu_torch.utils.profiling import span
 
 
 class PathTracing(RenderingPipeline):
@@ -78,6 +79,7 @@ class PathTracing(RenderingPipeline):
         return prepare_rt_scene(self._geometry(scene), scene.rt_frame(),
                                 self.device)
 
+    @span("srt.draw")
     def draw(self, primitive: Primitive = Primitive.TRIANGLES):
         if primitive not in (Primitive.LINES, Primitive.TRIANGLES):
             raise ValueError("Primitive Type is not supported!")
@@ -86,7 +88,8 @@ class PathTracing(RenderingPipeline):
             img = path_render(rt, self.width, self.height, scene.fovy,
                               self.seed, spp=self.spp, p_rr=scene.rr,
                               max_bounces=self.max_bounces)
-            self.frame = nan_check("PathTracing.draw", img).cpu().numpy()
+            with span("srt.readback"):
+                self.frame = nan_check("PathTracing.draw", img).cpu().numpy()
 
     # -- progressive / resumable accumulation --------------------------------
 

@@ -26,6 +26,7 @@ from software_rasterizer_tpu_torch.ops.raster import (
 from software_rasterizer_tpu_torch.ops.raster_kernel import TILE_H, TILE_W
 from software_rasterizer_tpu_torch.render.pipeline import Primitive, RenderingPipeline
 from software_rasterizer_tpu_torch.utils.debug import nan_check
+from software_rasterizer_tpu_torch.utils.profiling import span
 
 
 class TraditionalRasterizer(RenderingPipeline):
@@ -100,6 +101,7 @@ class TraditionalRasterizer(RenderingPipeline):
         self.last_stats = {scene.name: {"bin_dropped": dropped, "kernel": kernel}}
         return torch.stack(images), torch.stack(zbufs)
 
+    @span("srt.draw")
     def draw(self, primitive: Primitive = Primitive.TRIANGLES):
         if primitive not in (Primitive.LINES, Primitive.TRIANGLES):
             raise ValueError("Primitive Type is not supported!")

@@ -20,6 +20,7 @@ from software_rasterizer_tpu_torch.ops.intersect import check_device, prepare_rt
 from software_rasterizer_tpu_torch.ops.whitted import whitted_render_exact
 from software_rasterizer_tpu_torch.render.pipeline import Primitive, RenderingPipeline
 from software_rasterizer_tpu_torch.utils.debug import nan_check
+from software_rasterizer_tpu_torch.utils.profiling import span
 from software_rasterizer_tpu_torch.utils.rng import prng_key, split
 
 
@@ -61,6 +62,7 @@ class RayTracing(RenderingPipeline):
         else:
             self._geom_cache.pop(scene_name, None)
 
+    @span("srt.draw")
     def draw(self, primitive: Primitive = Primitive.TRIANGLES):
         if primitive not in (Primitive.LINES, Primitive.TRIANGLES):
             raise ValueError("Primitive Type is not supported!")

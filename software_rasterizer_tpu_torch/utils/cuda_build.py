@@ -10,6 +10,8 @@ its own lock file in `_build/`, so of several processes (the ranks of a
 sharded render) one builds and the others wait and load. `build_once`
 also serves the host library's g++ build (`utils/native.py`); its C++
 source is not a header, so it is not in the CUDA libraries' hash.
+`BUILDS` counts the libraries this process built; loading a library the
+first time is the `srt.load_library` span (`utils/profiling.span`).
 """
 
 from __future__ import annotations
@@ -24,6 +26,8 @@ import subprocess
 import tempfile
 import threading
 from typing import Callable, Dict, List, Sequence
+
+from software_rasterizer_tpu_torch.utils.profiling import span
 
 PACKAGE_DIR = pathlib.Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -44,6 +48,9 @@ _NAME_LOCKS: Dict[str, threading.Lock] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # nvcc's output (ptxas register and spill counts) per built library
 BUILD_LOGS: Dict[str, str] = {}
+# libraries this process built (nvcc's and g++'s), by the lock file's
+# name: the library's own
+BUILDS: Dict[str, int] = {}
 
 
 def nvcc_path() -> str:
@@ -78,7 +85,8 @@ def build_once(out: pathlib.Path, lock: pathlib.Path,
     `out`'s directory that is then moved into place, unless `out` exists.
     An exclusive `flock` on the file `lock` serializes the check and the
     build across processes; the lock goes with its process, so a build
-    cut off leaves none behind. Returns True when this call built `out`."""
+    cut off leaves none behind. Returns True when this call built `out`,
+    and then counts it in `BUILDS` under `lock`'s stem."""
     if out.exists():
         return False
     out.parent.mkdir(parents=True, exist_ok=True)
@@ -95,6 +103,8 @@ def build_once(out: pathlib.Path, lock: pathlib.Path,
                 os.unlink(tmp)
                 raise
             os.replace(tmp, out)
+            with _LOCK:
+                BUILDS[lock.stem] = BUILDS.get(lock.stem, 0) + 1
             return True
         finally:
             fcntl.flock(lk, fcntl.LOCK_UN)
@@ -102,26 +112,29 @@ def build_once(out: pathlib.Path, lock: pathlib.Path,
 
 def load_library(name: str, sources: List[str]) -> ctypes.CDLL:
     """Compile csrc/<sources> into _build/lib<name>-<hash>.so (once) and
-    load it. Raises RuntimeError with nvcc's output if the build fails."""
+    load it. Raises RuntimeError with nvcc's output if the build fails.
+    A library not loaded yet is loaded (and built) in an
+    `srt.load_library` span; a loaded one is returned at once."""
     with _LOCK:
         lock = _NAME_LOCKS.setdefault(name, threading.Lock())
     with lock:
         if name in _LIBS:
             return _LIBS[name]
-        srcs = [CSRC_DIR / s for s in sources]
-        out = BUILD_DIR / f"lib{name}-{_digest(srcs)}.so"
+        with span("srt.load_library"):
+            srcs = [CSRC_DIR / s for s in sources]
+            out = BUILD_DIR / f"lib{name}-{_digest(srcs)}.so"
 
-        def nvcc(tmp: str) -> None:
-            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *map(str, srcs)]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            BUILD_LOGS[name] = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}) building {name}:\n"
-                    f"{' '.join(cmd)}\n{BUILD_LOGS[name]}")
+            def nvcc(tmp: str) -> None:
+                cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *map(str, srcs)]
+                proc = subprocess.run(cmd, capture_output=True, text=True)
+                BUILD_LOGS[name] = proc.stdout + proc.stderr
+                if proc.returncode != 0:
+                    raise RuntimeError(
+                        f"nvcc failed ({proc.returncode}) building {name}:\n"
+                        f"{' '.join(cmd)}\n{BUILD_LOGS[name]}")
 
-        build_once(out, BUILD_DIR / f"{name}.lock", nvcc)
-        lib = ctypes.CDLL(str(out))
+            build_once(out, BUILD_DIR / f"{name}.lock", nvcc)
+            lib = ctypes.CDLL(str(out))
         _LIBS[name] = lib
         return lib
 

@@ -1,5 +1,5 @@
 """Device-time profiling (SURVEY.md 5.1), the port of the JAX package's
-utils/profiling.py.
+utils/profiling.py, and the program's own spans.
 
 The reference's profiling is ad-hoc chrono spans (PathTracing.cpp:42,
 BVHAcceleration.cpp:63-77). Here: a `trace()` context manager over
@@ -8,6 +8,12 @@ summarizer that aggregates per-op time from the newest trace there. On
 the card the rows are the kernels CUPTI recorded, the hand-written
 kernels launched through ctypes among them under their own names; on the
 CPU (`device="cpu"`) they are the PyTorch operators.
+
+`span(name)` marks a stage of the program (`srt.draw`,
+`srt.scene_upload`, ...: the layers in PERF.md) in both places at once:
+as a host event of any attached `torch.profiler`, on the clock of its
+device events, and in a process-wide table of counts and host seconds
+(`span_totals()`) that needs no profiler.
 """
 
 from __future__ import annotations
@@ -18,14 +24,70 @@ import glob
 import gzip
 import json
 import os
+import functools
 import tempfile
+import threading
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
+from torch._C._profiler import _RecordFunctionFast
 
 # the trace's event category summarized, by the device named in its file
 _CATEGORY = {"cuda": "kernel", "cpu": "cpu_op"}
+
+_SPAN_LOCK = threading.Lock()
+# [count, host seconds] of every span closed in this process, by name
+_SPAN_TOTALS: Dict[str, List[float]] = {}
+
+
+class span:
+    """A stage of the program, `with span("srt.scene_upload"): ...`, or
+    as a decorator of a function whose every call is one.
+
+    Inside an attached `torch.profiler` it is a FUNCTION-scope host event
+    (`cpu_op`, like an aten operator): never a user annotation, so the
+    profiler adds no device-side marker over the kernels launched inside
+    it. Its parent is the span that encloses it on the same thread. With
+    no profiler attached the event costs a callback check. Either way its
+    count and host seconds (`time.perf_counter`) go into `span_totals()`.
+    An instance is entered once; each `with span(...)` makes its own."""
+
+    __slots__ = ("name", "_event", "_t0")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self) -> "span":
+        self._event = _RecordFunctionFast(self.name)
+        self._event.__enter__()
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        seconds = time.perf_counter() - self._t0
+        self._event.__exit__(*exc)
+        with _SPAN_LOCK:
+            total = _SPAN_TOTALS.setdefault(self.name, [0, 0.0])
+            total[0] += 1
+            total[1] += seconds
+        return False
+
+    def __call__(self, fn: Callable) -> Callable:
+        name = self.name
+
+        @functools.wraps(fn)
+        def spanned(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+        return spanned
+
+
+def span_totals() -> Dict[str, Tuple[int, float]]:
+    """{name: (count, host seconds)} of every span closed in this process
+    so far (a copy)."""
+    with _SPAN_LOCK:
+        return {name: (int(c), s) for name, (c, s) in _SPAN_TOTALS.items()}
 
 
 @contextlib.contextmanager
