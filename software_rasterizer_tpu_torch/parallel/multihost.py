@@ -19,6 +19,7 @@ torch 2.11's gloo gathers CUDA tensors (chip_smoke.py phase 30 runs it).
 
 from __future__ import annotations
 
+import datetime
 import os
 from typing import Optional
 
@@ -35,6 +36,7 @@ def initialize(
     process_id: Optional[int] = None,
     backend: Optional[str] = None,
     device=None,
+    timeout: Optional[datetime.timedelta] = None,
 ) -> bool:
     """Start the process group from the arguments or the standard
     `torch.distributed` variables, as `torchrun` sets them: MASTER_ADDR /
@@ -53,7 +55,18 @@ def initialize(
     world size, at most the node's card count), "gloo" where ranks share
     a card (NCCL refuses two ranks on one device) and on the CPU. Gloo
     sends the sums and gathers through the host; the renders run on the
-    card either way. `process_info()` reports the backend taken."""
+    card either way. `process_info()` reports the backend taken. On NCCL
+    the group is bound to this rank's card (`device_id`): its
+    communicator forms in this call.
+
+    `timeout` (None: the backend's default, 10 minutes on NCCL) bounds
+    the start-up and every collective of the group, so that a rank lost
+    mid-frame never leaves the survivors waiting longer: gloo raises in
+    them (at once where the lost rank's connection closes); on NCCL the
+    watchdog catches the collective once it outlasts the timeout and, by
+    NCCL's default error handling (TORCH_NCCL_ASYNC_ERROR_HANDLING=3),
+    ends each survivor's process after its debug dump, since the host
+    thread waits in the device's queue and cannot take an exception."""
     if dist.is_initialized():
         return True
     env = os.environ
@@ -80,8 +93,13 @@ def initialize(
     if backend is None:
         own_cards = device.type == "cuda" and ranks_on_node <= torch.cuda.device_count()
         backend = "nccl" if own_cards else "gloo"
+    kw = {}
+    if timeout is not None:
+        kw["timeout"] = timeout
+    if backend == "nccl":
+        kw["device_id"] = torch.device("cuda", torch.cuda.current_device())
     dist.init_process_group(backend, init_method=coordinator_address,
-                            world_size=num_processes, rank=process_id)
+                            world_size=num_processes, rank=process_id, **kw)
     return True
 
 

@@ -23,6 +23,11 @@ Each rank launches the same kernels as the single-rank render, on its
 slice: the path camera kernel with `start_sample` / `lane_offset` /
 `n_lanes`, the Whitted kernel with `lane_offset`, the raster tile
 kernels with `row0`.
+
+Each collective is a span (`utils/profiling.span`): `srt.all_reduce`
+around a sum, `srt.gather` around a gather, each with the bytes this
+rank hands to it (`profiling.span_bytes()`). A mesh axis of one rank
+runs no collective and opens neither.
 """
 
 from __future__ import annotations
@@ -55,19 +60,24 @@ from software_rasterizer_tpu_torch.parallel.multihost import (
     gather_rows,
     mark_whole_frame,
 )
+from software_rasterizer_tpu_torch.utils.profiling import span
 from software_rasterizer_tpu_torch.utils.rng import as_key, fold_in
 
 
 def _all_sum(t: torch.Tensor, group) -> torch.Tensor:
     """`t` summed over `group` in place (nothing for no group)."""
     if group is not None:
-        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+        with span("srt.all_reduce", nbytes=t.nbytes):
+            dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
     return t
 
 
 def _gather(t: torch.Tensor, group) -> torch.Tensor:
     """The ranks' `t` of `group` stacked along dim 0 (`t` for no group)."""
-    return t if group is None else gather_rows(t, group)
+    if group is None:
+        return t
+    with span("srt.gather", nbytes=t.nbytes):
+        return gather_rows(t, group)
 
 
 def _camera_lanes(scene: RTScene, fovy: float, width: int, height: int,

@@ -20,6 +20,16 @@ batches, `resolve()` divides once, and `save_checkpoint()` /
 other. The RNG is keyed by absolute sample index, so a resumed or
 batched render reproduces a monolithic one up to float32 summation
 order. The sum image stays a device tensor between batches.
+
+SAMPLE-PARALLEL: given a `mesh` (`parallel.make_render_mesh`) of more
+than one rank, `draw()` renders each scene through
+`parallel.sharded_path_render`: every rank calls `draw()` with the same
+seed (SPMD), each spp rank draws `spp / n_spp` of the frame's samples,
+keyed by absolute sample index, one all-reduce sums them, and every rank
+reads back the whole frame. With one spp rank the frame equals the
+single-rank draw bit for bit, with more up to the order of the sum. The
+accumulator stays single-rank: `accumulate()`, `resolve()` and the
+checkpoints raise on such a mesh.
 """
 
 from __future__ import annotations
@@ -36,6 +46,8 @@ from software_rasterizer_tpu_torch.ops.intersect import (
     prepare_rt_scene,
 )
 from software_rasterizer_tpu_torch.ops.path import path_render, path_render_sum
+from software_rasterizer_tpu_torch.parallel.mesh import RenderMesh
+from software_rasterizer_tpu_torch.parallel.render import sharded_path_render
 from software_rasterizer_tpu_torch.render.pipeline import Primitive, RenderingPipeline
 from software_rasterizer_tpu_torch.utils.debug import nan_check
 from software_rasterizer_tpu_torch.utils.profiling import span
@@ -44,7 +56,8 @@ from software_rasterizer_tpu_torch.utils.profiling import span
 class PathTracing(RenderingPipeline):
     def __init__(self, width: int, height: int, spp: int = 16,
                  max_bounces: int = 16, block: int = 1 << 16,
-                 chunk: int = 512, seed: int = 0, device="cuda"):
+                 chunk: int = 512, seed: int = 0, device="cuda", *,
+                 mesh: Optional[RenderMesh] = None):
         super().__init__(width, height)
         self.spp = spp
         self.max_bounces = max_bounces
@@ -52,9 +65,15 @@ class PathTracing(RenderingPipeline):
         self.chunk = chunk
         self.seed = seed
         self.device = check_device(device)
+        self.mesh = mesh
         self._geom_cache: Dict[str, RTGeometry] = {}
         # progressive state per scene: (sum image (N,3) on device, n_samples)
         self._accum: Dict[str, Tuple[torch.Tensor, int]] = {}
+
+    @property
+    def sharded(self) -> bool:
+        """Whether draw() renders over a mesh of more than one rank."""
+        return self.mesh is not None and self.mesh.n_devices > 1
 
     def set_spp(self, spp: int):
         """PathTracing::setSPP."""
@@ -85,17 +104,29 @@ class PathTracing(RenderingPipeline):
             raise ValueError("Primitive Type is not supported!")
         for scene in self.scenes.values():
             rt = self._rt_scene(scene)
-            img = path_render(rt, self.width, self.height, scene.fovy,
-                              self.seed, spp=self.spp, p_rr=scene.rr,
-                              max_bounces=self.max_bounces)
+            if not self.sharded:
+                img = path_render(rt, self.width, self.height, scene.fovy,
+                                  self.seed, spp=self.spp, p_rr=scene.rr,
+                                  max_bounces=self.max_bounces)
+            else:
+                img = sharded_path_render(
+                    rt, self.mesh, self.width, self.height, scene.fovy,
+                    self.seed, spp=self.spp, p_rr=scene.rr,
+                    max_bounces=self.max_bounces)
             with span("srt.readback"):
                 self.frame = nan_check("PathTracing.draw", img).cpu().numpy()
 
     # -- progressive / resumable accumulation --------------------------------
 
+    def _single_rank(self, what: str):
+        if self.sharded:
+            raise ValueError(f"PathTracing.{what} renders on one rank; this "
+                             f"pipeline has a {self.mesh.n_spp}x{self.mesh.n_tile} mesh")
+
     def accumulate(self, scene_name: str, n_samples: int):
         """Add `n_samples` fresh per-pixel samples to the running sum,
         with start_sample = samples done, by the route `draw()` takes."""
+        self._single_rank("accumulate")
         scene = self.scenes[scene_name]
         rt = self._rt_scene(scene)
         acc, done = self._accum.get(scene_name, (None, 0))
@@ -112,12 +143,14 @@ class PathTracing(RenderingPipeline):
 
     def resolve(self, scene_name: str) -> np.ndarray:
         """Current mean image from the accumulator; also sets self.frame."""
+        self._single_rank("resolve")
         acc, done = self._accum[scene_name]
         img = acc.cpu().numpy().reshape(self.height, self.width, 3) / max(done, 1)
         self.frame = img.astype(np.float32)
         return self.frame
 
     def save_checkpoint(self, scene_name: str, path: str):
+        self._single_rank("save_checkpoint")
         acc, done = self._accum[scene_name]
         np.savez(
             path, sum_image=acc.cpu().numpy(), n_samples=done,
@@ -125,6 +158,7 @@ class PathTracing(RenderingPipeline):
         )
 
     def load_checkpoint(self, scene_name: str, path: str):
+        self._single_rank("load_checkpoint")
         z = np.load(path)
         if int(z["width"]) != self.width or int(z["height"]) != self.height:
             raise ValueError("checkpoint resolution mismatch")

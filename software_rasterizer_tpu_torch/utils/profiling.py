@@ -13,7 +13,9 @@ CPU (`device="cpu"`) they are the PyTorch operators.
 `srt.scene_upload`, ...: the layers in PERF.md) in both places at once:
 as a host event of any attached `torch.profiler`, on the clock of its
 device events, and in a process-wide table of counts and host seconds
-(`span_totals()`) that needs no profiler.
+(`span_totals()`) that needs no profiler. A span given `nbytes` (a
+collective, `srt.all_reduce` / `srt.gather`: the bytes this rank hands
+to it) also adds them to the same table's byte count (`span_bytes()`).
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ from torch._C._profiler import _RecordFunctionFast
 _CATEGORY = {"cuda": "kernel", "cpu": "cpu_op"}
 
 _SPAN_LOCK = threading.Lock()
-# [count, host seconds] of every span closed in this process, by name
+# [count, host seconds, bytes] of every span closed in this process, by name
 _SPAN_TOTALS: Dict[str, List[float]] = {}
 
 
@@ -51,12 +53,14 @@ class span:
     it. Its parent is the span that encloses it on the same thread. With
     no profiler attached the event costs a callback check. Either way its
     count and host seconds (`time.perf_counter`) go into `span_totals()`.
-    An instance is entered once; each `with span(...)` makes its own."""
+    An instance is entered once; each `with span(...)` makes its own.
+    `nbytes` goes into `span_bytes()` when the span closes."""
 
-    __slots__ = ("name", "_event", "_t0")
+    __slots__ = ("name", "nbytes", "_event", "_t0")
 
-    def __init__(self, name: str):
+    def __init__(self, name: str, nbytes: int = 0):
         self.name = name
+        self.nbytes = nbytes
 
     def __enter__(self) -> "span":
         self._event = _RecordFunctionFast(self.name)
@@ -68,9 +72,10 @@ class span:
         seconds = time.perf_counter() - self._t0
         self._event.__exit__(*exc)
         with _SPAN_LOCK:
-            total = _SPAN_TOTALS.setdefault(self.name, [0, 0.0])
+            total = _SPAN_TOTALS.setdefault(self.name, [0, 0.0, 0])
             total[0] += 1
             total[1] += seconds
+            total[2] += self.nbytes
         return False
 
     def __call__(self, fn: Callable) -> Callable:
@@ -87,7 +92,14 @@ def span_totals() -> Dict[str, Tuple[int, float]]:
     """{name: (count, host seconds)} of every span closed in this process
     so far (a copy)."""
     with _SPAN_LOCK:
-        return {name: (int(c), s) for name, (c, s) in _SPAN_TOTALS.items()}
+        return {name: (int(c), s) for name, (c, s, _) in _SPAN_TOTALS.items()}
+
+
+def span_bytes() -> Dict[str, int]:
+    """{name: bytes} handed to every span given `nbytes` in this process
+    so far: the collectives' payloads (a copy)."""
+    with _SPAN_LOCK:
+        return {name: int(b) for name, (_, _, b) in _SPAN_TOTALS.items() if b}
 
 
 @contextlib.contextmanager

@@ -21,7 +21,12 @@ Equalities held:
   * Whitted with one and two emitters, with stats and `_exact`: bit for
     bit the single-rank `whitted_render`, and the stats equal;
   * raster, deferred and shaded: image and z-buffer bit for bit the
-    whole frame, `bin_dropped` equal.
+    whole frame, `bin_dropped` equal;
+  * `PathTracing(mesh=...)`: on (4, 1) and (2, 2) the benchmark's plain
+    reference (`benchmark/reference/path.render_pixels`) on every pixel
+    by the four-card cell's check rule; on (1, 4) bit for bit the
+    single-rank `draw()`; one all-reduce of the frame's bytes a draw on
+    (4, 1); `accumulate()` raising on every mesh of more than one rank.
 
 Against the JAX package's sharded renders on a (2, 2) mesh of its
 virtual CPU devices, with the tolerances of the monolithic parity tests
@@ -29,7 +34,12 @@ virtual CPU devices, with the tolerances of the monolithic parity tests
 test_torch_path_kernel.py) and their knife-edge proofs.
 """
 
+import datetime
 import functools
+import json
+import os
+import pathlib
+import sys
 
 import numpy as np
 import pytest
@@ -64,8 +74,10 @@ from software_rasterizer_tpu_torch.parallel import (
     gather_image,
     initialize,
     make_render_mesh,
+    multihost,
     process_info,
 )
+from software_rasterizer_tpu_torch.utils import profiling
 from torch_scenes import edge_tie_pixels, raster_cornell, raster_knife_edge_pixels, two_emitter_cornell
 
 WORLD = 4
@@ -74,6 +86,8 @@ SHARD_RTOL = SHARD_ATOL = 1e-4           # tests/test_parallel.py:56
 EMITTERS_TOL, EMITTERS_SHARE = 5e-3, 0.99         # test_torch_whitted_emitters.py
 LANE_RTOL, LANE_ATOL, LIT_SHARE = 1e-4, 1e-5, 0.80  # test_torch_path_kernel.py
 WINNER_SHARE = 0.999                                 # test_torch_raster.py
+BENCH_DIR = pathlib.Path(__file__).resolve().parent.parent / "benchmark"
+SHARDED_CELL = "cornell_box.path16_sharded4"
 
 
 @pytest.fixture(scope="module")
@@ -330,6 +344,88 @@ def test_raster_matches_jax_sharded(ranks):
     np.testing.assert_allclose(z[both], jz[both], rtol=1e-4)
 
 
+# ------------------------------------------------- PathTracing(mesh=...)
+
+
+@functools.lru_cache(maxsize=None)
+def _single_draw():
+    """The single-rank `PathTracing` draw of `torch_shards.pipeline_draw`
+    and the plain reference's frame at every pixel."""
+    if str(BENCH_DIR) not in sys.path:
+        sys.path.append(str(BENCH_DIR))
+    from harness.inputs import scene_inputs
+    from reference.path import render_pixels
+    from reference.scene import trace_space
+
+    pipe, frame, added = ts.pipeline_draw()
+    inputs = scene_inputs(next(iter(pipe.scenes.values())))
+    ref = render_pixels(trace_space(inputs), ts.PATH_SEED, W, H, inputs["fovy"], ts.PIPE_SPP,
+                        inputs["rr"], BOUNCES, torch.arange(W * H))
+    return pipe, frame, added, ref.numpy().reshape(H, W, 3)
+
+
+def _cell_check() -> dict:
+    path = BENCH_DIR / "workloads" / f"{SHARDED_CELL}.json"
+    return json.loads(path.read_text())["check"]
+
+
+@pytest.mark.parametrize("shape", [(4, 1), (2, 2)])
+def test_pipeline_on_a_mesh_matches_the_plain_reference(ranks, shape):
+    """The sharded draw on every rank is one frame, within the four-card
+    cell's rule of the plain reference: a pixel is off where a channel
+    lies off by more than atol + rtol * |reference|, and at most `limit`
+    of the pixels are off."""
+    frames = [r["pipeline"][shape][0] for r in ranks]
+    for f in frames[1:]:
+        assert np.array_equal(f, frames[0])
+    got, ref = frames[0], _single_draw()[3]
+    assert got.shape == (H, W, 3) and got.max() > 0
+    chk = _cell_check()
+    ok = (np.abs(got.astype(np.float64) - ref) <= chk["atol"] + chk["rtol"] * np.abs(ref)).all(-1)
+    assert (~ok).mean() <= chk["limit"], int((~ok).sum())
+
+
+def test_pipeline_on_a_tile_mesh_is_the_single_rank_draw(ranks):
+    want = _single_draw()[1]
+    for r in ranks:
+        assert np.array_equal(r["pipeline"][1, 4][0], want)
+
+
+def test_pipeline_collectives_counted_once_a_draw(ranks):
+    """`srt.all_reduce` / `srt.gather` (count, bytes) a draw: on (4, 1)
+    one all-reduce of the frame's W x H x 3 float32 and no gather; on
+    (2, 2) half the frame summed and gathered; on (1, 4) a quarter
+    gathered."""
+    frame = W * H * 3 * 4
+    want = {(4, 1): {"srt.all_reduce": (1, frame), "srt.gather": (0, 0)},
+            (2, 2): {"srt.all_reduce": (1, frame // 2), "srt.gather": (1, frame // 2)},
+            (1, 4): {"srt.all_reduce": (0, 0), "srt.gather": (1, frame // 4)}}
+    for r in ranks:
+        for shape, counted in want.items():
+            assert r["pipeline"][shape][1] == counted, shape
+
+
+def test_pipeline_accumulate_raises_on_a_mesh(ranks):
+    for r in ranks:
+        for shape in ts.MESHES:
+            assert "renders on one rank" in r["pipeline"][shape][2]
+
+
+def test_pipeline_without_a_mesh_is_unchanged():
+    """`mesh=None` (and a one-rank mesh) draws `path_render`'s frame and
+    opens no collective span."""
+    pipe, frame, added, _ = _single_draw()
+    scene = next(iter(pipe.scenes.values()))
+    rt = pipe._rt_scene(scene)
+    want = path_render(rt, W, H, scene.fovy, ts.PATH_SEED, spp=ts.PIPE_SPP,
+                       p_rr=scene.rr, max_bounces=BOUNCES).numpy()
+    assert np.array_equal(frame, want)
+    assert added == {name: (0, 0) for name in ts.COLLECTIVES}
+    one = ts.pipeline_draw(make_render_mesh(1, 1, device="cpu"))
+    assert np.array_equal(one[1], want) and one[2] == added
+    assert not one[0].sharded and one[0].accumulate(next(iter(one[0].scenes)), 1) is None
+
+
 # ----------------------------------------------------- rules and runtime
 
 
@@ -379,6 +475,50 @@ def test_gather_image_of_a_sharded_frame(ranks):
             assert zb.shape == (ts.RASTER_SIZE, ts.RASTER_SIZE)
             assert np.array_equal(img, res["raster"][shaded][0])
             assert np.array_equal(zb, res["raster"][shaded][1])
+
+
+@pytest.fixture
+def init_calls(monkeypatch):
+    """`dist.init_process_group`'s calls from `initialize`, none made,
+    with a copy of the environment."""
+    calls = []
+    monkeypatch.setattr(multihost.dist, "is_initialized", lambda: False)
+    monkeypatch.setattr(multihost.dist, "init_process_group",
+                        lambda *a, **k: calls.append((a, k)))
+    monkeypatch.setattr(os, "environ", {k: v for k, v in os.environ.items()
+                                        if not k.startswith("TORCH_NCCL")})
+    return calls
+
+
+def test_initialize_default_route_is_unchanged(init_calls):
+    """Without a timeout the group starts with the arguments it always
+    had; a timeout passes through, and gloo binds no device."""
+    assert initialize("localhost:29511", 2, 1, device="cpu") is True
+    hour = datetime.timedelta(hours=1)
+    assert initialize("file:///tmp/x", 2, 0, device="cpu", timeout=hour) is True
+    assert init_calls == [
+        (("gloo",), {"init_method": "tcp://localhost:29511", "world_size": 2, "rank": 1}),
+        (("gloo",), {"init_method": "file:///tmp/x", "world_size": 2, "rank": 0,
+                     "timeout": hour})]
+
+
+def test_initialize_binds_nccl_to_the_ranks_card(init_calls, monkeypatch):
+    """On NCCL (one card a rank) the group is bound to the rank's card;
+    a timeout passes through and the environment is left as it is."""
+    card = []
+    monkeypatch.setattr(multihost, "check_device", lambda d: torch.device("cuda"))
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    monkeypatch.setattr(torch.cuda, "set_device", card.append)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: card[-1])
+    assert initialize("localhost:29511", 4, 2) is True
+    assert init_calls[-1] == (("nccl",), {"init_method": "tcp://localhost:29511",
+                                          "world_size": 4, "rank": 2,
+                                          "device_id": torch.device("cuda", 2)})
+    minute = datetime.timedelta(minutes=1)
+    assert initialize("localhost:29511", 4, 3, timeout=minute) is True
+    assert init_calls[-1][1]["timeout"] == minute
+    assert init_calls[-1][1]["device_id"] == torch.device("cuda", 3)
+    assert not any(k.startswith("TORCH_NCCL") for k in os.environ)
 
 
 def test_single_process_is_left_alone():

@@ -35,6 +35,8 @@ WHITTED_DEPTH = 3
 FUSED_W, FUSED_BOUNCES, FUSED_SEED = 16, 6, 3
 RASTER_SIZE, RASTER_LEVELS = 64, 2
 MESHES = ((1, 4), (2, 2), (4, 1))
+PIPE_SPP = 8                      # PathTracing(mesh=...) draws, 32x32
+COLLECTIVES = ("srt.all_reduce", "srt.gather")
 
 
 def _entry(rank, world, init_method, device, backend, fn, args, results):
@@ -148,6 +150,26 @@ def lit_raster_scene(size=RASTER_SIZE, levels=RASTER_LEVELS):
     return scene, active
 
 
+def pipeline_draw(mesh=None):
+    """A `PathTracing` of the Cornell box at W x H, PIPE_SPP samples,
+    BOUNCES bounces and PATH_SEED on the CPU (sharded on `mesh`), drawn
+    once: (pipeline, its frame, {collective span: (count, bytes)} that
+    the draw added)."""
+    from software_rasterizer_tpu_torch.render.pathtracer import PathTracing
+    from software_rasterizer_tpu_torch.scenes import build_cornell_scene
+    from software_rasterizer_tpu_torch.utils import profiling
+
+    pipe = PathTracing(W, H, spp=PIPE_SPP, max_bounces=BOUNCES, seed=PATH_SEED,
+                       device="cpu", mesh=mesh)
+    pipe.add_scene(build_cornell_scene())
+    count0, bytes0 = profiling.span_totals(), profiling.span_bytes()
+    pipe.draw()
+    count1, bytes1 = profiling.span_totals(), profiling.span_bytes()
+    added = {name: (count1.get(name, (0, 0.0))[0] - count0.get(name, (0, 0.0))[0],
+                    bytes1.get(name, 0) - bytes0.get(name, 0)) for name in COLLECTIVES}
+    return pipe, pipe.frame, added
+
+
 def cpu_cases() -> dict:
     """Every case of tests/test_torch_parallel.py, on this rank (CPU)."""
     from software_rasterizer_tpu_torch.ops import path_kernel as pk
@@ -233,6 +255,13 @@ def cpu_cases() -> dict:
 
     rank = out["info"]["process_index"]
     out["gather"] = gather_image(np.full((2, 3), rank, np.float32))
+
+    out["pipeline"] = {}
+    for shape, m in meshes.items():
+        pipe, frame, added = pipeline_draw(m)
+        name = next(iter(pipe.scenes))
+        out["pipeline"][shape] = (frame, added,
+                                  _raises(lambda: pipe.accumulate(name, 1)))
     return out
 
 
