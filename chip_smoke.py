@@ -178,7 +178,9 @@ repository root.
 and the trace kernels #2, #4, #5, #6, #7 and #8, built from other sources
 against each other in turns, e.g. this tree's against an earlier commit's;
 `raster_ab` (run by phase 14) does the same for the raster kernels #10
-and #11 with their binning.
+and #11 with their binning. `readback_probe` (not run by `main`) times a
+frame's copy to the host, pageable against page-locked, and reads the
+page-locked memory the entry point's read-back holds.
 """
 
 from __future__ import annotations
@@ -4442,6 +4444,148 @@ def host_layer_phase(dev, card: str, scenes: dict) -> None:
                          f"launches camera/bounce/trace {launched}, {timing[-1]}")
     phase(31, f"cornell_pt {CORNELL_PT_SIZE}x{CORNELL_PT_SIZE} 16 spp on the card "
               f"({card}): " + "; ".join(lines))
+
+
+# the caching host allocator's statistics that `readback_probe` reports
+HOST_STATS = ("allocations", "allocated_bytes", "active_requests", "num_host_alloc",
+              "num_host_free", "host_alloc_time")
+
+
+def host_stats() -> dict:
+    """`torch.cuda.host_memory_stats()`: the page-locked pool's blocks and
+    bytes (current and peak), the blocks handed out, cudaHostAlloc /
+    cudaFreeHost calls and the microseconds spent in cudaHostAlloc."""
+    import torch
+
+    stats = torch.cuda.host_memory_stats()
+    return {k: v for k, v in stats.items() if k.split(".")[0] in HOST_STATS
+            and k.rsplit(".", 1)[-1] not in ("allocated", "freed", "min", "count")}
+
+
+def quartile_ms(ms: list) -> dict:
+    q = statistics.quantiles(ms, n=4)
+    return {"median": statistics.median(ms), "q1": q[0], "q3": q[2], "min": min(ms),
+            "max": max(ms), "n": len(ms)}
+
+
+def readback_probe(copies: int = 60, warm: int = 10, draws: int = 40,
+                   traced: int = 20, kept: int = 8) -> dict:
+    """The read-back of a frame to the host (`render.pipeline.readback`)
+    on one card; not run by `main`:
+
+        python3 -c "import chip_smoke as c; c.OUT_DIR.mkdir(exist_ok=True);
+            c.readback_probe()"
+
+    copy: one random 1024x1024x3 float32 frame (12,582,912 B) copied to
+    the host `copies` times by `.cpu().numpy()` (a fresh pageable array a
+    copy) and by `readback` (page-locked, from PyTorch's caching host
+    allocator), in turns A B A B, the card drained before each copy and
+    the caller keeping the last array as a viewer does; host ms of each
+    copy after the first `warm` (median, quartiles, min, max) and GB/s.
+    viewer: `PathTracing.draw()` of the benchmark's Cornell frame
+    (1024x1024, 16 spp, 16 bounces, roulette 0.8), a new seed a draw, the
+    caller keeping the last frame: each draw's host ms and, with the card
+    drained first, the host ms of its `readback` call alone, and
+    `host_stats()` before the first draw, after the second and after the
+    last; then `traced` more draws under `torch.profiler` (CPU and CUDA
+    activities, as the benchmark's traced run): the same, and the
+    profiler's count of cudaHostAlloc calls. animation: `kept` draws kept
+    at once, `host_stats()` then and after they are dropped. Prints one
+    JSON line, also written to chiprun_out/readback_probe.json; returns
+    it."""
+    import torch
+
+    from software_rasterizer_tpu_torch.config import RenderConfig
+    from software_rasterizer_tpu_torch.render import pathtracer
+    from software_rasterizer_tpu_torch.render.pipeline import (
+        pipeline_from_config,
+        readback,
+    )
+    from software_rasterizer_tpu_torch.scenes import build_cornell_scene
+
+    out = {"card": card_line(), "torch": torch.__version__, "cuda": torch.version.cuda}
+    img = torch.rand((HEIGHT, WIDTH, 3), device="cuda")
+    want = img.cpu().numpy().tobytes()
+    ways = {"cpu_numpy": lambda t: t.cpu().numpy(), "readback": readback}
+    ms = {name: [] for name in ways}
+    for turn in range(4):
+        for name, fn in (ways.items() if turn % 2 == 0 else reversed(ways.items())):
+            kept_frame = None
+            for i in range(copies):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                a = fn(img)
+                if i >= warm:
+                    ms[name].append((time.perf_counter() - t0) * 1e3)
+                kept_frame = a
+            if kept_frame.tobytes() != want:
+                fail(f"readback probe: {name} changed the frame's bytes")
+    out["copy_ms"] = {name: quartile_ms(v) for name, v in ms.items()}
+    out["copy_GBps"] = {name: img.nbytes / out["copy_ms"][name]["median"] / 1e6
+                        for name in ways}
+    del img, kept_frame, a
+
+    copy_ms = []
+
+    def timed(t):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a = readback(t)
+        copy_ms.append((time.perf_counter() - t0) * 1e3)
+        return a
+
+    pathtracer.readback = timed
+    try:
+        scene = build_cornell_scene()
+        scene.rr = 0.8
+        render = pipeline_from_config(RenderConfig(width=WIDTH, height=HEIGHT, spp=SPP,
+                                                   max_bounces=MAX_BOUNCES), "path",
+                                      device="cuda")
+        render.add_scene(scene)
+        out["viewer_stats"] = {"before": host_stats()}
+        draw_ms = []
+        for i in range(draws):
+            render.seed = 1000 + i
+            t0 = time.perf_counter()
+            render.draw()
+            draw_ms.append((time.perf_counter() - t0) * 1e3)
+            if i == 1:
+                out["viewer_stats"]["after_2"] = host_stats()
+        out["viewer_stats"]["after_all"] = host_stats()
+        out["viewer_draw_ms"] = quartile_ms(draw_ms[2:])
+        out["viewer_readback_ms"] = quartile_ms(copy_ms[2:])
+        out["viewer_readback_ms_first_2"] = copy_ms[:2]
+
+        copy_ms.clear()
+        draw_ms.clear()
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            for i in range(traced):
+                render.seed = 2000 + i
+                t0 = time.perf_counter()
+                render.draw()
+                draw_ms.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+        out["traced_stats"] = host_stats()
+        out["traced_draw_ms"] = quartile_ms(draw_ms)
+        out["traced_readback_ms"] = quartile_ms(copy_ms)
+        out["traced_host_alloc_calls"] = sum(
+            e.count for e in prof.key_averages() if e.key == "cudaHostAlloc")
+
+        frames = []
+        for i in range(kept):
+            render.seed = 3000 + i
+            render.draw()
+            frames.append(render.frame)
+        out["animation_stats"] = {"kept": host_stats()}
+        del frames, render
+        out["animation_stats"]["dropped"] = host_stats()
+    finally:
+        pathtracer.readback = readback
+    line = json.dumps(out)
+    (OUT_DIR / "readback_probe.json").write_text(line + "\n")
+    print(line)
+    return out
 
 
 if __name__ == "__main__":

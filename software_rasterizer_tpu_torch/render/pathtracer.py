@@ -48,7 +48,11 @@ from software_rasterizer_tpu_torch.ops.intersect import (
 from software_rasterizer_tpu_torch.ops.path import path_render, path_render_sum
 from software_rasterizer_tpu_torch.parallel.mesh import RenderMesh
 from software_rasterizer_tpu_torch.parallel.render import sharded_path_render
-from software_rasterizer_tpu_torch.render.pipeline import Primitive, RenderingPipeline
+from software_rasterizer_tpu_torch.render.pipeline import (
+    Primitive,
+    RenderingPipeline,
+    readback,
+)
 from software_rasterizer_tpu_torch.utils.debug import nan_check
 from software_rasterizer_tpu_torch.utils.profiling import span
 
@@ -114,7 +118,7 @@ class PathTracing(RenderingPipeline):
                     self.seed, spp=self.spp, p_rr=scene.rr,
                     max_bounces=self.max_bounces)
             with span("srt.readback"):
-                self.frame = nan_check("PathTracing.draw", img).cpu().numpy()
+                self.frame = readback(nan_check("PathTracing.draw", img))
 
     # -- progressive / resumable accumulation --------------------------------
 

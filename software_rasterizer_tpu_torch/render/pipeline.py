@@ -3,7 +3,8 @@
 The reference pipeline owns planar float channels + a z-buffer and a GUI
 display loop. Here `display()` runs the device pipeline and returns the
 frame as a numpy image; `save()` writes PNG. Framebuffer clear semantics
-match Render.cpp:31-55 (color -> 0, z -> +inf).
+match Render.cpp:31-55 (color -> 0, z -> +inf). Every pipeline's `draw()`
+reads its frame back to the host through `readback`.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ import enum
 from typing import Dict
 
 import numpy as np
+import torch
 
 from software_rasterizer_tpu_torch.models.scene import Scene
 from software_rasterizer_tpu_torch.utils.image_io import to_u8, write_png
@@ -62,6 +64,30 @@ class RenderingPipeline:
 
     def save(self, path: str):
         write_png(path, self.frame)
+
+
+def readback(t: torch.Tensor) -> np.ndarray:
+    """`t` as a host array with the bytes, dtype and shape of
+    `t.cpu().numpy()`, which is what it returns for a CPU tensor.
+
+    A CUDA tensor is copied, blocking, into page-locked memory from
+    PyTorch's caching host allocator: the copy runs at the link's speed
+    instead of through the CUDA driver's pageable staging, and touches no
+    fresh page. The array keeps its host tensor alive, so it is fresh and
+    writable and no later read-back writes into it; the block goes back
+    to the allocator's cache when the caller drops the array (a caller
+    that keeps one frame while the next is drawn rotates two blocks).
+
+    The allocator rounds a block up to a power of two (16 MiB for a
+    1024x1024x3 float32 frame) and hands no cached block back to the
+    system on its own: the page-locked memory a process holds is set by
+    the most frames it ever kept alive at once, and stays at that for the
+    life of the process (`torch.cuda.host_memory_stats()` reads it)."""
+    if t.device.type != "cuda":
+        return t.cpu().numpy()
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t)
+    return host.numpy()
 
 
 def check_raster_tile(tile) -> tuple:

@@ -24,7 +24,11 @@ from software_rasterizer_tpu_torch.ops.raster import (
     render_raster_frame,
 )
 from software_rasterizer_tpu_torch.ops.raster_kernel import TILE_H, TILE_W
-from software_rasterizer_tpu_torch.render.pipeline import Primitive, RenderingPipeline
+from software_rasterizer_tpu_torch.render.pipeline import (
+    Primitive,
+    RenderingPipeline,
+    readback,
+)
 from software_rasterizer_tpu_torch.utils.debug import nan_check
 from software_rasterizer_tpu_torch.utils.profiling import span
 
@@ -117,8 +121,8 @@ class TraditionalRasterizer(RenderingPipeline):
             else:
                 image, zbuf = rasterize_wireframe(
                     geom, frame, self.height, self.width)
-            image = nan_check("TraditionalRasterizer.draw", image).cpu().numpy()
-            zbuf = nan_check("TraditionalRasterizer.draw", zbuf).cpu().numpy()
+            image = readback(nan_check("TraditionalRasterizer.draw", image))
+            zbuf = readback(nan_check("TraditionalRasterizer.draw", zbuf))
             # multi-scene composition via shared z-buffer (Render.hpp:250-257)
             nearer = zbuf < self.zbuffer
             self.frame = np.where(nearer[..., None], image, self.frame)

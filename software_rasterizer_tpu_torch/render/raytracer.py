@@ -13,12 +13,14 @@ from __future__ import annotations
 
 from typing import Dict, Optional
 
-import numpy as np
-
 from software_rasterizer_tpu_torch.models.scene import RTGeometry, Scene
 from software_rasterizer_tpu_torch.ops.intersect import check_device, prepare_rt_scene
 from software_rasterizer_tpu_torch.ops.whitted import whitted_render_exact
-from software_rasterizer_tpu_torch.render.pipeline import Primitive, RenderingPipeline
+from software_rasterizer_tpu_torch.render.pipeline import (
+    Primitive,
+    RenderingPipeline,
+    readback,
+)
 from software_rasterizer_tpu_torch.utils.debug import nan_check
 from software_rasterizer_tpu_torch.utils.profiling import span
 from software_rasterizer_tpu_torch.utils.rng import prng_key, split
@@ -80,5 +82,4 @@ class RayTracing(RenderingPipeline):
                 k: int(stats[k])
                 for k in ("dropped_rays", "rays_main", "rays_shadow")
             }
-            img = nan_check("RayTracing.draw", img)
-            self.frame = np.array(img.cpu().numpy())  # writable copy
+            self.frame = readback(nan_check("RayTracing.draw", img))
