@@ -1,13 +1,18 @@
 """The device scene of the ray-traced pipelines (reference:
 Scene::updatePosition, Scene.cpp:882-901; Triangle.cpp:215-231).
 
-`prepare_rt_scene` transforms the host geometry (`models.scene.RTGeometry`
-+ `RTFrame`) into trace space on a torch device. `RTScene` holds the
-fields the tracing layers read, the chunk boxes of the large-scene trace
-tiers among them. Of the JAX package's fields it leaves out `mt_coef`
-(the coefficients of the bilinear matmul form of Moller-Trumbore, a TPU
-form: every tier here tests the `tri_table` rows exactly) and
-`tex_packed` (no caller yet).
+The scene is split in two. `prepare_rt_geometry` carries a
+`models.scene.RTGeometry` onto a torch device once, as a
+`DeviceRTGeometry`: every array no frame changes, the material table and
+texture atlas among them, and what the host works out from them (loop
+bounds, emitter order). `prepare_rt_scene` then uploads only the frame's
+`RTFrame` arrays and transforms that geometry into trace space on the
+device; given a host `RTGeometry` it carries it over first. `RTScene`
+holds the fields the tracing layers read, the chunk boxes of the
+large-scene trace tiers among them. Of the JAX package's fields it
+leaves out `mt_coef` (the coefficients of the bilinear matmul form of
+Moller-Trumbore, a TPU form: every tier here tests the `tri_table` rows
+exactly) and `tex_packed` (no caller yet).
 
 Tracing explicit rays: `nearest_hit` finds the nearest primitive of
 every ray and joins the winner's surface properties into a `Hit`;
@@ -164,17 +169,6 @@ def loop_bound(valid: np.ndarray) -> int:
     return int(idx[-1]) + 1 if idx.size else 0
 
 
-def _emitter_table(obj_emissive: np.ndarray, centers, radii):
-    """[center, radius] rows with emissive objects first (stable), cut to
-    the true emitter count (at least one row); the (O,) order; the count."""
-    emissive = np.asarray(obj_emissive, bool)
-    order = torch.as_tensor(np.argsort(~emissive, kind="stable"),
-                            device=centers.device)
-    cr = torch.cat([centers, radii[:, None]], dim=1)[order]
-    n_emit = int(emissive.sum())
-    return cr[: max(n_emit, 1)], order.to(torch.int32), n_emit
-
-
 def _pack_prim_tables(tv, tn, tuv, tri_mat, tri_tex, tri_obj, sc, sr, sph_mat,
                       sph_obj, sph_valid, mat_type, mat_ior, mat_kd, mat_emit):
     """prim_attr (F+S,40), prim_shadow (F+S,12) and prim_cls (F+S,8), the
@@ -224,89 +218,169 @@ def _pack_prim_tables(tv, tn, tuv, tri_mat, tri_tex, tri_obj, sc, sr, sph_mat,
     return prim_attr, prim_shadow, prim_cls
 
 
+@dataclasses.dataclass
+class DeviceRTGeometry:
+    """`models.scene.RTGeometry` on one device in the dtypes `RTScene`
+    holds, and what no frame changes: the face-gathered uvs, the loop
+    bounds, the emitter order and the objects that the emitter bounds
+    reduce over. `prepare_rt_geometry` makes it once per scene and
+    pipeline; every draw passes it to `prepare_rt_scene`."""
+
+    positions: torch.Tensor    # (V,3) f32 untransformed
+    normals: torch.Tensor      # (V,3) f32
+    vertex_mesh: torch.Tensor  # (V,) i64
+    faces: torch.Tensor        # (F,3) i64
+    tri_uv: torch.Tensor       # (F,3,2) f32 per-corner uvs
+    face_valid: torch.Tensor   # (F,) bool
+    tri_mat: torch.Tensor      # (F,) i32
+    tri_tex: torch.Tensor      # (F,) i32
+    tri_obj: torch.Tensor      # (F,) i32
+    n_tri: int                 # 1 + last valid triangle index
+    sph_center: torch.Tensor   # (S,3) f32 untransformed
+    sph_radius: torch.Tensor   # (S,) f32
+    sph_mat: torch.Tensor      # (S,) i32
+    sph_obj: torch.Tensor      # (S,) i32
+    sph_valid: torch.Tensor    # (S,) bool
+    n_sph: int                 # 1 + last valid sphere index
+    mat_type: torch.Tensor     # (M,) i32
+    mat_ka: torch.Tensor       # (M,3) f32
+    mat_kd: torch.Tensor       # (M,3)
+    mat_ks: torch.Tensor       # (M,3)
+    mat_spec: torch.Tensor     # (M,)
+    mat_ior: torch.Tensor      # (M,)
+    mat_emit: torch.Tensor     # (M,3)
+    emitter_mask: torch.Tensor   # (O,) bool emissive object
+    emitter_order: torch.Tensor  # (O,) i32 object ids, emissive first
+    n_emitters: int
+    bound_seg: torch.Tensor    # (3F+S,3) i64 object of each triangle
+                               # corner, then sphere; O where invalid
+    textures: torch.Tensor     # (K,Hm,Wm,3) u8 atlas
+    tex_wh: torch.Tensor       # (K,2) i32 (width, height)
+    tex_on_emitter: bool       # an emissive triangle carries a texture
+
+
+def prepare_rt_geometry(geom, device) -> DeviceRTGeometry:
+    """Carry a `models.scene.RTGeometry` (host NumPy) onto `device`."""
+    device = check_device(device)
+
+    def t(a, dtype):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+    f32, i32, i64 = torch.float32, torch.int32, torch.int64
+    emissive = np.asarray(geom.obj_emissive, bool)
+    n_obj = emissive.shape[0]
+
+    def seg(obj, valid):
+        return np.where(np.asarray(valid, bool), np.asarray(obj, np.int64), n_obj)
+
+    bound_seg = np.concatenate([np.repeat(seg(geom.tri_obj, geom.face_valid), 3),
+                                seg(geom.sph_obj, geom.sph_valid)])
+    faces = t(geom.faces, i64)
+    mt = geom.materials
+    return DeviceRTGeometry(
+        positions=t(geom.positions, f32), normals=t(geom.normals, f32),
+        vertex_mesh=t(geom.vertex_mesh, i64), faces=faces,
+        tri_uv=t(geom.uvs, f32)[faces], face_valid=t(geom.face_valid, torch.bool),
+        tri_mat=t(geom.tri_mat, i32), tri_tex=t(geom.tri_tex, i32),
+        tri_obj=t(geom.tri_obj, i32), n_tri=loop_bound(geom.face_valid),
+        sph_center=t(geom.sph_center, f32), sph_radius=t(geom.sph_radius, f32),
+        sph_mat=t(geom.sph_mat, i32), sph_obj=t(geom.sph_obj, i32),
+        sph_valid=t(geom.sph_valid, torch.bool), n_sph=loop_bound(geom.sph_valid),
+        mat_type=t(mt.type, i32), mat_ka=t(mt.ka, f32), mat_kd=t(mt.kd, f32),
+        mat_ks=t(mt.ks, f32), mat_spec=t(mt.spec_exp, f32),
+        mat_ior=t(mt.ior, f32), mat_emit=t(mt.emission, f32),
+        emitter_mask=t(emissive, torch.bool),
+        emitter_order=t(np.argsort(~emissive, kind="stable"), i32),
+        n_emitters=int(emissive.sum()),
+        bound_seg=t(bound_seg, i64)[:, None].expand(-1, 3),
+        textures=t(geom.textures, torch.uint8), tex_wh=t(geom.tex_wh, i32),
+        tex_on_emitter=bool(np.asarray(geom.tex_on_emitter).size),
+    )
+
+
+def _emitter_bounds(geom: DeviceRTGeometry, tv, sc, sr):
+    """Per-object emitter bounding spheres (sampleLight, Scene.cpp:398-476):
+    bbox center + |diagonal|/2 over each object's transformed extent, its
+    valid triangles' corners and its valid spheres' boxes. One segment min
+    and one max over `geom.bound_seg`; invalid rows land in a spare last
+    segment. Min and max are exact, so the result does not depend on
+    the order of the reduction."""
+    n_obj = geom.emitter_mask.shape[0]
+    corners = tv.reshape(-1, 3)
+    r = sr[:, None]
+
+    def reduce(fill, pts, how):
+        out = torch.full((n_obj + 1, 3), fill, dtype=torch.float32, device=tv.device)
+        return out.scatter_reduce_(0, geom.bound_seg, pts, how)[:n_obj]
+
+    lo = reduce(BIG, torch.cat([corners, sc - r]), "amin")
+    hi = reduce(-BIG, torch.cat([corners, sc + r]), "amax")
+    return (lo + hi) * 0.5, _norm(hi - lo) * 0.5
+
+
 @span("srt.scene_upload")
 def prepare_rt_scene(geom, frame, device) -> RTScene:
     """Transform geometry into trace space (Scene::updatePosition analog).
 
-    geom: models.scene.RTGeometry; frame: models.scene.RTFrame (host
-    NumPy); device: where the scene's tensors live."""
+    geom: a `DeviceRTGeometry` on `device` (`prepare_rt_geometry`), or a
+    host `models.scene.RTGeometry`, which is carried there first; frame:
+    models.scene.RTFrame (host NumPy), whose arrays are all that goes up
+    to the device for a `DeviceRTGeometry`; device: where the scene's
+    tensors live."""
     device = check_device(device)
+    if not isinstance(geom, DeviceRTGeometry):
+        geom = prepare_rt_geometry(geom, device)
 
-    def t(a, dtype=None):
-        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+    def t(a):
+        return torch.as_tensor(np.asarray(a), dtype=torch.float32, device=device)
 
-    f32 = torch.float32
-    vmesh = t(geom.vertex_mesh, torch.int64)
-    pos = hom_transform(t(frame.mvp, f32)[vmesh], t(geom.positions, f32))
-    nm = t(frame.normal_mat3, f32)[vmesh]
-    nv = t(geom.normals, f32)
+    pos = hom_transform(t(frame.mvp)[geom.vertex_mesh], geom.positions)
+    nm = t(frame.normal_mat3)[geom.vertex_mesh]
+    nv = geom.normals
     nrm = (nm[:, :, 0] * nv[:, 0:1] + nm[:, :, 1] * nv[:, 1:2]
            + nm[:, :, 2] * nv[:, 2:3])
     nrm = nrm / torch.clamp(_norm(nrm, keepdim=True), min=1e-20)
 
-    faces = t(geom.faces, torch.int64)
-    tv = pos[faces]   # (F,3,3)
-    tn = nrm[faces]
-    tuv = t(geom.uvs, f32)[faces]   # (F,3,2)
-    valid = t(geom.face_valid, torch.bool)
+    tv = pos[geom.faces]   # (F,3,3)
+    tn = nrm[geom.faces]
+    tuv = geom.tri_uv      # (F,3,2)
+    valid = geom.face_valid
 
-    sc = hom_transform(t(frame.sph_mvp, f32), t(geom.sph_center, f32))
-    sr = t(geom.sph_radius, f32) * t(frame.sph_scale, f32)
-    sph_valid = t(geom.sph_valid, torch.bool)
+    sc = hom_transform(t(frame.sph_mvp), geom.sph_center)
+    sr = geom.sph_radius * t(frame.sph_scale)
 
-    # per-object emitter bounding spheres (sampleLight, Scene.cpp:398-476):
-    # bbox center + |diagonal|/2 over each object's transformed extent
-    tri_obj = t(geom.tri_obj, torch.int64)
-    sph_obj = t(geom.sph_obj, torch.int64)
-    big = torch.tensor(BIG, dtype=f32, device=device)
-    centers, radii = [], []
-    for o in range(len(geom.obj_emissive)):
-        tmask = ((tri_obj == o) & valid)[:, None, None]
-        lo_t = torch.where(tmask, tv, big).amin(dim=(0, 1))
-        hi_t = torch.where(tmask, tv, -big).amax(dim=(0, 1))
-        smask = ((sph_obj == o) & sph_valid)[:, None]
-        lo_s = torch.where(smask, sc - sr[:, None], big).amin(dim=0)
-        hi_s = torch.where(smask, sc + sr[:, None], -big).amax(dim=0)
-        lo = torch.minimum(lo_t, lo_s)
-        hi = torch.maximum(hi_t, hi_s)
-        centers.append((lo + hi) * 0.5)
-        radii.append(_norm(hi - lo) * 0.5)
-    centers, radii = torch.stack(centers), torch.stack(radii)
-    emitter_cr, order, n_emit = _emitter_table(geom.obj_emissive, centers, radii)
+    centers, radii = _emitter_bounds(geom, tv, sc, sr)
+    emitter_cr = torch.cat([centers, radii[:, None]], dim=1).index_select(
+        0, geom.emitter_order[: max(geom.n_emitters, 1)])
 
     tri_table = mt_tri_table(tv[:, 0], tv[:, 1], tv[:, 2], valid)
     cull_chunk = _cull_granule(tv.shape[0])
     chunk_lo, chunk_hi = trace_tiers.chunk_bounds(
         tv[:, 0], tv[:, 1], tv[:, 2], valid, cull_chunk)
-    mt = geom.materials
-    tri_mat, tri_tex = t(geom.tri_mat, torch.int32), t(geom.tri_tex, torch.int32)
-    sph_mat = t(geom.sph_mat, torch.int32)
     prim_attr, prim_shadow, prim_cls = _pack_prim_tables(
-        tv, tn, tuv, tri_mat, tri_tex, tri_obj, sc, sr, sph_mat, sph_obj,
-        sph_valid, t(mt.type, torch.int32), t(mt.ior, f32), t(mt.kd, f32),
-        t(mt.emission, f32))
+        tv, tn, tuv, geom.tri_mat, geom.tri_tex, geom.tri_obj, sc, sr,
+        geom.sph_mat, geom.sph_obj, geom.sph_valid, geom.mat_type,
+        geom.mat_ior, geom.mat_kd, geom.mat_emit)
     return RTScene(
         v0=tv[:, 0], v1=tv[:, 1], v2=tv[:, 2],
         n0=tn[:, 0], n1=tn[:, 1], n2=tn[:, 2],
         uv0=tuv[:, 0], uv1=tuv[:, 1], uv2=tuv[:, 2],
-        tri_mat=tri_mat, tri_tex=tri_tex, tri_obj=tri_obj.to(torch.int32),
+        tri_mat=geom.tri_mat, tri_tex=geom.tri_tex, tri_obj=geom.tri_obj,
         tri_valid=valid,
-        tri_table=tri_table, n_tri=loop_bound(geom.face_valid),
+        tri_table=tri_table, n_tri=geom.n_tri,
         chunk_lo=chunk_lo, chunk_hi=chunk_hi, cull_chunk=cull_chunk,
-        sph_c=sc, sph_r=sr, sph_mat=sph_mat, sph_obj=sph_obj.to(torch.int32),
-        sph_valid=sph_valid, n_sph=loop_bound(geom.sph_valid),
-        mat_type=t(mt.type, torch.int32), mat_ka=t(mt.ka, f32),
-        mat_kd=t(mt.kd, f32), mat_ks=t(mt.ks, f32),
-        mat_spec=t(mt.spec_exp, f32), mat_ior=t(mt.ior, f32),
-        mat_emit=t(mt.emission, f32),
+        sph_c=sc, sph_r=sr, sph_mat=geom.sph_mat, sph_obj=geom.sph_obj,
+        sph_valid=geom.sph_valid, n_sph=geom.n_sph,
+        mat_type=geom.mat_type, mat_ka=geom.mat_ka, mat_kd=geom.mat_kd,
+        mat_ks=geom.mat_ks, mat_spec=geom.mat_spec, mat_ior=geom.mat_ior,
+        mat_emit=geom.mat_emit,
         emitter_center=centers, emitter_radius=radii,
-        emitter_mask=t(geom.obj_emissive, torch.bool), emitter_order=order,
-        emitter_cr=emitter_cr, n_emitters=n_emit,
+        emitter_mask=geom.emitter_mask, emitter_order=geom.emitter_order,
+        emitter_cr=emitter_cr, n_emitters=geom.n_emitters,
         prim_attr=prim_attr, prim_shadow=prim_shadow, prim_cls=prim_cls,
-        background=t(frame.background, f32), eye=t(frame.eye, f32),
-        textures=t(geom.textures, torch.uint8),
-        tex_wh=t(geom.tex_wh, torch.int32),
-        tex_on_emitter=bool(np.asarray(geom.tex_on_emitter).size),
+        background=t(frame.background), eye=t(frame.eye),
+        textures=geom.textures, tex_wh=geom.tex_wh,
+        tex_on_emitter=geom.tex_on_emitter,
     )
 
 

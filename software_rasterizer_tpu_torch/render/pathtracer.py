@@ -21,6 +21,14 @@ other. The RNG is keyed by absolute sample index, so a resumed or
 batched render reproduces a monolithic one up to float32 summation
 order. The sum image stays a device tensor between batches.
 
+WHERE THE SCENE LIVES: the scene's geometry goes up to the device once,
+at its first draw, as a `DeviceRTGeometry` that the pipeline base keeps
+(`RenderingPipeline._geometry`) until `invalidate()`, which drops the
+scene's accumulator too. Every draw and `accumulate()` uploads only the
+frame's matrices, eye and background and builds the trace-space scene
+from them on the device (`prepare_rt_scene`), so a scene turned between
+draws is traced as it stands.
+
 SAMPLE-PARALLEL: given a `mesh` (`parallel.make_render_mesh`) of more
 than one rank, `draw()` renders each scene through
 `parallel.sharded_path_render`: every rank calls `draw()` with the same
@@ -39,10 +47,12 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from software_rasterizer_tpu_torch.models.scene import RTGeometry, Scene
+from software_rasterizer_tpu_torch.models.scene import Scene
 from software_rasterizer_tpu_torch.ops.intersect import (
+    DeviceRTGeometry,
     RTScene,
     check_device,
+    prepare_rt_geometry,
     prepare_rt_scene,
 )
 from software_rasterizer_tpu_torch.ops.path import path_render, path_render_sum
@@ -70,9 +80,8 @@ class PathTracing(RenderingPipeline):
         self.seed = seed
         self.device = check_device(device)
         self.mesh = mesh
-        self._geom_cache: Dict[str, RTGeometry] = {}
         # progressive state per scene: (sum image (N,3) on device, n_samples)
-        self._accum: Dict[str, Tuple[torch.Tensor, int]] = {}
+        self._accum: Dict[str, Tuple[torch.Tensor, int]] = self._per_scene()
 
     @property
     def sharded(self) -> bool:
@@ -83,20 +92,8 @@ class PathTracing(RenderingPipeline):
         """PathTracing::setSPP."""
         self.spp = spp
 
-    def _geometry(self, scene: Scene) -> RTGeometry:
-        g = self._geom_cache.get(scene.name)
-        if g is None:
-            g = scene.rt_geometry()
-            self._geom_cache[scene.name] = g
-        return g
-
-    def invalidate(self, scene_name: Optional[str] = None):
-        if scene_name is None:
-            self._geom_cache.clear()
-            self._accum.clear()
-        else:
-            self._geom_cache.pop(scene_name, None)
-            self._accum.pop(scene_name, None)
+    def _device_geometry(self, scene: Scene) -> DeviceRTGeometry:
+        return prepare_rt_geometry(scene.rt_geometry(), self.device)
 
     def _rt_scene(self, scene: Scene) -> RTScene:
         return prepare_rt_scene(self._geometry(scene), scene.rt_frame(),

@@ -5,12 +5,19 @@ display loop. Here `display()` runs the device pipeline and returns the
 frame as a numpy image; `save()` writes PNG. Framebuffer clear semantics
 match Render.cpp:31-55 (color -> 0, z -> +inf). Every pipeline's `draw()`
 reads its frame back to the host through `readback`.
+
+The base owns where each scene's geometry lives: `_geometry(scene)`
+uploads it to the pipeline's device at the scene's first draw and keeps
+it until `invalidate()`, so a later draw uploads only its frame's
+matrices. A pipeline says only how its geometry is built
+(`_device_geometry`) and, where it has one, what else makes it stale
+(`_geometry_revision`).
 """
 
 from __future__ import annotations
 
 import enum
-from typing import Dict
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -42,6 +49,45 @@ class RenderingPipeline:
         self.scenes: Dict[str, Scene] = {}
         self.frame = np.zeros((self.height, self.width, 3), np.float32)
         self.zbuffer = np.full((self.height, self.width), np.inf, np.float32)
+        self._scene_dicts: List[dict] = []
+        # scene name -> (revision, the scene's geometry on the device)
+        self._geom_cache: Dict[str, tuple] = self._per_scene()
+
+    def _per_scene(self) -> dict:
+        """A new dict keyed by scene name that `invalidate` empties with
+        the geometry cache."""
+        d: dict = {}
+        self._scene_dicts.append(d)
+        return d
+
+    def _device_geometry(self, scene: Scene):
+        """The scene's geometry on this pipeline's device, as its draws
+        read it."""
+        raise NotImplementedError
+
+    def _geometry_revision(self, scene: Scene):
+        """What, besides `invalidate`, makes a scene's cached geometry
+        stale when it changes; nothing by default."""
+        return None
+
+    def _geometry(self, scene: Scene):
+        """The scene's device geometry, built at its first draw and kept."""
+        rev = self._geometry_revision(scene)
+        entry = self._geom_cache.get(scene.name)
+        if entry is None or entry[0] != rev:
+            entry = (rev, self._device_geometry(scene))
+            self._geom_cache[scene.name] = entry
+        return entry[1]
+
+    def invalidate(self, scene_name: Optional[str] = None):
+        """Drop the cached geometry and other per-scene state of
+        `scene_name`, or of every scene (call after adding or removing
+        meshes, rebinding shaders or changing materials)."""
+        for d in self._scene_dicts:
+            if scene_name is None:
+                d.clear()
+            else:
+                d.pop(scene_name, None)
 
     def add_scene(self, scene: Scene):
         """Render.cpp:66-97: registers the scene and sets its NDC/aspect."""

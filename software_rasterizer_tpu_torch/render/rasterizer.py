@@ -2,9 +2,10 @@
 
 Each draw(): flatten the scene's per-frame matrices (host, tiny), upload
 them in one copy and run the device raster step (ops/raster.py). The
-geometry bundle is uploaded once per scene and cached, so the
-animated-rotation loop (main.cpp:113-175) re-runs only the device step
-with fresh matrices.
+geometry bundle is uploaded once per scene and kept by
+`RenderingPipeline._geometry` (rebuilt when the scene's mesh count
+changes), so the animated-rotation loop (main.cpp:113-175) re-runs only
+the device step with fresh matrices.
 """
 
 from __future__ import annotations
@@ -51,8 +52,6 @@ class TraditionalRasterizer(RenderingPipeline):
         self.chunk = chunk
         self.shaded = bool(shaded)
         self.device = check_device(device)
-        self._geom_cache: Dict[str, Tuple[DeviceRasterGeometry, tuple]] = {}
-        self._geom_rev: Dict[str, int] = {}
         #: per-scene stats of the last draw() or draw_batch():
         #: {scene_name: {"bin_dropped": triangles beyond the per-tile list
         #: cap (an int after draw(); a 0-d device tensor summed over the
@@ -60,23 +59,13 @@ class TraditionalRasterizer(RenderingPipeline):
         #: "kernel": the tile kernel that ran}}
         self.last_stats: Optional[Dict[str, dict]] = None
 
-    def invalidate(self, scene_name: Optional[str] = None):
-        """Drop cached geometry (call after adding/removing meshes or
-        rebinding shaders)."""
-        if scene_name is None:
-            self._geom_cache.clear()
-        else:
-            self._geom_cache.pop(scene_name, None)
+    def _device_geometry(self, scene: Scene) -> Tuple[DeviceRasterGeometry, tuple]:
+        g = scene.raster_geometry()
+        active = tuple(sorted(set(int(t) for t in g.shader_type)))
+        return prepare_raster_geometry(g, self.device), active
 
-    def _geometry(self, scene: Scene):
-        entry = self._geom_cache.get(scene.name)
-        if entry is None or self._geom_rev.get(scene.name) != len(scene.meshes()):
-            g = scene.raster_geometry()
-            active = tuple(sorted(set(int(t) for t in g.shader_type)))
-            entry = (prepare_raster_geometry(g, self.device), active)
-            self._geom_cache[scene.name] = entry
-            self._geom_rev[scene.name] = len(scene.meshes())
-        return entry
+    def _geometry_revision(self, scene: Scene) -> int:
+        return len(scene.meshes())
 
     def _render(self, geom, active, frame):
         return render_raster_frame(

@@ -7,14 +7,23 @@ the per-frame stats (dropped_rays, rays_main, rays_shadow) are surfaced
 on `self.last_stats` as in the JAX package. The pipeline keeps a key and
 splits it for every scene it draws, as the JAX package does, so two
 draws of a scene with several emitters pick their emitters anew.
+
+The scene's geometry goes up to the device once, at its first draw, as a
+`DeviceRTGeometry` that the pipeline base keeps until `invalidate()`; a
+draw uploads only the frame's matrices, eye and background.
 """
 
 from __future__ import annotations
 
 from typing import Dict, Optional
 
-from software_rasterizer_tpu_torch.models.scene import RTGeometry, Scene
-from software_rasterizer_tpu_torch.ops.intersect import check_device, prepare_rt_scene
+from software_rasterizer_tpu_torch.models.scene import Scene
+from software_rasterizer_tpu_torch.ops.intersect import (
+    DeviceRTGeometry,
+    check_device,
+    prepare_rt_geometry,
+    prepare_rt_scene,
+)
 from software_rasterizer_tpu_torch.ops.whitted import whitted_render_exact
 from software_rasterizer_tpu_torch.render.pipeline import (
     Primitive,
@@ -42,7 +51,6 @@ class RayTracing(RenderingPipeline):
         self.seed = seed
         self.key = prng_key(seed)
         self.device = check_device(device)
-        self._geom_cache: Dict[str, RTGeometry] = {}
         #: per-scene integrator stats of the last draw() —
         #: {scene_name: {"dropped_rays": 0, "rays_main": int,
         #:  "rays_shadow": int}}
@@ -51,18 +59,8 @@ class RayTracing(RenderingPipeline):
     def set_spp(self, spp: int):
         self.spp = spp
 
-    def _geometry(self, scene: Scene) -> RTGeometry:
-        g = self._geom_cache.get(scene.name)
-        if g is None:
-            g = scene.rt_geometry()
-            self._geom_cache[scene.name] = g
-        return g
-
-    def invalidate(self, scene_name=None):
-        if scene_name is None:
-            self._geom_cache.clear()
-        else:
-            self._geom_cache.pop(scene_name, None)
+    def _device_geometry(self, scene: Scene) -> DeviceRTGeometry:
+        return prepare_rt_geometry(scene.rt_geometry(), self.device)
 
     @span("srt.draw")
     def draw(self, primitive: Primitive = Primitive.TRIANGLES):
