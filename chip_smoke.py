@@ -271,12 +271,14 @@ SHARD_REPS = 5
 NCCL_PROBE_RANKS = 2
 # phase 31: the entry point's frame side (the JAX example's default)
 CORNELL_PT_SIZE = 256
-# earlier readings of the culled path kernels on an NVIDIA H100 80GB HBM3 at
-# 700 W (the kernel table of PERF.md, section 6), printed beside this run's:
-# the 16-spp frame of the camera kernel and 16 bounces of the frame's primary
-# hits, ms at 9,216 / 147,456 triangles
-EARLIER_CULLED_MS = {"camera": {"mid": 191.745, "large": 486.851},
-                     "bounce": {"mid": 13.388, "large": 30.862}}
+# earlier readings of the culled kernels on an NVIDIA H100 80GB HBM3 at
+# 700 W (the kernel table of PERF.md, section 6: the warp walk over chunk
+# boxes, before the leaf boxes), printed beside this run's: the 16-spp frame
+# of the camera kernel, 16 bounces of the frame's primary hits and the
+# max_depth-5 Whitted frame, ms at 9,216 / 147,456 triangles
+EARLIER_CULLED_MS = {"camera": {"mid": 186.978, "large": 469.881},
+                     "bounce": {"mid": 11.943, "large": 29.621},
+                     "whitted": {"mid": 8.208, "large": 20.218}}
 # the SIMT efficiency (row tests / row-test slots) of the Whitted kernel's
 # per-ray walk before its step was made warp-uniform, main and shadow rays
 # over the whole max_depth-5 frame at 9,216 / 147,456 triangles, on an
@@ -623,6 +625,7 @@ def main() -> int:
     wavefront = wavefront_phases(dev, card, cam_mean, paths / k_ms / 1e3)
     picks = whitted_emitter_phases(dev, card)
     tiers, large = large_scene_phases(dev, card)
+    unculled = unculled_phase(dev, card, large)
     culled = culled_phases(dev, card, large)
     whitted["launches_two_emitters"] = picks["launches"]
     whitted["max_abs_err"] = max(whitted["max_abs_err"], picks["max_abs_err"])
@@ -648,7 +651,7 @@ def main() -> int:
         "simt_efficiency": cam_simt,
         "issue_floor_ms": cam_floor,
         "sass_per_row": cam_sass["per_row"],
-    }, whitted, *raster, *wavefront, *tiers, *culled["entries"]]}))
+    }, whitted, *raster, *wavefront, *tiers, unculled, *culled["entries"]]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
@@ -1831,28 +1834,21 @@ def vote_floor(lib_path, kernel: str, rays: int, steps: int, voted: int):
     return (per * steps - skip * (steps - voted)) / rate * 1e3, loop
 
 
-def large_scene_phases(dev, card: str):
-    """Phases 20-24: nearest hits of explicit rays on large scenes, the
-    Cornell box tessellated to 9,216 and to 147,456 triangles. Returns
-    the entries of the four chunk-culled kernels for the JSON line, and
-    the scenes with their rays for phases 25-29."""
+def stress_scenes(dev):
+    """The Cornell box tessellated to 9,216 ("mid") and to 147,456
+    ("large") triangles on `dev`, with their camera rays and as many
+    bounce rays: ({name: {scene, rt, rays, backend}}, a line a scene).
+    Phases 20-31 take them."""
     import torch
 
     from software_rasterizer_tpu_torch.ops import intersect as ti
-    from software_rasterizer_tpu_torch.ops import trace_kernel as tk
-    from software_rasterizer_tpu_torch.ops import trace_tiers as tt
     from software_rasterizer_tpu_torch.ops.camera import camera_rays
     from software_rasterizer_tpu_torch.scenes import build_cornell_scene
     from software_rasterizer_tpu_torch.scenes.stress import subdivide_mesh
 
     sys.path.insert(0, str(ROOT / "tests"))
-    from torch_scenes import slab_knife_edge_rays, stress_cornell
+    from torch_scenes import stress_cornell
 
-    n = WIDTH * HEIGHT
-    block = tt.DEFAULT_BLOCK
-    med = statistics.median
-
-    # ---- 20. scenes, tables and rays
     scenes, lines = {}, []
     for name, levels in (("mid", LARGE_LEVELS[0]), ("large", LARGE_LEVELS[1])):
         t0 = time.perf_counter()
@@ -1873,8 +1869,31 @@ def large_scene_phases(dev, card: str):
                             backend=ti._trace_backend(f_pad))
         lines.append(f"{name}: {rt.n_tri} triangles ({f_pad} rows), nc {rt.chunk_lo.shape[0]} "
                      f"at granule {rt.cull_chunk}, tier {scenes[name]['backend']}, "
-                     f"{int(hit.hit.sum())}/{n} camera rays hit, host {host_s:.2f}s "
+                     f"{int(hit.hit.sum())}/{o.shape[0]} camera rays hit, host {host_s:.2f}s "
                      f"(native BVH build and OBJ scan)")
+    return scenes, lines
+
+
+def large_scene_phases(dev, card: str):
+    """Phases 20-24: nearest hits of explicit rays on large scenes, the
+    Cornell box tessellated to 9,216 and to 147,456 triangles. Returns
+    the entries of the four chunk-culled kernels for the JSON line, and
+    the scenes with their rays for phases 25-29."""
+    import torch
+
+    from software_rasterizer_tpu_torch.ops import intersect as ti
+    from software_rasterizer_tpu_torch.ops import trace_kernel as tk
+    from software_rasterizer_tpu_torch.ops import trace_tiers as tt
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_scenes import slab_knife_edge_rays
+
+    n = WIDTH * HEIGHT
+    block = tt.DEFAULT_BLOCK
+    med = statistics.median
+
+    # ---- 20. scenes, tables and rays
+    scenes, lines = stress_scenes(dev)
     if scenes["mid"]["backend"] != "mm2c" or scenes["large"]["backend"] != "mm2s":
         fail(f"tiers by triangle count: {lines}")
     phase(20, "stress_cornell -> prepare_rt_scene on the card, 1,048,576 camera rays "
@@ -2386,55 +2405,23 @@ def large_scene_phases(dev, card: str):
     ], scenes
 
 
-def culled_phases(dev, card: str, scenes: dict) -> dict:
-    """Phases 25-29: kernel #8 (the unculled chunked sweep) and large-scene
-    path tracing and Whitted through the chunk-culled warp walks of the
-    camera, bounce and Whitted kernels, on phase 20's `scenes`. Returns the JSON
-    entries of kernel #8 and of the culled camera and bounce kernels, and
-    the culled numbers of the Whitted kernel."""
-    import numpy as np
+def unculled_phase(dev, card: str, scenes: dict) -> dict:
+    """Phase 25: kernel #8 (the unculled chunked sweep) against kernel #2
+    and its plain version on Cornell and phase 20's `scenes`, its tally
+    against its plain model. Returns its JSON entry."""
     import torch
 
-    from software_rasterizer_tpu_torch.config import RenderConfig
     from software_rasterizer_tpu_torch.ops import intersect as ti
-    from software_rasterizer_tpu_torch.ops import path as tp
-    from software_rasterizer_tpu_torch.ops import path_kernel as pk
     from software_rasterizer_tpu_torch.ops import trace_kernel as tk
     from software_rasterizer_tpu_torch.ops import trace_tiers as tt
-    from software_rasterizer_tpu_torch.ops import whitted_kernel as wk
     from software_rasterizer_tpu_torch.ops.camera import camera_rays
-    from software_rasterizer_tpu_torch.render import pipeline_from_config
     from software_rasterizer_tpu_torch.scenes import build_cornell_scene
-    from software_rasterizer_tpu_torch.scenes.stress import subdivide_mesh
-    from software_rasterizer_tpu_torch.utils.rng import fold_in, key_bits, sample_seeds
-
-    sys.path.insert(0, str(ROOT / "tests"))
-    from torch_scenes import stress_cornell
 
     n = WIDTH * HEIGHT
     med = statistics.median
-    sizes = {name: sc["rt"].n_tri for name, sc in scenes.items()}
 
     def differing(a, b):
         return (a[0] != b[0]) | (a[1] != b[1]) | (a[2] != b[2])
-
-    def walk_check(what, tally, st):
-        """A culled path kernel's (3,) tally on the plain lanes against the
-        plain version's counts: the (ray, row) and slab tests, and the
-        row-test slots against the warp walk's model (trace_tiers.warp_slots);
-        returns (the walk's SIMT efficiency, the per-thread walk's)."""
-        walk = tuple(int(x) for x in tally.tolist())
-        want = (st["row_tests"], st["slab_tests"], st["slots"])
-        if walk != want:
-            fail(f"{what}: tally (row tests, slab tests, slots) {walk}, plain {want}")
-        return walk[0] / walk[2], st["row_tests"] / st["slots_thread"]
-
-    def window(name):
-        """The lane range of a kernel against kernel comparison: the whole
-        frame at 9,216 triangles, LARGE_WINDOW centre lanes at 147,456."""
-        return (0, n) if name == "mid" else (n // 2 - LARGE_WINDOW // 2, LARGE_WINDOW)
-
-    plain_off = n // 2 - PLAIN_PATH_LANES // 2
 
     # ---- 25. kernel #8 against kernel #2 and against its plain version, on
     # camera and bounce rays of Cornell and both large scenes; its tally
@@ -2536,6 +2523,72 @@ def culled_phases(dev, card: str, scenes: dict) -> dict:
               f"{floor8:.4f} ms ({loop8['per_row'] / rays8:g} SASS instructions a row and "
               f"ray, {loop8['skip'] / rays8:g} of them skipped by a failed vote)")
 
+    mid = "mid"
+    return {"name": "trace_unculled", "route": "cuda",
+            "source": "software_rasterizer_tpu_torch/csrc/trace_culled.cu",
+            "replaces": "software_rasterizer_tpu/ops/pallas_trace.py:120",
+            "launches": mm_launches, "max_abs_err": mm_err,
+            "ms": med(t25[mid, "camera"]["mm"]), "bare_ms": med(t25[mid, "camera"]["mm bare"]),
+            "plain_ms": mm_plain_ms[mid, "camera"], "bound_ms": b8f, "bound_by": by8f,
+            "library_ms": None,
+            "ms_range": [t25[mid, "camera"]["mm"][0], t25[mid, "camera"]["mm"][-1]],
+            "bare_ms_range": [t25[mid, "camera"]["mm bare"][0],
+                              t25[mid, "camera"]["mm bare"][-1]],
+            "bare_ms_bounce": med(t25[mid, "bounce"]["mm bare"]),
+            "bound_ms_voted_warps": b8w, "bound_ms_every_test": b8,
+            "issue_floor_ms": floor8,
+            "sass_per_row_and_ray": loop8["per_row"] / rays8,
+            "sass_skipped_per_row_and_ray": loop8["skip"] / rays8,
+            "tally": {f"{name} {kind}": dict(zip(tt.TALLY_NAMES, w))
+                      for (name, kind), w in work8.items()}}
+
+
+def culled_phases(dev, card: str, scenes: dict) -> dict:
+    """Phases 26-29: large-scene path tracing and Whitted through the
+    culled warp walks (super, chunk and leaf boxes) of the camera, bounce
+    and Whitted kernels, on phase 20's `scenes`. Returns the JSON entries
+    of the culled camera and bounce kernels, and the culled numbers of the
+    Whitted kernel."""
+    import numpy as np
+    import torch
+
+    from software_rasterizer_tpu_torch.config import RenderConfig
+    from software_rasterizer_tpu_torch.ops import intersect as ti
+    from software_rasterizer_tpu_torch.ops import path as tp
+    from software_rasterizer_tpu_torch.ops import path_kernel as pk
+    from software_rasterizer_tpu_torch.ops import whitted_kernel as wk
+    from software_rasterizer_tpu_torch.render import pipeline_from_config
+    from software_rasterizer_tpu_torch.scenes import build_cornell_scene
+    from software_rasterizer_tpu_torch.scenes.stress import subdivide_mesh
+    from software_rasterizer_tpu_torch.utils.rng import fold_in, key_bits, sample_seeds
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_scenes import stress_cornell
+
+    n = WIDTH * HEIGHT
+    med = statistics.median
+    sizes = {name: sc["rt"].n_tri for name, sc in scenes.items()}
+
+    def walk_check(what, tally, st):
+        """A culled path kernel's (3,) tally on the plain lanes against the
+        plain version's counts: the (ray, row) and slab tests, and the
+        row-test slots against the warp walk's model (trace_tiers.warp_slots);
+        returns (the walk's SIMT efficiency, the per-thread walk's, the
+        leaf boxes' pass share: rows tested / rows of the chunks entered)."""
+        walk = tuple(int(x) for x in tally.tolist())
+        want = (st["row_tests"], st["slab_tests"], st["slots"])
+        if walk != want:
+            fail(f"{what}: tally (row tests, slab tests, slots) {walk}, plain {want}")
+        return (walk[0] / walk[2], st["row_tests"] / st["slots_thread"],
+                st["row_tests"] / st["chunk_rows"])
+
+    def window(name):
+        """The lane range of a kernel against kernel comparison: the whole
+        frame at 9,216 triangles, LARGE_WINDOW centre lanes at 147,456."""
+        return (0, n) if name == "mid" else (n // 2 - LARGE_WINDOW // 2, LARGE_WINDOW)
+
+    plain_off = n // 2 - PLAIN_PATH_LANES // 2
+
     # ---- 26. the culled camera kernel against the full sweep and the plain
     # versions
     kw = dict(p_rr=scenes["mid"]["scene"].rr, max_bounces=MAX_BOUNCES)
@@ -2552,9 +2605,10 @@ def culled_phases(dev, card: str, scenes: dict) -> dict:
             r = torch.nonzero((a != b).any(dim=0)).flatten()
             print(f"[phase 26] {name}: lanes {(r[:8] + off).tolist()} differ", flush=True)
             fail(f"culled camera kernel on {name}: {n_off}/{nl} lanes differ from the full sweep")
-        # (the walk's SIMT efficiency, the per-thread walk's) on the plain
-        # lanes; not read where a lane differs from plain (its counts differ)
-        plain, bad, eff = {}, {}, (float("nan"), float("nan"))
+        # (the walk's SIMT efficiency, the per-thread walk's, the leaf pass
+        # share) on the plain lanes; not read where a lane differs from
+        # plain (its counts differ)
+        plain, bad, eff = {}, {}, (float("nan"),) * 3
         for cull in (True, False):
             k = pk.path_camera_render(*args, 1, lane_offset=plain_off,
                                       n_lanes=PLAIN_PATH_LANES, cull=cull, **kw)
@@ -2600,11 +2654,13 @@ def culled_phases(dev, card: str, scenes: dict) -> dict:
         pk.launch_path_camera(*ops, tally=tally, **launch_kw)
         torch.cuda.synchronize()
         (b_c, by_c), rows, slabs = tests_bound_ms(
-            tensor_bytes(*ops[:4], ct.lo, ct.hi, ct.lo2, ct.hi2, frame), tally)
+            tensor_bytes(*ops[:4], *ct[:6], frame), tally)
         simt = rows / int(tally[2])
+        floor_c, loop_c = issue_floor("path_camera", "path_camera_kernelILb1E", 1,
+                                      int(tally[2]), rays=1)
         cam[name] = dict(frame=frame, t=t_k, bare=t_b, bound=(b_c, by_c), plain=plain,
                          full_mpaths=nl / full_ms / 1e3, full_ms=full_ms, simt=simt,
-                         simt_thread=eff[1])
+                         simt_thread=eff[1], leaf_pass=eff[2], floor=floor_c, loop=loop_c)
         lines.append(
             f"{name} ({rt.n_tri} triangles): culled == full sweep on all {nl} lanes of "
             f"[{off}, {off + nl}) at 1 spp (full sweep {full_ms:.0f} ms wall = "
@@ -2613,14 +2669,20 @@ def culled_phases(dev, card: str, scenes: dict) -> dict:
             f"{plain[False]:.0f} ms), walk tally (row tests, slab tests, slots) = plain counts "
             f"and the warp walk's model; SIMT efficiency of the walk (row tests / slots) "
             f"{eff[0]:.4f} there against {eff[1]:.4f} for the per-thread walk "
-            f"(trace_tiers.warp_slots' model of its schedule on the same lanes); {SPP} spp "
+            f"(trace_tiers.warp_slots' model of its schedule on the same lanes), leaf pass "
+            f"share {eff[2]:.4f} (rows tested / rows of the chunks entered); {SPP} spp "
             f"whole frame: kernel {spread(t_k)} ms = {n * SPP / med(t_k) / 1e3:.2f} Mpaths/s "
             f"(earlier reading {EARLIER_CULLED_MS['camera'][name]} ms: "
             f"{med(t_k) / EARLIER_CULLED_MS['camera'][name]:.3f}x), "
             f"bare {spread(t_b)}; {rows:.4g} row tests, {slabs:.4g} slab tests = "
             f"{rows / (2.0 * n * SPP):.0f} rows a lane-sample and ray of the "
             f"{rt.tri_table.shape[0]}, {int(tally[2]):.4g} slots (efficiency {simt:.4f}); "
-            f"bound {b_c:.4f} ms by {by_c} ({med(t_k) / b_c:.1f}x)")
+            f"bound {b_c:.4f} ms by {by_c} ({med(t_k) / b_c:.1f}x); the walk's row-step "
+            f"loop (one row a thread of a ray's leaf) {loop_c['per_row']:g} SASS instructions "
+            f"a row-step ({loop_c['unroll']} row-steps a loop iteration; a row-step's mix "
+            + ", ".join(f"{o} {c:g}" for o, c in loop_c["mix"].items())
+            + f"), issue floor {floor_c:.4f} ms over the tally's slots (bare "
+            f"{med(t_b) / floor_c:.2f}x it)")
     phase(26, f"camera kernel, culled walk vs full sweep, {MAX_BOUNCES} bounces, on {card}: "
               + "; ".join(lines) + f"; max_abs_err vs plain {cam_err:.3g}")
 
@@ -2645,7 +2707,7 @@ def culled_phases(dev, card: str, scenes: dict) -> dict:
                         for x, y in zip(a, b)).gt(0).sum())
         if n_off:
             fail(f"culled bounce kernel on {name}: {n_off}/{nl} lanes differ from the full sweep")
-        bad, plain, eff = {}, {}, (float("nan"), float("nan"))
+        bad, plain, eff = {}, {}, (float("nan"),) * 3
         for cull in (True, False):
             ps, pl = part(plain_off, PLAIN_PATH_LANES)
             ka, _, kl = pk.fused_bounce_group(rt, ps, pl, seed, MAX_BOUNCES, cull=cull, **rr)
@@ -2681,7 +2743,7 @@ def culled_phases(dev, card: str, scenes: dict) -> dict:
         pk.launch_path_bounce(*ops, tally=tally, **launch_kw)
         torch.cuda.synchronize()
         (b_b, by_b), rows, slabs = tests_bound_ms(
-            tensor_bytes(*ops[:4], ct.lo, ct.hi, ct.lo2, ct.hi2) + 2 * tensor_bytes(state, live)
+            tensor_bytes(*ops[:4], *ct[:6]) + 2 * tensor_bytes(state, live)
             + 12 * n, tally)
         simt = rows / int(tally[2])
         # path_trace's routes on one sample of the centre lanes: the bounce
@@ -2709,14 +2771,15 @@ def culled_phases(dev, card: str, scenes: dict) -> dict:
         _, wave1_ms = wall_ms(lambda: tp.path_trace(rt, o_, d_, SEED, **pkw))
         bnc[name] = dict(t=t_k, bare=t_b, bound=(b_b, by_b), plain=plain, launches=launches[1],
                          fused_ms=fused_ms, plain_route_ms=plain_ms, cam1_ms=cam1_ms,
-                         wave1_ms=wave1_ms, simt=simt, simt_thread=eff[1])
+                         wave1_ms=wave1_ms, simt=simt, simt_thread=eff[1], leaf_pass=eff[2])
         lines.append(
             f"{name} ({rt.n_tri} triangles): culled == full sweep on all {nl} lanes "
             f"(full sweep {full_ms:.0f} ms wall); vs plain on {PLAIN_PATH_LANES} lanes: culled "
             f"{bad[True]}, full {bad[False]} lanes differ (plain {plain[True]:.0f} / "
             f"{plain[False]:.0f} ms), walk tally = plain counts and the model's slots; SIMT "
             f"efficiency of the walk {eff[0]:.4f} there against {eff[1]:.4f} for the "
-            f"per-thread walk; {n} lanes: kernel {spread(t_k)} ms (earlier reading "
+            f"per-thread walk, leaf pass share {eff[2]:.4f}; {n} lanes: kernel "
+            f"{spread(t_k)} ms (earlier reading "
             f"{EARLIER_CULLED_MS['bounce'][name]} ms: "
             f"{med(t_k) / EARLIER_CULLED_MS['bounce'][name]:.3f}x), bare {spread(t_b)}, "
             f"{rows:.4g} row tests, {slabs:.4g} slab tests, {int(tally[2]):.4g} slots "
@@ -2787,23 +2850,6 @@ def culled_phases(dev, card: str, scenes: dict) -> dict:
     mid = "mid"
     return {
         "entries": [
-            {"name": "trace_unculled", "route": "cuda",
-             "source": "software_rasterizer_tpu_torch/csrc/trace_culled.cu",
-             "replaces": "software_rasterizer_tpu/ops/pallas_trace.py:120",
-             "launches": mm_launches, "max_abs_err": mm_err,
-             "ms": med(t25[mid, "camera"]["mm"]), "bare_ms": med(t25[mid, "camera"]["mm bare"]),
-             "plain_ms": mm_plain_ms[mid, "camera"], "bound_ms": b8f, "bound_by": by8f,
-             "library_ms": None,
-             "ms_range": [t25[mid, "camera"]["mm"][0], t25[mid, "camera"]["mm"][-1]],
-             "bare_ms_range": [t25[mid, "camera"]["mm bare"][0],
-                               t25[mid, "camera"]["mm bare"][-1]],
-             "bare_ms_bounce": med(t25[mid, "bounce"]["mm bare"]),
-             "bound_ms_voted_warps": b8w, "bound_ms_every_test": b8,
-             "issue_floor_ms": floor8,
-             "sass_per_row_and_ray": loop8["per_row"] / rays8,
-             "sass_skipped_per_row_and_ray": loop8["skip"] / rays8,
-             "tally": {f"{name} {kind}": dict(zip(tt.TALLY_NAMES, w))
-                       for (name, kind), w in work8.items()}},
             {"name": "path_camera_culled", "route": "cuda",
              "source": "software_rasterizer_tpu_torch/csrc/path_camera.cu",
              "replaces": "software_rasterizer_tpu/ops/pallas_path.py:354",
@@ -2819,7 +2865,11 @@ def culled_phases(dev, card: str, scenes: dict) -> dict:
              "ms_range_147456": [cam["large"]["t"][0], cam["large"]["t"][-1]],
              "bound_ms_147456": cam["large"]["bound"][0],
              "simt_efficiency_147456": cam["large"]["simt"],
-             "simt_efficiency_per_thread_walk_147456": cam["large"]["simt_thread"]},
+             "simt_efficiency_per_thread_walk_147456": cam["large"]["simt_thread"],
+             "leaf_pass_share": cam[mid]["leaf_pass"],
+             "leaf_pass_share_147456": cam["large"]["leaf_pass"],
+             "issue_floor_ms": cam[mid]["floor"], "issue_floor_ms_147456": cam["large"]["floor"],
+             "sass_per_row_step": cam[mid]["loop"]["per_row"]},
             {"name": "path_bounce_culled", "route": "cuda",
              "source": "software_rasterizer_tpu_torch/csrc/path_bounce.cu",
              "replaces": "software_rasterizer_tpu/ops/pallas_path.py:635",
@@ -2835,7 +2885,9 @@ def culled_phases(dev, card: str, scenes: dict) -> dict:
              "ms_range_147456": [bnc["large"]["t"][0], bnc["large"]["t"][-1]],
              "bound_ms_147456": bnc["large"]["bound"][0],
              "simt_efficiency_147456": bnc["large"]["simt"],
-             "simt_efficiency_per_thread_walk_147456": bnc["large"]["simt_thread"]},
+             "simt_efficiency_per_thread_walk_147456": bnc["large"]["simt_thread"],
+             "leaf_pass_share": bnc[mid]["leaf_pass"],
+             "leaf_pass_share_147456": bnc["large"]["leaf_pass"]},
         ],
         "whitted": {"launches": draw_launches["whitted"], "ms_9216": med(wht[mid]["t"]),
                     "ms_147456": med(wht["large"]["t"]),
@@ -2910,7 +2962,7 @@ def whitted_culled_phase(dev, card: str, scenes: dict):
         wk.launch_whitted_uber(*args[:6], o_[sl], d_[sl], tally=tally_pl, **kw)
         torch.cuda.synchronize()
         (b_w, by_w), rows, slabs = tests_bound_ms(
-            tensor_bytes(*args, ct.lo, ct.hi, ct.lo2, ct.hi2) + 20 * n,
+            tensor_bytes(*args, *ct[:6]) + 20 * n,
             tally[:, :2].sum(dim=0))
         eff = {}
         for i, ray in enumerate(wk.TALLY_ROWS):
@@ -2921,7 +2973,8 @@ def whitted_culled_phase(dev, card: str, scenes: dict):
                      f"warp walk's model)")
             eff[ray] = {"frame": fr[0] / fr[2], "lanes": pl[0] / pl[2],
                         "model_per_ray": want["row_tests"] / want["slots_thread"],
-                        "model_warp": want["row_tests"] / want["slots"]}
+                        "model_warp": want["row_tests"] / want["slots"],
+                        "leaf_pass": want["row_tests"] / want["chunk_rows"]}
         # the culled instance with the 8-entry stack (max_depth 5)
         floor_ms, loop = issue_floor("whitted_uber", "whitted_uber_kernelILb1ELi8E", 1,
                                      int(tally[:, 2].sum()), rays=1)
@@ -2932,7 +2985,9 @@ def whitted_culled_phase(dev, card: str, scenes: dict):
             f"(rgb and ray counts; full sweep {full_ms:.1f} ms wall), whitted_render "
             f"dropped_rays 0; vs plain on {PLAIN_PATH_LANES} lanes: culled {bad[True]}, full "
             f"{bad[False]} pixels differ (plain {plain[True]:.0f} / {plain[False]:.0f} ms); "
-            f"kernel {spread(t_k)} ms, bare {spread(t_b)}, {rows:.4g} row tests, "
+            f"kernel {spread(t_k)} ms (earlier reading {EARLIER_CULLED_MS['whitted'][name]} "
+            f"ms: {statistics.median(t_k) / EARLIER_CULLED_MS['whitted'][name]:.3f}x), bare "
+            f"{spread(t_b)}, {rows:.4g} row tests, "
             f"{slabs:.4g} slab tests, bound {b_w:.4f} ms by {by_w}; SIMT efficiency of "
             f"the walk (row tests / slots), main / shadow rays: the kernel's tally "
             + ", ".join(f"{e['frame']:.4f}" for e in eff.values()) + " on the frame, "
@@ -2943,7 +2998,10 @@ def whitted_culled_phase(dev, card: str, scenes: dict):
             + " and the warp walk " + ", ".join(f"{e['model_warp']:.4f}" for e in eff.values())
             + f" (the per-ray walk's before the warp-uniform step: "
             + ", ".join(f"{x:.4f}" for x in EARLIER_WHITTED_SIMT[name])
-            + f", an earlier reading); issue floor {floor_ms:.4f} ms ({loop['per_row']:g} SASS "
+            + f", an earlier reading); leaf pass share (rows tested / rows of the chunks "
+            f"entered, plain lanes), main / shadow rays "
+            + ", ".join(f"{e['leaf_pass']:.4f}" for e in eff.values())
+            + f"; issue floor {floor_ms:.4f} ms ({loop['per_row']:g} SASS "
             f"instructions a row and ray in the walk's row loop, {loop['unroll']} rows a loop "
             f"iteration, x {int(tally[:, 2].sum())} slots / 32), bare "
             f"{statistics.median(t_b) / floor_ms:.2f}x it")

@@ -23,11 +23,11 @@
 //     per-lane loop this replaces held each warp until its longest lane
 //     died.
 //   * path_bounce_culled (the chunk-culled walk) keeps a per-lane loop:
-//     each ray culls by the chunk boxes on its own and the warp tests each
-//     (ray, chunk) pair together (path_common.cuh dual_trace_culled). Its
-//     loop runs while any lane of the warp is live; a dead lane (or one
-//     past n) stays in it, inactive, for the warp's votes, and keeps its
-//     state.
+//     each ray culls by the super, chunk and leaf boxes on its own and the
+//     warp tests each (ray, leaf) pair together (path_common.cuh
+//     dual_trace_culled). Its loop runs while any lane of the warp is
+//     live; a dead lane (or one past n) stays in it, inactive, for the
+//     warp's votes, and keeps its state.
 //
 // In: state (18,N) [pos|nrm|kd|emit|color|throughput], component-major,
 // and live (N,). Out: acc (3,N), the radiance the lane gathered; the new
@@ -454,7 +454,7 @@ __global__ void __launch_bounds__(kThreads) path_bounce_culled(const BounceParam
 
 }  // namespace
 
-// `lo`..`hi2` are the chunk tables of the culled kernel; with lo null the
+// `lo`..`hi3` are the box tables of the culled kernel; with lo null the
 // full sweep runs, bounce-major, in `counts` (3 int32, zero), `lists`
 // (2 x n int32), `scratch` (2 x 21 x n float32) and `done` (n x 24
 // float32, 16-byte aligned), and fills `timeline` if it is not null.
@@ -465,14 +465,15 @@ extern "C" int srt_path_bounce(const float* tri, const float* attr,
                                int n_tri, int n_sph, int n_emitters, int n,
                                int n_bounces, int seed, float p_rr,
                                const float* lo, const float* hi,
-                               const float* lo2, const float* hi2, int nc,
-                               int chunk, int* counts, int* lists,
+                               const float* lo2, const float* hi2,
+                               const float* lo3, const float* hi3, int nc,
+                               int nl, int chunk, int* counts, int* lists,
                                float* scratch, float* done,
                                unsigned long long* tally,
                                int n_tally, unsigned long long* timeline,
                                void* stream) {
-  const CullTables ct{lo, hi, lo2, hi2, nc, (nc + srt::kSuper - 1) / srt::kSuper,
-                      chunk};
+  const CullTables ct =
+      srt::cull_tables(lo, hi, lo2, hi2, lo3, hi3, nc, nl, chunk);
   if (lo != nullptr && !srt::cull_tables_ok(ct, n_tri))
     return (int)cudaErrorInvalidValue;
   if (n <= 0) return 0;

@@ -31,9 +31,10 @@
 // sweep; its loop runs while any thread of the warp is active, or, when
 // the table is staged slice by slice, of the block (__syncthreads_or: the
 // staging's barriers need the whole block). In the
-// culled walk the rays of a warp enter different chunks, so the warp tests
-// each (ray, chunk) pair together (path_common.cuh dual_trace_culled,
-// trace_common.cuh warp_walk_chunks): a ballot a chunk, the rows staged in
+// culled walk the rays of a warp enter different leaves (32-row runs under
+// the super and chunk boxes), so the warp tests each (ray, leaf) pair
+// together (path_common.cuh dual_trace_culled, trace_common.cuh
+// warp_walk_chunks): a ballot a leaf, the entered leaves' rows staged in
 // shared memory with cp.async, 32 threads on one ray's rows. Its loop runs
 // while any thread of the warp is active. In both, a thread whose lane is
 // done (or lies past n_lanes) stays in the loop, inactive, for the votes
@@ -99,7 +100,9 @@ constexpr int kThreads = 128;
 
 // blocks an SM the full sweep asks of the compiler: 6 cap a thread at 80
 // registers (it takes 104 unasked, 5 blocks), which took less time on an
-// H100 with the warp-uniform loop than 5 or 8 (64 registers)
+// H100 with the warp-uniform loop than 5 or 8 (64 registers). The culled
+// instance asks 1: it takes 127 registers unasked (CUDA 12.8), so four
+// blocks' WarpStages fill the SM either way (asking 4 took the same time).
 constexpr int kMinBlocksFull = 6;
 
 template <bool kCull>
@@ -280,17 +283,18 @@ path_camera_kernel(const Params p) {
 
 }  // namespace
 
-// `lo`..`hi2` are the chunk tables of the culled instance; with lo null
+// `lo`..`hi3` are the box tables of the culled instance; with lo null
 // the full-sweep instance runs.
 extern "C" int srt_path_camera_render(
     const float* tri, const float* attr, const float* sph, const float* ecr,
     const int* seeds, const float* cam, float* acc, int n_tri, int n_sph,
     int n_emitters, int spp, int lane_offset, int n_lanes, int width,
     int height, int max_bounces, float p_rr, const float* lo, const float* hi,
-    const float* lo2, const float* hi2, int nc, int chunk,
+    const float* lo2, const float* hi2, const float* lo3, const float* hi3, int nc,
+    int nl, int chunk,
     unsigned long long* tally, int n_tally, void* stream) {
-  const CullTables ct{lo, hi, lo2, hi2, nc, (nc + srt::kSuper - 1) / srt::kSuper,
-                      chunk};
+  const CullTables ct =
+      srt::cull_tables(lo, hi, lo2, hi2, lo3, hi3, nc, nl, chunk);
   if (lo != nullptr && !srt::cull_tables_ok(ct, n_tri))
     return (int)cudaErrorInvalidValue;
   if (n_lanes <= 0) return 0;

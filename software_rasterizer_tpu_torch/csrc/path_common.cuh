@@ -3,8 +3,8 @@
 // sphere quadratic and the dual trace of a shadow ray and a bounce ray:
 // `dual_trace_block`, the block sweeping the triangle table staged in
 // shared memory with one attribute read a ray after the sweep, or
-// `dual_trace_culled`, each ray culling by the chunk boxes of the table on
-// its own and the warp testing each (ray, chunk) pair together. Every
+// `dual_trace_culled`, each ray culling by the box tables of the table on
+// its own and the warp testing each (ray, leaf) pair together. Every
 // expression is written in the order of the plain PyTorch versions; build
 // with -fmad=false and without fast math.
 
@@ -297,46 +297,50 @@ __device__ __forceinline__ void dual_trace_block(
 
 using srt::CullTables;
 
-// Nearest triangle of one ray over the chunks whose boxes it enters, for
-// the whole warp at once (trace_common.cuh warp_walk_chunks), each row
-// tested with the full sweep's expressions; the winner's (u, v) are
-// recomputed from its row with the same expression and its attributes
-// read once, as dual_trace_block reads them.
-template <bool kBounce>
-__device__ __forceinline__ void warp_walk_ray(
-    const float* __restrict__ tri, const float* __restrict__ attr, int n_tri,
-    const CullTables& ct, V3 o, V3 d, bool active, srt::WarpStage& stage,
-    Hit* h, srt::Tally& tl, unsigned long long& slots) {
-  const srt::Ray r = {o.x, o.y, o.z, d.x, d.y, d.z};
-  const srt::RowHit best = srt::warp_walk_chunks(
-      r, active, ct, tri, n_tri, stage,
-      [](const float* g, const srt::Ray& rl) {
-        float u, v;
-        return tri_t(g, V3{rl.ox, rl.oy, rl.oz}, V3{rl.dx, rl.dy, rl.dz}, &u, &v);
-      },
-      tl, slots);
-  if (best.row >= 0) {
-    float u, v;
-    tri_t(tri + 12 * best.row, o, d, &u, &v);
-    take_row<kBounce>(attr, best.row, best.t, u, v, h);
-  }
-}
-
 // dual_trace_block with each ray culling for itself (the mm=True tier of the
 // JAX kernel, ops/pallas_path.py:354-365: the shadow rays converge on the
 // light while the bounce rays scatter, so one cull for both would keep
-// the union): the shadow rays of the warp walk together, then its bounce
-// rays. Equal to dual_trace_block lane for lane. The whole warp calls it; an
-// inactive thread (not `active`) tests nothing and gets misses from the
-// triangles.
+// the union): the shadow rays of the warp walk together over the leaves
+// their boxes enter (trace_common.cuh warp_walk_chunks), then its bounce
+// rays, each row tested with the full sweep's expressions; a winner's
+// (u, v) are recomputed from its row with the same expression and its
+// attributes read once, as dual_trace_block reads them. Equal to
+// dual_trace_block lane for lane. The two walks are one loop, so the
+// kernel holds one copy of the walk's code: with two inlined copies the
+// camera kernel's frame took 1.6x the time on an H100. The whole warp
+// calls it; an inactive thread (not `active`) tests nothing and gets
+// misses from the triangles.
 __device__ __forceinline__ void dual_trace_culled(
     const float* __restrict__ tri, const float* __restrict__ attr,
     const float* __restrict__ sph, int n_tri, int n_sph, const CullTables& ct,
     V3 o, V3 la, V3 lb, bool active, srt::WarpStage& stage, Hit* A, Hit* B,
     srt::Tally& tl, unsigned long long& slots) {
   no_hit(A, B);
-  warp_walk_ray<false>(tri, attr, n_tri, ct, o, la, active, stage, A, tl, slots);
-  warp_walk_ray<true>(tri, attr, n_tri, ct, o, lb, active, stage, B, tl, slots);
+  srt::RowHit ha = {kBig, -1}, hb = ha;
+#pragma unroll 1
+  for (int w = 0; w < 2; ++w) {
+    const V3 d = w == 0 ? la : lb;
+    const srt::RowHit h = srt::warp_walk_chunks(
+        srt::Ray{o.x, o.y, o.z, d.x, d.y, d.z}, active, ct, tri, n_tri, stage,
+        [](const float* g, const srt::Ray& rl) {
+          float u, v;
+          return tri_t(g, V3{rl.ox, rl.oy, rl.oz}, V3{rl.dx, rl.dy, rl.dz}, &u, &v);
+        },
+        tl, slots);
+    if (w == 0)
+      ha = h;
+    else
+      hb = h;
+  }
+  float u, v;
+  if (ha.row >= 0) {
+    tri_t(tri + 12 * ha.row, o, la, &u, &v);
+    take_row<false>(attr, ha.row, ha.t, u, v, A);
+  }
+  if (hb.row >= 0) {
+    tri_t(tri + 12 * hb.row, o, lb, &u, &v);
+    take_row<true>(attr, hb.row, hb.t, u, v, B);
+  }
   merge_spheres(sph, n_sph, o, la, lb, A, B);
 }
 

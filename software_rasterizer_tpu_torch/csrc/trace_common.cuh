@@ -1,7 +1,8 @@
 // What the nearest-hit kernels share: the Moller-Trumbore test of one ray
 // against one [v0|e1|e2|pad] table row, the ray-box slab test, and the
-// walk over the chunk boxes of a table that the culled instances of the
-// camera, bounce and Whitted kernels take (warp_walk_chunks).
+// walk over the super, chunk and leaf boxes of a table that the culled
+// instances of the camera, bounce and Whitted kernels take
+// (warp_walk_chunks).
 //
 // Both are the expressions of the plain PyTorch versions in their order.
 // Built with -fmad=false and without fast math, every multiply and add
@@ -203,17 +204,31 @@ __device__ __forceinline__ bool slab_enter(const Ray& r, const InvDir& i,
   return slab_enter(r, i, lo[0], lo[1], lo[2], hi[0], hi[1], hi[2]);
 }
 
-// The chunk tables of a culled walk: the boxes of runs of `chunk` rows
-// of the triangle table (RTScene.chunk_lo / chunk_hi, BVH leaf order) and
-// of runs of kSuper chunks (ops/trace_tiers.super_bounds).
+// The tables of a culled walk: the boxes of runs of `chunk` rows of the
+// triangle table (RTScene.chunk_lo / chunk_hi, BVH leaf order), of runs of
+// kSuper chunks (ops/trace_tiers.super_bounds) and of runs of kLeaf rows
+// (the leaves, ops/trace_tiers.leaf_bounds), chunk / kLeaf of them a
+// chunk.
 constexpr int kSuper = 8;  // ops/trace_tiers.MM2C_SUPER
+// rows of a leaf box: one a thread of a warp, so that one (ray, leaf) pair
+// is one row-step of the warp (ops/trace_tiers.LEAF)
+constexpr int kLeaf = 32;
 struct CullTables {
   const float* lo;   // (nc,3)
   const float* hi;
   const float* lo2;  // (nsc,3), nsc = ceil(nc / kSuper)
   const float* hi2;
-  int nc, nsc, chunk;
+  const float* lo3;  // (nl,3), nl * kLeaf >= the rows walked
+  const float* hi3;
+  int nc, nsc, nl, chunk;
 };
+
+__host__ __device__ inline CullTables cull_tables(const float* lo, const float* hi,
+                                                  const float* lo2, const float* hi2,
+                                                  const float* lo3, const float* hi3,
+                                                  int nc, int nl, int chunk) {
+  return CullTables{lo, hi, lo2, hi2, lo3, hi3, nc, (nc + kSuper - 1) / kSuper, nl, chunk};
+}
 
 // A thread's count of the (ray, row) tests and the slab tests it made,
 // added to a device total at the end when the caller asks for it (the
@@ -227,29 +242,30 @@ struct Tally {
   }
 };
 
-// ---- the warp walk: one warp tests each (ray, chunk) pair together
+// ---- the warp walk: one warp tests each (ray, leaf) pair together
 //
-// Each ray enters the chunks whose boxes it meets: a slab test on each
-// super-chunk's box, then on each of its chunks' boxes. The test is
-// conservative, so a nearest-hit search over the entered rows under a
-// strict `<` finds the full sweep's winner: only rows the ray cannot hit
-// are skipped. A walk per thread (the plain version's
-// ops/trace_tiers.walk_nearest_plain) leaves each thread to its own chunks,
-// so a warp runs every row of every chunk that any of its 32 rays enters
-// while the threads whose ray did not enter it idle. warp_walk_chunks
-// makes the same slab tests per ray, ballots each entered chunk across the
-// warp, and then lets all 32 threads test that chunk's rows for one
-// entering ray at a time: a warp issues the sum of its rays' rows, not the
-// union.
+// Each ray enters the leaves whose boxes it meets: a slab test on each
+// super-chunk's box, then on each of its chunks' boxes, then on each leaf
+// box of an entered chunk. The test is conservative, so a nearest-hit
+// search over the entered rows under a strict `<` finds the full sweep's
+// winner: only rows the ray cannot hit are skipped. A walk per thread (the
+// plain version's ops/trace_tiers.walk_nearest_plain) leaves each thread
+// to its own leaves, so a warp runs every row of every leaf that any of
+// its 32 rays enters while the threads whose ray did not enter it idle.
+// warp_walk_chunks makes the same slab tests per ray, ballots each leaf
+// across the warp, stages the entered leaves' rows, and then lets all 32
+// threads test them for one entering ray at a time, one row a thread: a
+// warp issues one row-step for each (ray, leaf) pair, the sum of its rays'
+// leaves, not the union.
 
 constexpr unsigned kFullMask = 0xffffffffu;
-// rows of one staged slice of a chunk: a thread tests 4 rows of a slice
-// for each entering ray. A tuning value that changes no result: 128 took
-// less time than 64 in both path kernels on an H100 at 9,216 and 147,456
-// triangles (twice the rows a shuffle of the ray and a reduction), and
-// walking a slice per thread once most of the warp enters its chunk did
-// not pay there.
+// rows of one staged slice: kSliceLeaves entered leaves, packed in walk
+// order whatever chunk each comes from. A tuning value that changes no
+// result: on an H100 the camera kernel's 16-spp frame took 107.6 ms at
+// 128 and 109.0 at 64 at 9,216 triangles (64 was ahead at 147,456 and in
+// the bounce kernel).
 constexpr int kSlice = 128;
+constexpr int kSliceLeaves = kSlice / kLeaf;
 
 // A warp's staging area in shared memory: two slices of kSlice 48-byte
 // rows (3 float4 each; 12 KB, 48 KB a block of four warps), one tested
@@ -267,47 +283,62 @@ struct RowHit {
   int row;
 };
 
-// One slice of a chunk that some ray of the warp enters: rows
-// [f0, f0 + cnt) and the ballot of the warp's rays that enter the chunk.
+// One slice: up to kSliceLeaves leaves that some ray of the warp enters,
+// ascending, and each one's ballot of the warp's rays that enter it; a
+// slot past `n` has leaf 0 and an empty ballot. Warp-uniform.
 struct WalkItem {
-  int f0, cnt;
-  unsigned mask;
+  int leaf[kSliceLeaves];
+  unsigned mask[kSliceLeaves];
+  int n;
 };
 
 // The walk's position: super box sc, the chunks of it still to visit
 // (`todo`, warp-uniform; bit j = chunk sc * kSuper + j), this thread's
-// own chunks of it (`mine`), and the rows [f, f_end) of the current chunk
-// not yet staged with its ballot `cmask`.
+// own chunks of it (`mine`), and of chunk c the leaves still to visit
+// (`ltodo`, warp-uniform; bit j = leaf c * (chunk / kLeaf) + j) and this
+// thread's own leaves of it (`lmine`).
 struct WalkCursor {
   int sc;
-  unsigned todo, mine, cmask;
-  int f, f_end;
+  unsigned todo, mine;
+  int c;
+  unsigned ltodo, lmine;
 };
 
-// Advance `cur` to the next slice in (chunk, row) order whose chunk some
-// active ray of the warp enters; false when none is left. Each ray makes
+// Advance `cur` to the next leaf in row order that some active ray of the
+// warp enters, with its ballot; false when none is left. Each ray makes
 // its slab tests in the per-ray walk's order (the super box, then the
-// chunks of an entered super box) and tallies them and its rows alike.
-// Warp-uniform: every thread of the warp calls it together.
-__device__ __forceinline__ bool walk_next(const Ray& r, const InvDir& inv,
-                                          bool active, const CullTables& ct,
-                                          int n_rows, WalkCursor& cur,
-                                          WalkItem& item, Tally& tl) {
+// chunks of an entered super box, then the leaves of an entered chunk)
+// and tallies them and the rows of its leaves alike. Warp-uniform: every
+// thread of the warp calls it together.
+__device__ __forceinline__ bool walk_next_leaf(const Ray& r, const InvDir& inv,
+                                               bool active, const CullTables& ct,
+                                               int n_rows, WalkCursor& cur, int& leaf,
+                                               unsigned& mask, Tally& tl) {
+  const int per_chunk = ct.chunk / kLeaf;
   while (true) {
-    if (cur.f < cur.f_end) {
-      item.f0 = cur.f;
-      item.cnt = min(kSlice, cur.f_end - cur.f);
-      item.mask = cur.cmask;
-      cur.f += kSlice;
+    if (cur.ltodo != 0) {
+      const int j = __ffs(cur.ltodo) - 1;
+      cur.ltodo &= cur.ltodo - 1;
+      leaf = cur.c * per_chunk + j;
+      mask = __ballot_sync(kFullMask, (cur.lmine >> j) & 1u);
       return true;
     }
     if (cur.todo != 0) {
       const int j = __ffs(cur.todo) - 1;
       cur.todo &= cur.todo - 1;
-      const int c = cur.sc * kSuper + j;
-      cur.f = c * ct.chunk;
-      cur.f_end = min((c + 1) * ct.chunk, n_rows);
-      cur.cmask = __ballot_sync(kFullMask, (cur.mine >> j) & 1u);
+      cur.c = cur.sc * kSuper + j;
+      cur.lmine = 0;
+      if ((cur.mine >> j) & 1u) {
+        const int l0 = cur.c * per_chunk;
+        const int l_end = min(l0 + per_chunk, (n_rows + kLeaf - 1) / kLeaf);
+        tl.slabs += l_end - l0;
+        for (int l = l0; l < l_end; ++l) {
+          if (!slab_enter(r, inv, ct.lo3 + 3 * l, ct.hi3 + 3 * l)) continue;
+          tl.rows += min(kLeaf, n_rows - l * kLeaf);
+          cur.lmine |= 1u << (l - l0);
+        }
+      }
+      cur.ltodo = __reduce_or_sync(kFullMask, cur.lmine);
       continue;
     }
     if (++cur.sc >= ct.nsc) return false;
@@ -317,44 +348,76 @@ __device__ __forceinline__ bool walk_next(const Ray& r, const InvDir& inv,
     if (e2) {
       const int c_end = min((sc + 1) * kSuper, ct.nc);
       tl.slabs += c_end - sc * kSuper;
-      for (int c = sc * kSuper; c < c_end; ++c) {
-        if (!slab_enter(r, inv, ct.lo + 3 * c, ct.hi + 3 * c)) continue;
-        const int f_end = min((c + 1) * ct.chunk, n_rows);
-        if (f_end > c * ct.chunk) {
-          tl.rows += f_end - c * ct.chunk;
+      for (int c = sc * kSuper; c < c_end; ++c)
+        if (c * ct.chunk < n_rows && slab_enter(r, inv, ct.lo + 3 * c, ct.hi + 3 * c))
           cur.mine |= 1u << (c - sc * kSuper);
-        }
-      }
     }
     cur.todo = __reduce_or_sync(kFullMask, cur.mine);
   }
 }
 
-// Stage the rows of `item` from the [v0|e1|e2|pad] table `tri` (16-byte
-// aligned) into `dst` with cp.async: 3 float4 a row, spread over the warp.
-__device__ __forceinline__ void walk_stage(float4* __restrict__ dst,
-                                           const float* __restrict__ tri,
-                                           const WalkItem& item, int lane) {
-  const float4* src = reinterpret_cast<const float4*>(tri + (size_t)item.f0 * 12);
-  for (int k = lane; k < item.cnt * 3; k += 32)
-    __pipeline_memcpy_async(dst + k, src + k, sizeof(float4));
+// The next slice: up to kSliceLeaves leaves from walk_next_leaf; false
+// when none is left. Warp-uniform.
+__device__ __forceinline__ bool walk_next(const Ray& r, const InvDir& inv, bool active,
+                                          const CullTables& ct, int n_rows,
+                                          WalkCursor& cur, WalkItem& item, Tally& tl) {
+#pragma unroll
+  for (int q = 0; q < kSliceLeaves; ++q) {
+    item.leaf[q] = 0;
+    item.mask[q] = 0u;
+  }
+  item.n = 0;
+  int leaf;
+  unsigned mask;
+  while (item.n < kSliceLeaves &&
+         walk_next_leaf(r, inv, active, ct, n_rows, cur, leaf, mask, tl)) {
+#pragma unroll
+    for (int q = 0; q < kSliceLeaves; ++q)
+      if (q == item.n) {
+        item.leaf[q] = leaf;
+        item.mask[q] = mask;
+      }
+    ++item.n;
+  }
+  return item.n > 0;
 }
 
-// The nearest row of ray `r` over the chunks whose boxes it enters, for
+// Stage the rows of `item`'s leaves from the [v0|e1|e2|pad] table `tri`
+// (16-byte aligned) into `dst` with cp.async, leaf q at rows [q * kLeaf,
+// (q + 1) * kLeaf): 3 float4 a row, spread over the warp.
+__device__ __forceinline__ void walk_stage(float4* __restrict__ dst,
+                                           const float* __restrict__ tri,
+                                           const WalkItem& item, int n_rows, int lane) {
+#pragma unroll
+  for (int q = 0; q < kSliceLeaves; ++q) {
+    if (q >= item.n) break;
+    const int f0 = item.leaf[q] * kLeaf;
+    const int cnt3 = 3 * min(kLeaf, n_rows - f0);
+    const float4* src = reinterpret_cast<const float4*>(tri + (size_t)f0 * 12);
+    for (int k = lane; k < cnt3; k += 32)
+      __pipeline_memcpy_async(dst + q * kLeaf * 3 + k, src + k, sizeof(float4));
+  }
+}
+
+// The nearest row of ray `r` over the leaves whose boxes it enters, for
 // every thread of a warp at once; `test(g, ray)` is the kernel's
 // Moller-Trumbore of `ray` against the 12 floats `g` of one row (t or
 // kBig). Equal to a sequential per-ray walk under a strict `<`:
 //   * each (ray, row) pair that the per-ray walk tests is tested once, with
-//     the same `test`, by thread (row - f0) % 32 of the slice;
-//   * a thread keeps its slots' minimum under a strict `<` over ascending
-//     rows; two warp reductions then take the lexicographic minimum of
-//     (t, row) over the slice (t >= 1e-6 or kBig, never NaN, so its bits
-//     order as unsigned integers), and the ray's thread merges it with a
-//     strict `<`; slices and chunks ascend, so the lowest row wins a tie.
+//     the same `test`, by thread (row % kLeaf) of the warp, in the slice
+//     that holds the row's leaf;
+//   * for each ray that enters a leaf of the slice, a thread keeps the
+//     minimum of its rows of the ray's leaves under a strict `<` (the
+//     leaves ascend, so its rows do); two warp reductions then take the
+//     lexicographic minimum of (t, row) over the slice (t >= 1e-6 or kBig,
+//     never NaN, so its bits order as unsigned integers), and the ray's
+//     thread merges it with a strict `<`; slices ascend, so the lowest row
+//     wins a tie.
 // An inactive thread (active false) enters nothing and keeps a miss but
 // takes part in every vote and shuffle: the whole warp must call this
 // together. `stage` is the warp's own area; `slots` gets 32 a row-step
-// the warp issues (lane 0 only), the work the SIMT efficiency is read from.
+// the warp issues, one a (ray, leaf) pair (lane 0 only), the work the
+// SIMT efficiency is read from.
 template <typename Test>
 __device__ __forceinline__ RowHit warp_walk_chunks(
     const Ray& r, bool active, const CullTables& ct,
@@ -364,39 +427,52 @@ __device__ __forceinline__ RowHit warp_walk_chunks(
   const InvDir inv = inv_dir(r);
   if (active) tl.slabs += ct.nsc;
   RowHit best = {kBig, -1};
-  WalkCursor cur = {-1, 0u, 0u, 0u, 0, 0};
+  WalkCursor cur = {-1, 0u, 0u, 0, 0u, 0u};
   WalkItem item, next;
   bool have = walk_next(r, inv, active, ct, n_rows, cur, item, tl);
-  if (have) walk_stage(stage.rows[0], tri, item, lane);
+  if (have) walk_stage(stage.rows[0], tri, item, n_rows, lane);
   __pipeline_commit();
   for (int k = 0; have; ++k) {
     const bool more = walk_next(r, inv, active, ct, n_rows, cur, next, tl);
-    if (more) walk_stage(stage.rows[(k + 1) & 1], tri, next, lane);
+    if (more) walk_stage(stage.rows[(k + 1) & 1], tri, next, n_rows, lane);
     __pipeline_commit();
     __pipeline_wait_prior(1);  // item's rows have landed; next's may fly
     __syncwarp();
     const float4* rows = stage.rows[k & 1];
-    if (lane == 0)
-      slots += 32ull * (unsigned)__popc(item.mask) * (unsigned)((item.cnt + 31) >> 5);
-    for (unsigned m = item.mask; m != 0; m &= m - 1) {
+    unsigned any = 0u, pairs = 0u;
+#pragma unroll
+    for (int q = 0; q < kSliceLeaves; ++q) {
+      any |= item.mask[q];
+      pairs += (unsigned)__popc(item.mask[q]);
+    }
+    if (lane == 0) slots += 32ull * pairs;
+    for (unsigned m = any; m != 0; m &= m - 1) {
       const int L = __ffs(m) - 1;
       const Ray rl = {__shfl_sync(kFullMask, r.ox, L), __shfl_sync(kFullMask, r.oy, L),
                       __shfl_sync(kFullMask, r.oz, L), __shfl_sync(kFullMask, r.dx, L),
                       __shfl_sync(kFullMask, r.dy, L), __shfl_sync(kFullMask, r.dz, L)};
+      // the slots of ray L's leaves (warp-uniform): a row-step each
+      unsigned qs = 0u;
+#pragma unroll
+      for (int q = 0; q < kSliceLeaves; ++q) qs |= ((item.mask[q] >> L) & 1u) << q;
       float bt = kBig;
       int bf = 0x7fffffff;
+      for (; qs != 0; qs &= qs - 1) {
+        const int q = __ffs(qs) - 1;
+        int leaf = item.leaf[0];
 #pragma unroll
-      for (int q = 0; q < kSlice / 32; ++q) {
-        const int i = lane + 32 * q;
-        if (i < item.cnt) {
-          const float4 a = rows[3 * i], b = rows[3 * i + 1], c = rows[3 * i + 2];
-          const float g[12] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w,
-                               c.x, c.y, c.z, c.w};
-          const float tm = test(g, rl);
-          if (tm < bt) {
-            bt = tm;
-            bf = item.f0 + i;
-          }
+        for (int s = 1; s < kSliceLeaves; ++s) leaf = q == s ? item.leaf[s] : leaf;
+        // a row past n_rows (the last leaf's tail) is tested on stale data
+        // and its result dropped
+        const int f = leaf * kLeaf + lane;
+        const int i = q * kLeaf + lane;
+        const float4 a = rows[3 * i], b = rows[3 * i + 1], c = rows[3 * i + 2];
+        const float g[12] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w,
+                             c.x, c.y, c.z, c.w};
+        const float tm = test(g, rl);
+        if (f < n_rows && tm < bt) {
+          bt = tm;
+          bf = f;
         }
       }
       const unsigned tbits = __reduce_min_sync(kFullMask, __float_as_uint(bt));
@@ -415,11 +491,14 @@ __device__ __forceinline__ RowHit warp_walk_chunks(
   return best;
 }
 
-// Whether the chunk tables cover `n_rows` rows and have ceil(nc / kSuper)
-// super boxes.
+// Whether the tables cover `n_rows` rows: ceil(nc / kSuper) super boxes,
+// chunks of a whole number of leaves (at most 32 a chunk, one bit each of
+// a 32-bit ballot), and as many leaf boxes as the rows need.
 inline bool cull_tables_ok(const CullTables& ct, int n_rows) {
-  return ct.chunk >= 1 && ct.nc >= 0 && (long long)ct.nc * ct.chunk >= n_rows &&
-         ct.nsc == (ct.nc + kSuper - 1) / kSuper;
+  return ct.chunk >= kLeaf && ct.chunk % kLeaf == 0 && ct.chunk / kLeaf <= 32 &&
+         ct.nc >= 0 && (long long)ct.nc * ct.chunk >= n_rows &&
+         ct.nsc == (ct.nc + kSuper - 1) / kSuper && ct.nl >= 0 &&
+         (long long)ct.nl * kLeaf >= n_rows && ct.lo3 != nullptr && ct.hi3 != nullptr;
 }
 
 }  // namespace srt

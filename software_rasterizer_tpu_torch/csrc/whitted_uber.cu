@@ -33,14 +33,15 @@
 //
 // Large scenes (the culled instances, kCull): the main trace and each
 // shadow trace go through the warp walk (trace_common.cuh
-// warp_walk_chunks): each ray makes its own slab tests on the chunk boxes,
-// the warp ballots every entered chunk, stages its rows in shared memory
-// (a WarpStage a warp) and tests them for one entering ray at a time with
-// the kernel's own `mt`; the winner is the full sweep's, pixel for pixel.
-// The full-sweep instance reads the table from global memory; the active
-// threads of a warp read the same row, so the loads broadcast. A textured
-// diffuse hit fetches its texel directly, so the TPU kernel's per-lane
-// texture slots, and their overflow, have no counterpart.
+// warp_walk_chunks): each ray makes its own slab tests on the super, chunk
+// and leaf boxes, the warp ballots every entered leaf, stages its rows in
+// shared memory (a WarpStage a warp) and tests them for one entering ray
+// at a time with the kernel's own `mt`; the winner is the full sweep's,
+// pixel for pixel. The full-sweep instance reads the table from global
+// memory; the active threads of a warp read the same row, so the loads
+// broadcast. A textured diffuse hit fetches its texel directly, so the
+// TPU kernel's per-lane texture slots, and their overflow, have no
+// counterpart.
 //
 // Several emitters (the JAX package serves these by its wavefront,
 // ops/whitted.py:214-265): a ray carries the id `rid`, the absolute pixel
@@ -550,7 +551,7 @@ void launch(const Params& p, int blocks, cudaStream_t s) {
 
 }  // namespace
 
-// `lo`..`hi2` are the chunk tables of the culled instances; with lo null
+// `lo`..`hi3` are the box tables of the culled instances; with lo null
 // a full-sweep instance runs.
 extern "C" int srt_whitted_uber(const float* tri, const float* attr,
                                 const float* sph, const float* scal,
@@ -562,10 +563,11 @@ extern "C" int srt_whitted_uber(const float* tri, const float* attr,
                                 int max_depth, int n_emitters, int spp,
                                 int lane_offset, const float* lo,
                                 const float* hi, const float* lo2,
-                                const float* hi2, int nc, int chunk,
+                                const float* hi2, const float* lo3,
+                                const float* hi3, int nc, int nl, int chunk,
                                 unsigned long long* tally, void* stream) {
-  const CullTables ct{lo, hi, lo2, hi2, nc, (nc + srt::kSuper - 1) / srt::kSuper,
-                      chunk};
+  const CullTables ct =
+      srt::cull_tables(lo, hi, lo2, hi2, lo3, hi3, nc, nl, chunk);
   if (max_depth < 0 || max_depth > kMaxDepth) return (int)cudaErrorInvalidValue;
   if (n_emitters > 1 && spp < 1) return (int)cudaErrorInvalidValue;
   if (lo != nullptr && !srt::cull_tables_ok(ct, n_tri))

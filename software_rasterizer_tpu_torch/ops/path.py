@@ -26,7 +26,7 @@ The routes by triangle count. The JAX package caps its fused routes at
 512 triangles (and at sphere and emitter counts), limits of the TPU's
 scalar memory. Here both kernels read tables of any size from device
 memory, and above 512 triangles they take their chunk-culled walk (each
-ray tests only the rows of the chunks whose boxes it enters), so no cap
+ray tests only the rows of the leaves whose boxes it enters), so no cap
 applies, by measurement (chip_smoke.py phase 27, NVIDIA H100 80GB HBM3,
 700 W, 16 bounces):
   * `path_trace(fused=None)` takes the bounce kernel at every count. One

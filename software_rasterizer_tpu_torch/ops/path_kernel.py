@@ -22,7 +22,7 @@ Two tiers of the triangle search, as in the JAX kernel (`cull`): the full
 sweep traces the shadow ray and the bounce ray through every triangle
 (its mm=False tier, the default up to `CULL_MIN_TRIS` rows); the culled
 walk (its mm=True tier, the default above) lets each ray test only the
-rows of the chunks whose boxes it enters (`pack_cull_tables`). The test
+rows of the leaves whose boxes it enters (`pack_cull_tables`). The test
 is conservative and the rows are tested with the same expressions in
 the same order, so the two tiers agree lane for lane. Both kernels take
 both tiers.
@@ -92,13 +92,20 @@ def pack_cull_tables(scene: RTScene) -> CullTables:
     """The operands of the culled walk (the counterpart of the JAX
     package's `pack_mm_tables`, ops/pallas_path.py:298): the scene's own
     chunk boxes in BVH leaf order (`chunk_lo/hi`, `cull_chunk` rows a
-    chunk) and their super-chunk boxes (`trace_tiers.super_bounds`). The
-    kernels read exact rows of `tri_table` and the attribute table by
-    index, so the JAX tables `coef_c` (the bilinear Moller-Trumbore form)
-    and `attr24_c` (the one-hot join's feature-major rows) are left out:
-    both are TPU form. `pack_scene_tables` emits its rows in the order of
-    `tri_table`, so a chunk's rows are the chunk's triangles."""
-    return trace_tiers.cull_tables(scene.chunk_lo, scene.chunk_hi, scene.cull_chunk)
+    chunk), their super-chunk boxes (`trace_tiers.super_bounds`) and the
+    boxes of the leaves, runs of `trace_tiers.LEAF` rows, from the same
+    trace-space triangles, widened by a margin (`trace_tiers.leaf_bounds`,
+    built here on the scene's device, so only the culled tier makes
+    them). The kernels read exact rows of `tri_table` and the attribute
+    table by index, so the JAX tables `coef_c` (the bilinear
+    Moller-Trumbore form) and `attr24_c` (the one-hot join's
+    feature-major rows) are left out: both are TPU form.
+    `pack_scene_tables` emits its rows in the order of `tri_table`, so a
+    chunk's rows are the chunk's triangles."""
+    leaf_lo, leaf_hi = trace_tiers.leaf_bounds(scene.v0, scene.v1, scene.v2,
+                                               scene.tri_valid, scene.eye)
+    return trace_tiers.cull_tables(scene.chunk_lo, scene.chunk_hi, scene.cull_chunk,
+                                   leaf_lo, leaf_hi)
 
 
 def pack_scene_tables(scene: RTScene) -> Tuple[torch.Tensor, torch.Tensor, int]:
@@ -162,7 +169,7 @@ def _cuda_fn():
     fn = lib.srt_path_camera_render
     if fn.argtypes is None:
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [vp] * 7 + [ci] * 9 + [cf] + [vp] * 4 + [ci] * 2 + [vp, ci, vp]
+        fn.argtypes = [vp] * 7 + [ci] * 9 + [cf] + [vp] * 6 + [ci] * 3 + [vp, ci, vp]
         fn.restype = ci
     return fn
 
@@ -185,21 +192,22 @@ def _check_table(name: str, t: torch.Tensor, dtype, cols: Optional[int],
 
 
 def _check_cull(ct: Optional[CullTables], n_rows: int, device) -> tuple:
-    """The culled walk's kernel arguments (lo, hi, lo2, hi2, nc, chunk),
-    all null / 0 for the full sweep; checks the tables."""
+    """The culled walk's kernel arguments (lo, hi, lo2, hi2, lo3, hi3,
+    nc, nl, chunk), all null / 0 for the full sweep; checks the tables."""
     if ct is None:
-        return None, None, None, None, 0, 0
+        return (None,) * 6 + (0, 0, 0)
     f32 = torch.float32
-    for name, t in zip(("lo", "hi", "lo2", "hi2"), ct[:4]):
+    for name, t in zip(("lo", "hi", "lo2", "hi2", "lo3", "hi3"), ct[:6]):
         _check_table(name, t, f32, 3, device)
-    nc = ct.lo.shape[0]
+    nc, nl, leaf = ct.lo.shape[0], ct.lo3.shape[0], trace_tiers.LEAF
     if ct.hi.shape[0] != nc or ct.lo2.shape != ct.hi2.shape \
-            or ct.lo2.shape[0] != -(-nc // trace_tiers.MM2C_SUPER) or not 1 <= ct.chunk \
-            or nc * ct.chunk < n_rows:
-        raise ValueError(f"cull tables of {nc} chunks of {ct.chunk} rows and "
-                         f"{ct.lo2.shape[0]} super-chunks do not cover {n_rows} rows")
-    return (ct.lo.data_ptr(), ct.hi.data_ptr(), ct.lo2.data_ptr(),
-            ct.hi2.data_ptr(), nc, ct.chunk)
+            or ct.lo2.shape[0] != -(-nc // trace_tiers.MM2C_SUPER) \
+            or ct.chunk % leaf or not leaf <= ct.chunk <= 32 * leaf \
+            or nc * ct.chunk < n_rows or ct.hi3.shape[0] != nl or nl * leaf < n_rows:
+        raise ValueError(f"cull tables of {nc} chunks of {ct.chunk} rows, "
+                         f"{ct.lo2.shape[0]} super-chunks and {nl} leaves of {leaf} rows "
+                         f"do not cover {n_rows} rows")
+    return tuple(t.data_ptr() for t in ct[:6]) + (nc, nl, ct.chunk)
 
 
 # the entries of a path kernel's tally: (ray, row) tests, slab tests, the
@@ -507,7 +515,8 @@ def path_camera_render_plain(scene: RTScene, seed: int, width: int,
     iterations, the counts the kernel's `tally` adds up; with the culled
     walk also "slots" / "slots_thread": the row-test slots the kernel's
     warps issue (its `tally`'s third entry) and those the per-thread walk
-    would (`trace_tiers.warp_slots`)."""
+    would (`trace_tiers.warp_slots`), and "chunk_rows": the rows of the
+    chunks the rays enter, what they would test without the leaf boxes."""
     n = _lane_count(width, height, lane_offset, n_lanes, spp, max_bounces)
     dev = scene.device
     f32 = torch.float32
@@ -651,7 +660,7 @@ def path_camera_render_plain(scene: RTScene, seed: int, width: int,
 
 
 def _add_tally(stats: dict, tally: dict) -> None:
-    for k in ("row_tests", "slab_tests", "slots", "slots_thread"):
+    for k in ("row_tests", "slab_tests", "slots", "slots_thread", "chunk_rows"):
         stats[k] = stats.get(k, 0) + tally.get(k, 0)
 
 
@@ -700,7 +709,7 @@ def _bounce_fn():
     fn = lib.srt_path_bounce
     if fn.argtypes is None:
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = ([vp] * 9 + [ci] * 6 + [cf] + [vp] * 4 + [ci] * 2 + [vp] * 4
+        fn.argtypes = ([vp] * 9 + [ci] * 6 + [cf] + [vp] * 6 + [ci] * 3 + [vp] * 4
                        + [vp, ci, vp, vp])
         fn.restype = ci
     return fn

@@ -1,7 +1,7 @@
 """Chunked nearest-triangle tiers for large scenes (the ports of the JAX
 package's `ops/pallas_trace.py` kernels `_trace_kernel2c`,
 `_cull_prepass_kernel`, `_trace_kernel3`, `_trace_kernel2` and the
-unculled `_trace_kernel`), and the per-ray chunk walk of the path and
+unculled `_trace_kernel`), and the per-ray culled walk of the path and
 Whitted kernels' plain versions.
 
 The triangles are the `[v0|e1|e2|pad]` rows of `RTScene.tri_table` in BVH
@@ -45,7 +45,8 @@ per-warp sweeps' results. The prepass kernel's tally has
 `CULL_TALLY_ENTRIES` entries (`CULL_TALLY_NAMES`).
 
 `walk_nearest_plain` is the per-ray form of the cull: each ray tests the
-rows of the chunks whose boxes it enters itself, the tests the culled
+rows of the leaves (runs of `LEAF` rows) whose boxes it enters, under the
+super-chunk and chunk boxes it enters, itself: the tests the culled
 instances of the path and Whitted kernels make (`CullTables`,
 `cull_tables`). `warp_walk_plain` models how those kernels' warps
 schedule the tests (csrc/trace_common.cuh warp_walk_chunks) and counts the
@@ -101,10 +102,19 @@ MM_BLOCK = 1024
 DEFAULT_BLOCK = 64
 # (ray, row) tests of one step of the plain sweep (bounds its memory)
 _PLAIN_STEP = 1 << 22
-# the path kernels' warp walk: threads a warp, and rows of a staged slice
-# of a chunk (csrc/trace_common.cuh kSlice)
+# the path kernels' warp walk: threads a warp, rows of a leaf box (one a
+# thread of a warp, csrc/trace_common.cuh kLeaf) and leaves of a staged
+# slice (kSliceLeaves)
 WARP = 32
-WALK_SLICE = 128
+LEAF = 32
+SLICE_LEAVES = 4
+# the leaf boxes' outward margin, a share of the scene's extent (8 float32
+# ulps at it): a ray through an edge that two coplanar triangles of
+# different leaves share meets both flat boxes only at a face, where the
+# slab test's rounding dropped both for some rays of the tessellated
+# Cornell box (tests/test_torch_warp_walk.py). A wider box adds tests and
+# changes no winner.
+LEAF_PAD = 2.0 ** -20
 # threads of a CUDA block of the tier kernels (csrc/trace_culled.cu
 # kMaxThreads)
 MAX_THREADS = 256
@@ -164,23 +174,43 @@ def super_bounds(chunk_lo, chunk_hi):
             chunk_hi.reshape(nsc, MM2C_SUPER, 3).amax(dim=1))
 
 
+def leaf_bounds(v0, v1, v2, valid, origin=None):
+    """Boxes of the leaves, runs of `LEAF` rows: `chunk_bounds` at
+    `LEAF`, (lo3 (nl,3), hi3 (nl,3)), nl = ceil(F / LEAF), each box of a
+    valid row widened outward on every axis by `LEAF_PAD` x the scene's
+    extent: the largest |coordinate| of the valid triangles and of
+    `origin` (the eye), on the device, with no sync."""
+    lo, hi = chunk_bounds(v0, v1, v2, valid, LEAF)
+    ok = (lo <= hi).all(dim=1, keepdim=True)
+    extent = torch.where(ok, torch.maximum(lo.abs(), hi.abs()), 0.0).amax()
+    if origin is not None:
+        extent = torch.maximum(extent, origin.abs().amax())
+    pad = LEAF_PAD * extent
+    return torch.where(ok, lo - pad, lo), torch.where(ok, hi + pad, hi)
+
+
 class CullTables(NamedTuple):
     """The boxes a per-ray walk reads: chunks of `chunk` rows of the
-    triangle table (lo, hi (nc,3)) and super-chunks of `MM2C_SUPER`
-    chunks (lo2, hi2 (nsc,3))."""
+    triangle table (lo, hi (nc,3)), super-chunks of `MM2C_SUPER` chunks
+    (lo2, hi2 (nsc,3)) and leaves of `LEAF` rows (lo3, hi3 (nl,3)),
+    `chunk // LEAF` a chunk."""
 
     lo: torch.Tensor
     hi: torch.Tensor
     lo2: torch.Tensor
     hi2: torch.Tensor
+    lo3: torch.Tensor
+    hi3: torch.Tensor
     chunk: int
 
 
-def cull_tables(chunk_lo, chunk_hi, chunk: int) -> CullTables:
-    """`CullTables` of the chunk boxes `chunk_lo/hi` of `chunk` rows."""
+def cull_tables(chunk_lo, chunk_hi, chunk: int, leaf_lo, leaf_hi) -> CullTables:
+    """`CullTables` of the chunk boxes `chunk_lo/hi` of `chunk` rows (a
+    multiple of `LEAF`) and the leaf boxes `leaf_lo/hi` of the same rows
+    (`leaf_bounds`)."""
     lo2, hi2 = super_bounds(chunk_lo, chunk_hi)
-    return CullTables(chunk_lo.float().contiguous(), chunk_hi.float().contiguous(),
-                      lo2.float().contiguous(), hi2.float().contiguous(), int(chunk))
+    return CullTables(*(x.float().contiguous() for x in (chunk_lo, chunk_hi, lo2, hi2,
+                                                          leaf_lo, leaf_hi)), int(chunk))
 
 
 def chunk_lists(mask: torch.Tensor):
@@ -986,19 +1016,21 @@ def fused_warp_plain(tri_table, chunk_lo, chunk_hi, orig, d, chunk: int = 128,
     return (hit, torch.where(hit, best_f, -1), best_t), tuple(work)
 
 
-# -------------------------------------------------- the per-ray chunk walk
+# ---------------------------------------------------- the per-ray leaf walk
 
 
 def _walk_spans(cull: Optional[CullTables], n_rows: int, orig, d, active,
                 tally: Optional[dict]):
     """(lanes, r0, r1) spans of a nearest-row search in ascending row
-    order: with `cull`, the rows [r0, r1) of each chunk and the lanes (a
-    (k,) index) whose rays pass the slab test of its super-chunk's box and
-    of its own box; without, every row for every lane, in spans that keep
-    a (lanes, rows) plane near `_PLAIN_STEP`. Only the `active` lanes
-    ((N,) bool; None: all, and lanes None) are walked; `tally` gets their
-    (ray, row) and slab tests, as the kernels count them, and with `cull`
-    the row-test slots of both warp schedules (`warp_slots`)."""
+    order: with `cull`, the rows [r0, r1) of each leaf and the lanes (a
+    (k,) index) whose rays pass the slab test of its super-chunk's box, of
+    its chunk's box and of its own box; without, every row for every lane,
+    in spans that keep a (lanes, rows) plane near `_PLAIN_STEP`. Only the
+    `active` lanes ((N,) bool; None: all, and lanes None) are walked;
+    `tally` gets their (ray, row) and slab tests, as the kernels count
+    them, and with `cull` the row-test slots of both warp schedules
+    (`warp_slots`) and the rows of the chunks they enter ("chunk_rows",
+    what a walk without leaf boxes would test)."""
     n = orig.shape[0]
     n_act = n if active is None else int(active.sum())
     if cull is None:
@@ -1010,6 +1042,7 @@ def _walk_spans(cull: Optional[CullTables], n_rows: int, orig, d, active,
             yield lanes, r0, min(r0 + step, n_rows)
         return
     nc, nsc = cull.lo.shape[0], cull.lo2.shape[0]
+    per_chunk, n_leaves = cull.chunk // LEAF, -(-n_rows // LEAF)
     enter2 = slab_test(orig, d, cull.lo2, cull.hi2)            # (N, nsc)
     if active is not None:
         enter2 &= active[:, None]
@@ -1022,10 +1055,18 @@ def _walk_spans(cull: Optional[CullTables], n_rows: int, orig, d, active,
         c0, c1 = sc * MM2C_SUPER, min((sc + 1) * MM2C_SUPER, nc)
         enter = slab_test(orig, d, cull.lo[c0:c1], cull.hi[c0:c1]) & enter2[:, sc:sc + 1]
         for j in torch.nonzero(enter.any(dim=0)).flatten().tolist():
-            c = c0 + j
-            r0, r1 = c * cull.chunk, min((c + 1) * cull.chunk, n_rows)
-            if r0 < r1:
-                lanes = torch.nonzero(enter[:, j]).flatten()
+            l0, l1 = (c0 + j) * per_chunk, min((c0 + j + 1) * per_chunk, n_leaves)
+            if l0 >= l1:
+                continue
+            in_chunk = torch.nonzero(enter[:, j]).flatten()
+            enter3 = slab_test(orig[in_chunk], d[in_chunk], cull.lo3[l0:l1], cull.hi3[l0:l1])
+            if tally is not None:
+                tally["slab_tests"] += in_chunk.numel() * (l1 - l0)
+                tally["chunk_rows"] = (tally.get("chunk_rows", 0) + in_chunk.numel()
+                                       * (min(l1 * LEAF, n_rows) - l0 * LEAF))
+            for i in torch.nonzero(enter3.any(dim=0)).flatten().tolist():
+                r0, r1 = (l0 + i) * LEAF, min((l0 + i + 1) * LEAF, n_rows)
+                lanes = in_chunk[enter3[:, i]]
                 if tally is not None:
                     tally["row_tests"] = (tally.get("row_tests", 0)
                                           + lanes.numel() * (r1 - r0))
@@ -1041,7 +1082,7 @@ def walk_nearest_plain(tri_table, n_rows: int, orig, d,
     """Each ray's nearest row among the first `n_rows` rows of
     `tri_table`: (t (N,) float32 with BIG on a miss, row (N,) int64 with
     -1 on a miss, u (N,), v (N,) of the winner, 0 on a miss). With `cull`
-    a ray tests only the rows of the chunks whose boxes it enters (the
+    a ray tests only the rows of the leaves whose boxes it enters (the
     path and Whitted kernels' culled walk); without, every row. Rows in
     ascending order under a strict `<`, every test `mt_plane`'s: the two
     give the same four tensors lane for lane. With `active` ((N,) bool),
@@ -1069,17 +1110,18 @@ def walk_nearest_plain(tri_table, n_rows: int, orig, d,
 
 
 def warp_slots(lanes: torch.Tensor, r0: int, r1: int) -> Tuple[int, int]:
-    """Row-test slots a chunk's rows [r0, r1) cost the warps of the lanes
-    `lanes` ((k,) lane ids; a warp is `WARP` lanes in launch order) that
-    enter it, under two schedules, `WARP` slots a row-step of a warp:
-    the warp walk's (`warp_walk_plain`: each (lane, chunk) pair, its rows
-    in slices of `WALK_SLICE` spread over the warp's threads, so
-    ceil(slice / WARP) steps a slice) and the per-thread walk's (every
-    thread walks its own chunks, so a warp in which any lane enters the
-    chunk steps through all its rows, one row a step)."""
-    steps = sum(-(-min(WALK_SLICE, r1 - s) // WARP) for s in range(r0, r1, WALK_SLICE))
+    """Row-test slots a leaf's rows [r0, r1) (within one run of `LEAF`
+    rows) cost the warps of the lanes `lanes` ((k,) lane ids; a warp is
+    `WARP` lanes in launch order) that enter it, under two schedules,
+    `WARP` slots a row-step of a warp: the warp walk's (`warp_walk_plain`:
+    one row-step for each (lane, leaf) pair, a row a thread) and the
+    per-thread walk's (every thread walks its own leaves, so a warp in
+    which any lane enters the leaf steps through all its rows, one row a
+    step)."""
+    if not 0 <= r0 < r1 <= (r0 // LEAF + 1) * LEAF:
+        raise ValueError(f"rows [{r0}, {r1}) are not within one leaf of {LEAF} rows")
     n_warps = torch.unique(torch.div(lanes, WARP, rounding_mode="floor")).numel()
-    return WARP * steps * lanes.numel(), WARP * (r1 - r0) * n_warps
+    return WARP * lanes.numel(), WARP * (r1 - r0) * n_warps
 
 
 def warp_walk_plain(tri_table, n_rows: int, orig, d, cull: CullTables,
@@ -1087,47 +1129,66 @@ def warp_walk_plain(tri_table, n_rows: int, orig, d, cull: CullTables,
     """A CPU model of the culled path kernels' warp walk
     (csrc/trace_common.cuh warp_walk_chunks): what `walk_nearest_plain`
     returns with `cull`, (t, row, u, v), found in the order the kernels'
-    warps find it. Lanes form warps of `WARP` in launch order; a chunk's
-    ballot in a warp is the set of its lanes that enter the chunk's box
-    (and its super box); for each (lane, chunk) pair of a ballot the
-    chunk's rows go in slices of `WALK_SLICE`, row i of a slice to slot
-    i % WARP; a slot keeps its least t under a strict `<` over ascending
-    rows, the warp takes the lexicographic minimum of (t, row) over its
-    slots, and the lane merges it with a strict `<`, slices and chunks
-    ascending. (u, v) are the winning slot's. `tally` gets what
-    `walk_nearest_plain`'s gets, the slots of both schedules included
-    (`warp_slots`). A model that shows the ordering and the tie rule of
-    the schedule, not a second reference."""
+    warps find it. Lanes form warps of `WARP` in launch order; a leaf's
+    ballot in a warp is the set of its lanes that enter the leaf's box
+    (and its chunk's and super-chunk's); a warp's slices are the leaves
+    some lane of it enters, in row order, `SLICE_LEAVES` a slice. For each
+    lane and slice, row r of each of the lane's leaves goes to slot r %
+    WARP, which keeps its least t under a strict `<` over the ascending
+    leaves; the warp takes the lexicographic minimum of (t, row) over its
+    slots, and the lane merges it with a strict `<`, slices ascending.
+    (u, v) are the winning slot's. `tally` gets what `walk_nearest_plain`'s
+    gets, the slots of both schedules included (`warp_slots`). A model
+    that shows the ordering and the tie rule of the schedule, not a second
+    reference."""
     n, dev = orig.shape[0], orig.device
-    big = torch.tensor(BIG, dtype=torch.float32, device=dev)
     no_row = torch.iinfo(torch.int64).max
     best_t = torch.full((n,), BIG, dtype=torch.float32, device=dev)
     best_f = torch.full((n,), -1, dtype=torch.int64, device=dev)
     best_u = torch.zeros((n,), dtype=torch.float32, device=dev)
     best_v = torch.zeros_like(best_u)
-    slot = torch.arange(WARP, device=dev)
-    for lanes, r0, r1 in _walk_spans(cull, n_rows, orig, d, active, tally):
-        # the pairs of the chunk's ballots, warp by warp in launch order
-        # (the order of `lanes`); each lane's chunks and slices ascend
-        for s0 in range(r0, r1, WALK_SLICE):
-            cnt = min(WALK_SLICE, r1 - s0)
-            steps = -(-cnt // WARP)
-            tm, u, v = (torch.nn.functional.pad(x, (0, steps * WARP - cnt), value=float(BIG))
-                        for x in mt_plane(orig[lanes], d[lanes], tri_table[s0:s0 + cnt], uv=True))
-            # (pairs, steps, WARP): slot j holds rows j, j + WARP, ...
-            tm, u, v = (x.reshape(-1, steps, WARP) for x in (tm, u, v))
-            slot_t, slot_q = plane_winner(tm.transpose(1, 2).reshape(-1, steps))
-            slot_t, slot_q = slot_t.reshape(-1, WARP), slot_q.reshape(-1, WARP)
-            slot_row = torch.where(slot_t < big, s0 + slot_q * WARP + slot, no_row)
-            # the warp's reduction: least t, then least row among its holders
-            wt = slot_t.amin(dim=1)
-            wrow = torch.where(slot_t == wt[:, None], slot_row, no_row).amin(dim=1)
-            better = wt < best_t[lanes]
-            col = torch.where(better, wrow - s0, 0)[:, None]
-            best_t[lanes] = torch.where(better, wt, best_t[lanes])
-            best_f[lanes] = torch.where(better, wrow, best_f[lanes])
-            best_u[lanes] = torch.where(better, u.reshape(-1, steps * WARP).gather(1, col)[:, 0],
-                                        best_u[lanes])
-            best_v[lanes] = torch.where(better, v.reshape(-1, steps * WARP).gather(1, col)[:, 0],
-                                        best_v[lanes])
+    spans = list(_walk_spans(cull, n_rows, orig, d, active, tally))
+    # the slice of each (warp, leaf) pair: the rank of the leaf among the
+    # leaves some lane of the warp enters, over SLICE_LEAVES
+    warp = torch.div(torch.arange(n, device=dev), WARP, rounding_mode="floor")
+    seen = torch.zeros((-(-n // WARP), len(spans)), dtype=torch.bool, device=dev)
+    for j, (lanes, _, _) in enumerate(spans):
+        seen[warp[lanes], j] = True
+    slice_of = torch.div(torch.cumsum(seen.long(), dim=1) - 1, SLICE_LEAVES,
+                         rounding_mode="floor")
+    # each lane's slots over its leaves of its current slice
+    cur = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    slot_t = torch.full((n, WARP), BIG, dtype=torch.float32, device=dev)
+    slot_row = torch.full((n, WARP), no_row, dtype=torch.int64, device=dev)
+    slot_u, slot_v = torch.zeros_like(slot_t), torch.zeros_like(slot_t)
+
+    def merge(ls):
+        """The warp's reductions over the slots of lanes `ls` and each
+        lane's strict `<`; the slots start afresh."""
+        st, sr = slot_t[ls], slot_row[ls]
+        wt = st.amin(dim=1)
+        wrow = torch.where(st == wt[:, None], sr, no_row).amin(dim=1)
+        better = wt < best_t[ls]
+        col = torch.where(better, wrow % WARP, 0)[:, None]
+        best_t[ls] = torch.where(better, wt, best_t[ls])
+        best_f[ls] = torch.where(better, wrow, best_f[ls])
+        best_u[ls] = torch.where(better, slot_u[ls].gather(1, col)[:, 0], best_u[ls])
+        best_v[ls] = torch.where(better, slot_v[ls].gather(1, col)[:, 0], best_v[ls])
+        slot_t[ls], slot_row[ls] = BIG, no_row
+
+    for j, (lanes, r0, r1) in enumerate(spans):
+        s = slice_of[warp[lanes], j]
+        moved = s != cur[lanes]
+        merge(lanes[moved])
+        cur[lanes] = s
+        cnt = r1 - r0
+        tm, u, v = mt_plane(orig[lanes], d[lanes], tri_table[r0:r1], uv=True)
+        st = slot_t[lanes, :cnt]
+        better = tm < st
+        slot_t[lanes, :cnt] = torch.where(better, tm, st)
+        rows = torch.arange(r0, r1, device=dev).expand(lanes.numel(), cnt)
+        slot_row[lanes, :cnt] = torch.where(better, rows, slot_row[lanes, :cnt])
+        slot_u[lanes, :cnt] = torch.where(better, u, slot_u[lanes, :cnt])
+        slot_v[lanes, :cnt] = torch.where(better, v, slot_v[lanes, :cnt])
+    merge(torch.nonzero(cur >= 0).flatten())
     return best_t, best_f, best_u, best_v

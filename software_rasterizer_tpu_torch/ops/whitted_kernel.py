@@ -23,7 +23,7 @@ nothing (the reference's black depth cap).
 Two tiers of the triangle search (`cull`, as in the path kernels,
 ops/path_kernel.use_cull): every row, or, above 512 rows unless the
 caller names a tier, the culled walk in which the main ray and the shadow
-ray each test only the rows of the chunks whose boxes they enter (the
+ray each test only the rows of the leaves whose boxes they enter (the
 kernel's warp walk, modelled by `trace_tiers.warp_walk_plain`). The two
 agree pixel for pixel.
 
@@ -192,7 +192,7 @@ def _cuda_fn():
     fn = lib.srt_whitted_uber
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp] * 12 + [ci] * 9 + [vp] * 4 + [ci] * 2 + [vp, vp]
+        fn.argtypes = [vp] * 12 + [ci] * 9 + [vp] * 6 + [ci] * 3 + [vp, vp]
         fn.restype = ci
     return fn
 
@@ -297,7 +297,7 @@ def whitted_launch_args(scene: RTScene, orig: torch.Tensor, d: torch.Tensor,
     """The operands of `launch_whitted_uber` for the rays `orig`, `d` of a
     CUDA `scene`, as (positional, keyword) arguments: the packed tables,
     the emitter picks' seeds where the scene has several emitters, and the
-    chunk tables where `cull` (None: `use_cull`) takes the culled walk."""
+    box tables where `cull` (None: `use_cull`) takes the culled walk."""
     check_max_depth(max_depth)
     tri, attr, sph, n_tri, n_sph = pack_whitted_tables(scene)
     kw = dict(n_tri=n_tri, n_sph=n_sph, max_depth=max_depth,
@@ -436,8 +436,10 @@ def whitted_uber_trace_plain(scene: RTScene, orig: torch.Tensor,
     a pass, as the JAX kernel sweeps a tile. A `stats` dict gets
     "row_tests" and "slab_tests": the (ray, row) and slab tests of the
     traces the kernel makes, and "main" and "shadow": dicts of the same
-    two counts and the row-test slots ("slots", "slots_thread", see
-    `_trace`) of the main and the shadow traces apart; the kernel's `tally`
+    two counts, the row-test slots ("slots", "slots_thread", see
+    `_trace`) and the rows of the chunks entered ("chunk_rows",
+    `trace_tiers._walk_spans`) of the main and the shadow traces apart;
+    the kernel's `tally`
     adds them up (`TALLY_ROWS`, `TALLY_COLUMNS`). A `rays` list gets an
     entry a trace: (kind "main" or "shadow", the emitter of a shadow trace
     or -1, the lanes traced (k,), their depths (k,), origins (k,3) and
@@ -704,6 +706,6 @@ def _uber_plain(scene, orig, d, max_depth, shadow_bias, key, spp, lane_offset, c
             stats[k] = stats.get(k, 0) + sum(t.get(k, 0) for t in tally.values())
         for ray, t in tally.items():
             part = stats.setdefault(ray, {})
-            for k in ("row_tests", "slab_tests", "slots", "slots_thread"):
+            for k in ("row_tests", "slab_tests", "slots", "slots_thread", "chunk_rows"):
                 part[k] = part.get(k, 0) + t.get(k, 0)
     return torch.stack(rgb, dim=1), nray

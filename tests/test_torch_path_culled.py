@@ -5,8 +5,9 @@ versions.
 
 Scenes: the Cornell box tessellated by `torch_scenes.stress_cornell` at
 levels=2 (576 triangles in a table of 640 rows, five chunks of the
-scene's granule of 128, so the boxes really cull), and Cornell with a
-mirror and a glass sphere (36 triangles in one chunk, with spheres).
+scene's granule of 128 and 20 leaves of 32, so the boxes really cull),
+and Cornell with a mirror and a glass sphere (36 triangles in one chunk,
+with spheres).
 
 Rules.
   * Culled against full sweep: equal lane for lane (`torch.equal`) for the
@@ -20,8 +21,11 @@ Rules.
     lanes within rtol=1e-4, atol=1e-5, the sum over agreeing lanes within
     1e-4 relative). The JAX tier finds winners by its bilinear MXU form
     and recomputes (u, v, t) exactly; XLA contracts FMAs.
-  * `pack_scene_tables` and the chunk boxes follow `tri_table`'s row
-    order, so a chunk's rows are the chunk's triangles.
+  * `pack_scene_tables`, the chunk boxes and the leaf boxes follow
+    `tri_table`'s row order, so a chunk's rows are the chunk's triangles
+    and a leaf's the leaf's; a leaf box holds its rows' box, a margin of
+    `trace_tiers.LEAF_PAD` of the scene's extent wider; tables that do not
+    cover the rows raise.
   * The kernels themselves (they run only on the card) are held against
     these plain versions by the `cuda`-marked test at the end and by
     chip_smoke.py phases 26-28.
@@ -98,6 +102,19 @@ def test_tables_follow_the_tri_table_row_order():
     ct = pk.pack_cull_tables(rt)
     assert ct.chunk == rt.cull_chunk and ct.lo2.shape == (1, 3)
     assert torch.equal(ct.lo2[0], rt.chunk_lo.amin(dim=0))
+    lo3, hi3 = tt.chunk_bounds(rt.v0, rt.v1, rt.v2, rt.tri_valid, tt.LEAF)
+    assert ct.lo3.shape == ct.hi3.shape == (20, 3)
+    extent = max(float(lo3[:18].abs().max()), float(hi3[:18].abs().max()),
+                 float(rt.eye.abs().max()))
+    pad = tt.LEAF_PAD * extent
+    assert torch.allclose(ct.lo3[:18], lo3[:18] - pad, rtol=0, atol=1e-7)
+    assert torch.allclose(ct.hi3[:18], hi3[:18] + pad, rtol=0, atol=1e-7)
+    assert (ct.lo3[:18] < lo3[:18]).all() and (ct.hi3[:18] > hi3[:18]).all()
+    # the two leaves past the last valid row keep their inverted boxes
+    assert torch.equal(ct.lo3[18:], lo3[18:]) and torch.equal(ct.hi3[18:], hi3[18:])
+    # a chunk's box is its leaves' box
+    assert torch.equal(lo3.reshape(5, 4, 3).amin(dim=1), rt.chunk_lo)
+    assert torch.equal(hi3.reshape(5, 4, 3).amax(dim=1), rt.chunk_hi)
 
 
 def _camera(rt, fovy, cull, stats=None):
@@ -188,9 +205,13 @@ def test_routes_above_the_gate():
 def test_bad_cull_tables_raise():
     _, _, rt = _scene("stress_576")
     ct = pk.pack_cull_tables(rt)
-    short = ct._replace(lo=ct.lo[:4], hi=ct.hi[:4])
-    with pytest.raises(ValueError, match="do not cover"):
-        pk._check_cull(short, rt.n_tri, torch.device("cpu"))
+    cpu = torch.device("cpu")
+    for short in (ct._replace(lo=ct.lo[:4], hi=ct.hi[:4]),
+                  ct._replace(lo3=ct.lo3[:17], hi3=ct.hi3[:17]),
+                  ct._replace(chunk=130)):
+        with pytest.raises(ValueError, match="do not cover"):
+            pk._check_cull(short, rt.n_tri, cpu)
+    assert pk._check_cull(ct, rt.n_tri, cpu)[6:] == (5, 20, 128)
     with pytest.raises(ValueError, match="needs CUDA"):
         pk.launch_path_camera(rt.tri_table, *pk.pack_scene_tables(rt)[:2],
                               rt.emitter_cr, torch.zeros(1, dtype=torch.int32),

@@ -1,25 +1,34 @@
 """The warp walk of the culled path kernels (csrc/trace_common.cuh
-warp_walk_chunks: a ballot a chunk, then the whole warp on one entering
-ray's rows at a time) through its CPU model `trace_tiers.warp_walk_plain`.
+warp_walk_chunks: super, chunk and leaf boxes, a ballot a leaf, then the
+whole warp on one entering ray's rows of a slice of leaves at a time)
+through its CPU model `trace_tiers.warp_walk_plain`.
 
 Scene: the Cornell box tessellated by `torch_scenes.stress_cornell` at
 levels=2 (576 triangles in a table of 640 rows, five chunks of 128 in one
-super box), 32x32 camera rays and as many bounce rays from their hits
-(directions from a seeded NumPy draw).
+super box, 20 leaves of 32), 32x32 camera rays and as many bounce rays
+from their hits (directions from a seeded NumPy draw).
 
 Rules.
   * The model equals `walk_nearest_plain` bit for bit in (t, row, u, v),
     and its tally of (ray, row) and slab tests equals the per-ray walk's:
     it changes which slot tests a pair, not the pairs or their
     expressions.
-  * A triangle present at two rows is won by the lower row: two rows of
-    one slot of a slice (rows r and r + 32), two slots of one slice, two
-    slices of one chunk (chunks of 256 rows here), and two chunks, in
-    either order of copy; t is the same.
+  * The leaf boxes cull: the walk tests no more rows than with leaf boxes
+    that are their chunks' boxes (the chunk-only walk, the same result),
+    fewer in all, and at least one row for each ray that hits.
+  * A triangle present at two rows is won by the lower row: two slots of
+    one leaf, one slot of two leaves of a chunk (rows r and r + 32), two
+    slots of two leaves, two leaves a slice or more apart (chunks of 256
+    rows here), and two chunks, in either order of copy; t is the same.
+  * Camera rays aimed through the edges that two coplanar triangles of
+    different leaves share (the rays `torch_scenes.edge_tie_pixels` finds
+    meeting two triangles) get the full sweep's (t, row) from the culled
+    walk: no rounding of a leaf box's slab test drops a hit there.
   * Lanes outside `active` stay misses (t 1e30, row -1, u = v = 0) and
     change no active lane's result.
   * The warp walk issues no more row-test slots than the per-thread walk
-    and no fewer than its row tests (`warp_slots`, a hand count).
+    and no fewer than its row tests (`warp_slots`, a hand count for a
+    leaf).
   * Against the JAX package's XLA sweep (`_intersect_tri_raw`, no cull):
     the same winner, bar rays proven in float64 to be ties or to sit on an
     acceptance threshold (`torch_scenes.mt_knife_edge_rays`; XLA contracts
@@ -42,7 +51,7 @@ from software_rasterizer_tpu_torch.ops.camera import camera_rays
 from software_rasterizer_tpu_torch.ops.intersect import nearest_hit, prepare_rt_scene
 from software_rasterizer_tpu_torch.scenes import build_cornell_scene
 from software_rasterizer_tpu_torch.scenes.stress import subdivide_mesh
-from torch_scenes import mt_knife_edge_rays, stress_cornell
+from torch_scenes import edge_tie_pixels, mt_knife_edge_rays, stress_cornell
 
 W = 32
 SEED = 7
@@ -85,34 +94,60 @@ def test_model_equals_the_per_ray_walk(rays):
     assert tm == tp and tm["row_tests"] < 0.8 * o.shape[0] * rt.n_tri
 
 
-# the duplicates' chunks: two slices of tt.WALK_SLICE rows each
-CHUNK = 2 * tt.WALK_SLICE
+def _chunk_only(ct):
+    """`ct` with each leaf box its chunk's box: the chunk-only walk."""
+    per_chunk, nl = ct.chunk // tt.LEAF, ct.lo3.shape[0]
+    return ct._replace(lo3=ct.lo.repeat_interleave(per_chunk, dim=0)[:nl].contiguous(),
+                       hi3=ct.hi.repeat_interleave(per_chunk, dim=0)[:nl].contiguous())
+
+
+@pytest.mark.parametrize("rays", ["camera", "bounce"])
+def test_leaf_boxes_cull(rays):
+    rt, sets = _scene()
+    o, d = sets[rays]
+    ct = pk.pack_cull_tables(rt)
+    assert ct.lo3.shape == (20, 3) and ct.chunk // tt.LEAF == 4
+    model, tm, plain, _ = _walks(rt.tri_table, rt.n_tri, o, d, ct)
+    chunk_only, tc, _, _ = _walks(rt.tri_table, rt.n_tri, o, d, _chunk_only(ct))
+    for a, b, c in zip(model, plain, chunk_only):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    hits = int((model[1] >= 0).sum())
+    assert hits <= tm["row_tests"] < tc["row_tests"] == tm["chunk_rows"] == tc["chunk_rows"]
+    assert tm["slots"] < tc["slots"]
+
+
+# the duplicates' chunks: two slices of tt.LEAF * tt.SLICE_LEAVES rows each
+CHUNK = 2 * tt.LEAF * tt.SLICE_LEAVES
 
 
 def _table_with_copy(rt, src, dst):
     """The scene's table with row `src` copied to row `dst`, and cull
-    tables of chunks of CHUNK rows, their boxes widened by 1e-3 (so a ray
-    that meets row `src` enters the box of `dst`'s chunk whatever the
-    rounding of v0 + e1)."""
+    tables of chunks of CHUNK rows, their chunk and leaf boxes widened by
+    1e-3 (so a ray that meets row `src` enters the boxes of `dst`'s chunk
+    and leaf whatever the rounding of v0 + e1)."""
     table = rt.tri_table.clone()
     table[dst] = table[src]
     v0 = table[:, 0:3]
-    lo, hi = tt.chunk_bounds(v0, v0 + table[:, 3:6], v0 + table[:, 6:9],
-                             torch.ones(table.shape[0], dtype=torch.bool), CHUNK)
-    return table, tt.cull_tables(lo - 1e-3, hi + 1e-3, CHUNK)
+    tris = (v0, v0 + table[:, 3:6], v0 + table[:, 6:9],
+            torch.ones(table.shape[0], dtype=torch.bool))
+    lo, hi = tt.chunk_bounds(*tris, CHUNK)
+    lo3, hi3 = tt.leaf_bounds(*tris)
+    return table, tt.cull_tables(lo - 1e-3, hi + 1e-3, CHUNK, lo3 - 1e-3, hi3 + 1e-3)
 
 
-def _slice(f):
-    return f // tt.WALK_SLICE
+def _leaf(f):
+    return f // tt.LEAF
 
 
 # where the two rows of a duplicate lie: the distance between them and
-# whether a pair (row, row + distance) counts: one slot of a slice, two
-# slots of one slice, two slices of one chunk, two chunks
+# whether a pair (row, row + distance) counts: two slots of one leaf, one
+# slot of two leaves of a chunk, two slots of two leaves of a chunk, two
+# leaves of a chunk a slice or more apart, two chunks
 COPIES = {
-    "one slot": (32, lambda a, b: _slice(a) == _slice(b)),
-    "two slots": (7, lambda a, b: _slice(a) == _slice(b)),
-    "two slices": (150, lambda a, b: (a // CHUNK == b // CHUNK) & (_slice(a) != _slice(b))),
+    "two slots": (7, lambda a, b: _leaf(a) == _leaf(b)),
+    "one slot": (32, lambda a, b: a // CHUNK == b // CHUNK),
+    "two leaves": (40, lambda a, b: a // CHUNK == b // CHUNK),
+    "two slices": (150, lambda a, b: a // CHUNK == b // CHUNK),
     "two chunks": (300, lambda a, b: a // CHUNK != b // CHUNK),
 }
 
@@ -143,6 +178,48 @@ def test_the_lower_row_of_a_duplicate_wins(gap, upward):
     assert torch.equal(model[0][rays], t_before[rays])
 
 
+def _leaf_edge_rays(rt):
+    """Camera rays from the eye through points (a quarter, half and three
+    quarters along) of each edge that two coplanar triangles of different
+    leaves share."""
+    n = rt.n_tri
+    v = torch.stack([rt.v0[:n], rt.v1[:n], rt.v2[:n]], dim=1).double()   # (n,3,3)
+    nrm = torch.linalg.cross(v[:, 1] - v[:, 0], v[:, 2] - v[:, 0])
+    nrm = nrm / nrm.norm(dim=1, keepdim=True)
+    edges = {}
+    for f in range(n):
+        if not bool(rt.tri_valid[f]):
+            continue
+        for a, b in ((0, 1), (1, 2), (2, 0)):
+            key = tuple(sorted((tuple(v[f, a].tolist()), tuple(v[f, b].tolist()))))
+            edges.setdefault(key, []).append(f)
+    pts = []
+    for (a, b), tris in edges.items():
+        if len(tris) == 2 and _leaf(tris[0]) != _leaf(tris[1]) \
+                and abs(float(nrm[tris[0]] @ nrm[tris[1]])) > 1 - 1e-9:
+            a, b = torch.tensor(a), torch.tensor(b)
+            pts += [a + s_ * (b - a) for s_ in (0.25, 0.5, 0.75)]
+    p = torch.stack(pts).float()
+    d = p - rt.eye.float()
+    d = d / d.norm(dim=1, keepdim=True)
+    return rt.eye.float().expand_as(d).contiguous(), d.contiguous()
+
+
+def test_rays_through_shared_leaf_edges_keep_the_full_sweeps_hit():
+    rt, _ = _scene()
+    o, d = _leaf_edge_rays(rt)
+    arrays = {"tri_table": rt.tri_table.numpy(), "n_tri": rt.n_tri, "eye": rt.eye.numpy()}
+    ties = torch.from_numpy(edge_tie_pixels(arrays, d.numpy()))
+    # most such rays meet the edge first; the others meet a nearer wall
+    assert o.shape[0] >= 100 and int(ties.sum()) >= 0.3 * o.shape[0]
+    ct = pk.pack_cull_tables(rt)
+    model, _, culled, _ = _walks(rt.tri_table, rt.n_tri, o, d, ct)
+    full = tt.walk_nearest_plain(rt.tri_table, rt.n_tri, o, d)
+    for a, b, c in zip(model, culled, full):
+        assert torch.equal(a, b)
+        assert torch.equal(b, c), torch.nonzero(b != c).flatten()[:8].tolist()
+
+
 @pytest.mark.parametrize("rays", ["camera", "bounce"])
 def test_inactive_lanes_stay_misses(rays):
     rt, sets = _scene()
@@ -171,13 +248,16 @@ def test_warp_walk_issues_no_more_slots_than_the_per_thread_walk(rays):
 
 
 def test_warp_slots_by_hand():
-    # lanes 0 and 1 (warp 0) and 40 (warp 1) on rows [0, 200): slices of
-    # 128 and 72 rows, 4 + 3 steps a lane; the per-thread walk steps
-    # through all 200 rows in both warps
-    assert tt.WALK_SLICE == 128
+    # lanes 0 and 1 (warp 0) and 40 (warp 1) on the leaf of rows [32, 64):
+    # one row-step a lane; the per-thread walk steps through all 32 rows
+    # in both warps
+    assert tt.LEAF == 32
     lanes = torch.tensor([0, 1, 40])
-    assert tt.warp_slots(lanes, 0, 200) == (32 * 7 * 3, 32 * 200 * 2)
+    assert tt.warp_slots(lanes, 32, 64) == (32 * 3, 32 * 32 * 2)
+    # a short last leaf still costs a row-step a lane
     assert tt.warp_slots(torch.tensor([5]), 128, 133) == (32, 32 * 5)
+    with pytest.raises(ValueError, match="one leaf"):
+        tt.warp_slots(lanes, 0, 200)
 
 
 @pytest.mark.parametrize("rays", ["camera", "bounce"])

@@ -13,15 +13,15 @@ Rules.
     `whitted_uber_trace_plain`, logged by its `rays` list), the warp walk
     equals the per-ray walk (`walk_nearest_plain`) in (hit, row, t bits),
     and the walk's row test is the Whitted row test (`whitted_kernel._mt`)
-    t for t. A triangle copied across a slice boundary is won by the lower
-    row, at the same t.
+    t for t. A triangle copied into another leaf of its chunk is won by
+    the lower row, at the same t.
   * `warp_step_plain` (warps of 32 lanes, each pass one main trace and then
     shadow traces by emitter) gives every lane the same rays in the same
     order, the same frame, ray counts and test counts as
     `whitted_uber_trace_plain`, bit for bit, where lanes of one warp sit at
     different depths; each of its traces serves the lanes of one warp, and
     a pass is one main trace then shadow traces in ascending emitter order.
-  * The row-test slots by hand: a chunk entered by lanes of two warps, one
+  * The row-test slots by hand: a leaf entered by lanes of two warps, one
     of them partial, under both walks; 40 rays that leave the box through
     the full sweep.
   * On the card (`cuda`): the kernel against the plain version on a window
@@ -117,8 +117,11 @@ def test_walk_row_test_is_the_whitted_row_test(kind):
     assert torch.equal(_bits(t_whitted), _bits(mt_plane(o, d, rows)))
 
 
-# chunks of two slices, so a slice boundary lies inside a chunk
-CHUNK = 2 * tt.WALK_SLICE
+# chunks of two slices of leaves, so a slice boundary may lie inside a chunk
+CHUNK = 2 * tt.LEAF * tt.SLICE_LEAVES
+# rows between a triangle and its copy: a slice's worth of leaves, so the
+# two leaves fall in one slice only where a warp enters none between them
+GAP = tt.LEAF * tt.SLICE_LEAVES
 
 
 @pytest.mark.parametrize("upward", [True, False])
@@ -127,21 +130,22 @@ def test_the_lower_row_of_a_copy_across_a_slice_boundary_wins(upward):
     o, d = rays["main"]
     ct = pk.pack_cull_tables(rt)
     _, row, _, _ = tt.walk_nearest_plain(rt.tri_table, rt.n_tri, o, d, ct)
-    # the most hit row whose copy, WALK_SLICE rows away, lies in the other
-    # slice of the same chunk
+    # the most hit row whose copy, GAP rows away, lies in another leaf of
+    # the same chunk
     rows = torch.arange(rt.n_tri)
-    other = rows + tt.WALK_SLICE if upward else rows - tt.WALK_SLICE
-    fits = ((other >= 0) & (other < rt.n_tri) & (rows // CHUNK == other // CHUNK)
-            & (rows // tt.WALK_SLICE != other // tt.WALK_SLICE))
+    other = rows + GAP if upward else rows - GAP
+    fits = (other >= 0) & (other < rt.n_tri) & (rows // CHUNK == other // CHUNK)
     counts = torch.where(fits, torch.bincount(row[row >= 0], minlength=rt.n_tri), 0)
     src = int(counts.argmax())
     dst = int(other[src])
     table = rt.tri_table.clone()
     table[dst] = table[src]
     v0 = table[:, 0:3]
-    lo, hi = tt.chunk_bounds(v0, v0 + table[:, 3:6], v0 + table[:, 6:9],
-                             torch.ones(table.shape[0], dtype=torch.bool), CHUNK)
-    cull = tt.cull_tables(lo - 1e-3, hi + 1e-3, CHUNK)
+    tris = (v0, v0 + table[:, 3:6], v0 + table[:, 6:9],
+            torch.ones(table.shape[0], dtype=torch.bool))
+    lo, hi = tt.chunk_bounds(*tris, CHUNK)
+    lo3, hi3 = tt.leaf_bounds(*tris)
+    cull = tt.cull_tables(lo - 1e-3, hi + 1e-3, CHUNK, lo3 - 1e-3, hi3 + 1e-3)
     model = tt.warp_walk_plain(table, rt.n_tri, o, d, cull)
     plain = tt.walk_nearest_plain(table, rt.n_tri, o, d, cull)
     assert torch.equal(model[1], plain[1]) and torch.equal(_bits(model[0]), _bits(plain[0]))
@@ -193,11 +197,10 @@ def test_warp_step_model_equals_plain(name, spp):
 
 def test_warp_slots_by_hand():
     # lane 3 (warp 0) and lanes 35, 36 (warp 1, its other lanes idle)
-    # enter a chunk of rows [256, 512): the warp walk spends 2 slices x 4
-    # steps on each lane, the per-ray walk steps through all 256 rows in
-    # both warps
-    assert tt.WALK_SLICE == 128 and tt.WARP == 32
-    assert tt.warp_slots(torch.tensor([3, 35, 36]), 256, 512) == (32 * 8 * 3, 32 * 256 * 2)
+    # enter the leaf of rows [256, 288): the warp walk spends one step on
+    # each lane, the per-ray walk steps through all 32 rows in both warps
+    assert tt.LEAF == 32 and tt.WARP == 32
+    assert tt.warp_slots(torch.tensor([3, 35, 36]), 256, 288) == (32 * 3, 32 * 32 * 2)
 
 
 def test_full_sweep_slots_by_hand():
@@ -213,8 +216,9 @@ def test_full_sweep_slots_by_hand():
     rgb, nray = wk.whitted_uber_trace_plain(rt, o, d, MD, stats=st)
     assert rt.n_tri == 36 and (nray[0] == 1).all() and (nray[1] == 0).all()
     assert st["main"] == {"row_tests": 40 * 36, "slab_tests": 0, "slots": 2 * 32 * 36,
-                          "slots_thread": 2 * 32 * 36}
-    assert st["shadow"] == {"row_tests": 0, "slab_tests": 0, "slots": 0, "slots_thread": 0}
+                          "slots_thread": 2 * 32 * 36, "chunk_rows": 0}
+    assert st["shadow"] == {"row_tests": 0, "slab_tests": 0, "slots": 0, "slots_thread": 0,
+                            "chunk_rows": 0}
 
 
 @pytest.mark.parametrize("name", sorted(SCENES))
