@@ -117,15 +117,17 @@ Phases, one line each; any failure exits non-zero:
      by launch count, every field equal to backend="vpu"; times, the
      bound, the bound from the tally, the issue floor;
  26. large-scene path tracing, the camera kernel: the culled walk (the
-     warp walk: each (ray, chunk) pair tested by the whole warp) against
+     warp walk: each (ray, leaf) pair tested by the whole warp, a box's
+     (ray, child box) pairs one a thread where few rays enter it) against
      the full sweep lane for lane at 1 spp (the whole frame at 9,216
      triangles, 65,536 lanes at 147,456), both against their plain
-     versions on 4,096 lanes, the walk's tally of row tests, slab tests and
-     row-test slots against the plain version's counts and the warp walk's
-     model; the walk's SIMT efficiency (row tests / slots) beside the
-     per-thread walk's (the model's count of that schedule); the 16-spp
-     frame's times and its bound from the tally, beside an earlier
-     reading;
+     versions on 4,096 lanes, the walk's tally of row tests, slab tests,
+     row-test slots and box-test slots against the plain version's counts
+     and the models; the walk's SIMT efficiency (row tests / slots) beside
+     the per-thread walk's (the model's count of that schedule), and the
+     box tests' lane efficiency (chunk and leaf tests / box slots) beside
+     the own-thread box tests'; the 16-spp frame's times and its bound
+     from the tally, beside an earlier reading;
  27. the same for the bounce kernel (16 bounces; the full sweep is the
      bounce-major launch), and path_trace's routes
      (fused=None: the culled bounce kernel; fused=False: the plain
@@ -137,7 +139,10 @@ Phases, one line each; any failure exits non-zero:
      the models of both walks and the per-ray walk's earlier reading, the
      issue floor of the walk's row loop, and the kernel against its plain
      version on Cornell with mirror walls at max_depth 12 and 32 (the 16-
-     and 32-entry stacks);
+     and 32-entry stacks); then, where a parent tree is unpacked under
+     _checkout/parent, the culled camera, bounce and Whitted kernels
+     (#1b, #3b, #9b) on both scenes against the parent's in turns
+     (`path_ab`, `whitted_ab`);
  29. the large-scene main path: pipeline_from_config -> PathTracing.draw()
      and RayTracing.draw() on both scenes at 1024x1024 through the culled
      kernels (launch counts), frames equal to phases 26 and 28, times,
@@ -174,9 +179,11 @@ their issue floor), the card's `nvidia-smi` name and power limit, and
 `{"ok": true, "device": ...}`. Images go to chiprun_out/ under the
 repository root.
 
-`whitted_ab` and `trace_ab` (not run by `main`) time the Whitted kernel,
-and the trace kernels #2, #4, #5, #6, #7 and #8, built from other sources
-against each other in turns, e.g. this tree's against an earlier commit's;
+`path_ab`, `whitted_ab` and `trace_ab` (run by `main` only in phase 28,
+against _checkout/parent) time the culled camera and bounce kernels, the
+Whitted kernel, and the trace kernels #2, #4, #5, #6, #7 and #8, built
+from other sources against each other in turns, e.g. this tree's against
+an earlier commit's;
 `raster_ab` (run by phase 14) does the same for the raster kernels #10
 and #11 with their binning. `readback_probe` (not run by `main`) times a
 frame's copy to the host, pageable against page-locked, and reads the
@@ -854,7 +861,7 @@ def whitted_phases(dev, card: str) -> dict:
         + 200 * shadow_rays)
     # the sweep's row-test slots (its SIMT efficiency) and the issue floor
     # of its row loop over them
-    tally = torch.zeros((2, 3), dtype=torch.int64, device=dev)
+    tally = torch.zeros((2, len(wk.TALLY_COLUMNS)), dtype=torch.int64, device=dev)
     wk.launch_whitted_uber(*args, tally=tally, **kw)
     torch.cuda.synchronize()
     eff = {ray: int(tally[i, 0]) / int(tally[i, 2]) for i, ray in enumerate(wk.TALLY_ROWS)}
@@ -2570,17 +2577,24 @@ def culled_phases(dev, card: str, scenes: dict) -> dict:
     sizes = {name: sc["rt"].n_tri for name, sc in scenes.items()}
 
     def walk_check(what, tally, st):
-        """A culled path kernel's (3,) tally on the plain lanes against the
-        plain version's counts: the (ray, row) and slab tests, and the
-        row-test slots against the warp walk's model (trace_tiers.warp_slots);
-        returns (the walk's SIMT efficiency, the per-thread walk's, the
-        leaf boxes' pass share: rows tested / rows of the chunks entered)."""
-        walk = tuple(int(x) for x in tally.tolist())
-        want = (st["row_tests"], st["slab_tests"], st["slots"])
-        if walk != want:
-            fail(f"{what}: tally (row tests, slab tests, slots) {walk}, plain {want}")
+        """A culled path kernel's (6,) tally on the plain lanes against the
+        plain version's counts: the (ray, row) and slab tests, the row-test
+        slots against the warp walk's model (trace_tiers.warp_slots) and
+        the box-test slots against the box tests' (trace_tiers.box_steps);
+        the full sweep's loop entries stay 0. Returns (the walk's SIMT
+        efficiency, the per-thread walk's, the leaf boxes' pass share: rows
+        tested / rows of the chunks entered, the box tests' lane
+        efficiency: chunk and leaf tests / box slots, the own-thread box
+        tests')."""
+        t = [int(x) for x in tally.tolist()]
+        walk = (t[0], t[1], t[2], t[5])
+        want = (st["row_tests"], st["slab_tests"], st["slots"], st["box_slots"])
+        if walk != want or t[3:5] != [0, 0]:
+            fail(f"{what}: tally (row tests, slab tests, slots, box slots) {walk} (loop "
+                 f"entries {t[3:5]}), plain {want}")
         return (walk[0] / walk[2], st["row_tests"] / st["slots_thread"],
-                st["row_tests"] / st["chunk_rows"])
+                st["row_tests"] / st["chunk_rows"], st["box_tests"] / max(walk[3], 1),
+                st["box_tests"] / max(st["box_slots_thread"], 1))
 
     def window(name):
         """The lane range of a kernel against kernel comparison: the whole
@@ -2606,9 +2620,10 @@ def culled_phases(dev, card: str, scenes: dict) -> dict:
             print(f"[phase 26] {name}: lanes {(r[:8] + off).tolist()} differ", flush=True)
             fail(f"culled camera kernel on {name}: {n_off}/{nl} lanes differ from the full sweep")
         # (the walk's SIMT efficiency, the per-thread walk's, the leaf pass
-        # share) on the plain lanes; not read where a lane differs from
-        # plain (its counts differ)
-        plain, bad, eff = {}, {}, (float("nan"),) * 3
+        # share, the box tests' lane efficiency, the own-thread box tests')
+        # on the plain lanes; not read where a lane differs from plain (its
+        # counts differ)
+        plain, bad, eff = {}, {}, (float("nan"),) * 5
         for cull in (True, False):
             k = pk.path_camera_render(*args, 1, lane_offset=plain_off,
                                       n_lanes=PLAIN_PATH_LANES, cull=cull, **kw)
@@ -2623,7 +2638,7 @@ def culled_phases(dev, card: str, scenes: dict) -> dict:
                 fail(f"camera kernel (cull={cull}) on {name} disagrees with plain on "
                      f"{bad[cull]}/{PLAIN_PATH_LANES} lanes")
             if cull:
-                tally = torch.zeros(3, dtype=torch.int64, device=dev)
+                tally = torch.zeros(len(pk.TALLY_ENTRIES), dtype=torch.int64, device=dev)
                 attr_t, sph_t, n_sph = pk.pack_scene_tables(rt)
                 pk.launch_path_camera(
                     rt.tri_table.float().contiguous(), attr_t, sph_t,
@@ -2650,7 +2665,7 @@ def culled_phases(dev, card: str, scenes: dict) -> dict:
         frame = pk.path_camera_render(*args, SPP, **kw)
         t_k = cuda_times(lambda: pk.path_camera_render(*args, SPP, **kw), reps)
         t_b = cuda_times(lambda: pk.launch_path_camera(*ops, **launch_kw), reps)
-        tally = torch.zeros(3, dtype=torch.int64, device=dev)
+        tally = torch.zeros(len(pk.TALLY_ENTRIES), dtype=torch.int64, device=dev)
         pk.launch_path_camera(*ops, tally=tally, **launch_kw)
         torch.cuda.synchronize()
         (b_c, by_c), rows, slabs = tests_bound_ms(
@@ -2660,24 +2675,27 @@ def culled_phases(dev, card: str, scenes: dict) -> dict:
                                       int(tally[2]), rays=1)
         cam[name] = dict(frame=frame, t=t_k, bare=t_b, bound=(b_c, by_c), plain=plain,
                          full_mpaths=nl / full_ms / 1e3, full_ms=full_ms, simt=simt,
-                         simt_thread=eff[1], leaf_pass=eff[2], floor=floor_c, loop=loop_c)
+                         simt_thread=eff[1], leaf_pass=eff[2], box=eff[3], box_thread=eff[4],
+                         box_slots=int(tally[5]), floor=floor_c, loop=loop_c)
         lines.append(
             f"{name} ({rt.n_tri} triangles): culled == full sweep on all {nl} lanes of "
             f"[{off}, {off + nl}) at 1 spp (full sweep {full_ms:.0f} ms wall = "
             f"{nl / full_ms / 1e3:.3f} Mpaths/s); vs plain on {PLAIN_PATH_LANES} lanes at 1 spp: "
             f"culled {bad[True]}, full {bad[False]} lanes differ (plain {plain[True]:.0f} / "
-            f"{plain[False]:.0f} ms), walk tally (row tests, slab tests, slots) = plain counts "
-            f"and the warp walk's model; SIMT efficiency of the walk (row tests / slots) "
-            f"{eff[0]:.4f} there against {eff[1]:.4f} for the per-thread walk "
-            f"(trace_tiers.warp_slots' model of its schedule on the same lanes), leaf pass "
+            f"{plain[False]:.0f} ms), walk tally (row tests, slab tests, slots, box slots) = "
+            f"plain counts and the warp walk's model; SIMT efficiency of the walk (row tests / "
+            f"slots) {eff[0]:.4f} there against {eff[1]:.4f} for the per-thread walk "
+            f"(trace_tiers.warp_slots' model of its schedule on the same lanes), box tests' "
+            f"lane efficiency (chunk and leaf tests / box slots) {eff[3]:.4f} against "
+            f"{eff[4]:.4f} for the own-thread box tests (trace_tiers.box_steps), leaf pass "
             f"share {eff[2]:.4f} (rows tested / rows of the chunks entered); {SPP} spp "
             f"whole frame: kernel {spread(t_k)} ms = {n * SPP / med(t_k) / 1e3:.2f} Mpaths/s "
             f"(earlier reading {EARLIER_CULLED_MS['camera'][name]} ms: "
             f"{med(t_k) / EARLIER_CULLED_MS['camera'][name]:.3f}x), "
             f"bare {spread(t_b)}; {rows:.4g} row tests, {slabs:.4g} slab tests = "
             f"{rows / (2.0 * n * SPP):.0f} rows a lane-sample and ray of the "
-            f"{rt.tri_table.shape[0]}, {int(tally[2]):.4g} slots (efficiency {simt:.4f}); "
-            f"bound {b_c:.4f} ms by {by_c} ({med(t_k) / b_c:.1f}x); the walk's row-step "
+            f"{rt.tri_table.shape[0]}, {int(tally[2]):.4g} slots (efficiency {simt:.4f}), "
+            f"{int(tally[5]):.4g} box slots; bound {b_c:.4f} ms by {by_c} ({med(t_k) / b_c:.1f}x); the walk's row-step "
             f"loop (one row a thread of a ray's leaf) {loop_c['per_row']:g} SASS instructions "
             f"a row-step ({loop_c['unroll']} row-steps a loop iteration; a row-step's mix "
             + ", ".join(f"{o} {c:g}" for o, c in loop_c["mix"].items())
@@ -2707,7 +2725,7 @@ def culled_phases(dev, card: str, scenes: dict) -> dict:
                         for x, y in zip(a, b)).gt(0).sum())
         if n_off:
             fail(f"culled bounce kernel on {name}: {n_off}/{nl} lanes differ from the full sweep")
-        bad, plain, eff = {}, {}, (float("nan"),) * 3
+        bad, plain, eff = {}, {}, (float("nan"),) * 5
         for cull in (True, False):
             ps, pl = part(plain_off, PLAIN_PATH_LANES)
             ka, _, kl = pk.fused_bounce_group(rt, ps, pl, seed, MAX_BOUNCES, cull=cull, **rr)
@@ -2722,7 +2740,7 @@ def culled_phases(dev, card: str, scenes: dict) -> dict:
                 fail(f"bounce kernel (cull={cull}) on {name} disagrees with plain on "
                      f"{bad[cull]}/{PLAIN_PATH_LANES} lanes")
             if cull and bad[cull] == 0:
-                tally = torch.zeros(3, dtype=torch.int64, device=dev)
+                tally = torch.zeros(len(pk.TALLY_ENTRIES), dtype=torch.int64, device=dev)
                 pk.launch_path_bounce(
                     rt.tri_table.float().contiguous(), *pk.pack_scene_tables(rt)[:2],
                     rt.emitter_cr.float().contiguous(), ps, pl, n_tri=rt.n_tri,
@@ -2739,7 +2757,7 @@ def culled_phases(dev, card: str, scenes: dict) -> dict:
         t_k = cuda_times(lambda: pk.fused_bounce_group(rt, state, live, seed, MAX_BOUNCES,
                                                        **rr), 10)
         t_b = cuda_times(lambda: pk.launch_path_bounce(*ops, **launch_kw), 10)
-        tally = torch.zeros(3, dtype=torch.int64, device=dev)
+        tally = torch.zeros(len(pk.TALLY_ENTRIES), dtype=torch.int64, device=dev)
         pk.launch_path_bounce(*ops, tally=tally, **launch_kw)
         torch.cuda.synchronize()
         (b_b, by_b), rows, slabs = tests_bound_ms(
@@ -2771,19 +2789,21 @@ def culled_phases(dev, card: str, scenes: dict) -> dict:
         _, wave1_ms = wall_ms(lambda: tp.path_trace(rt, o_, d_, SEED, **pkw))
         bnc[name] = dict(t=t_k, bare=t_b, bound=(b_b, by_b), plain=plain, launches=launches[1],
                          fused_ms=fused_ms, plain_route_ms=plain_ms, cam1_ms=cam1_ms,
-                         wave1_ms=wave1_ms, simt=simt, simt_thread=eff[1], leaf_pass=eff[2])
+                         wave1_ms=wave1_ms, simt=simt, simt_thread=eff[1], leaf_pass=eff[2],
+                         box=eff[3], box_thread=eff[4], box_slots=int(tally[5]))
         lines.append(
             f"{name} ({rt.n_tri} triangles): culled == full sweep on all {nl} lanes "
             f"(full sweep {full_ms:.0f} ms wall); vs plain on {PLAIN_PATH_LANES} lanes: culled "
             f"{bad[True]}, full {bad[False]} lanes differ (plain {plain[True]:.0f} / "
-            f"{plain[False]:.0f} ms), walk tally = plain counts and the model's slots; SIMT "
+            f"{plain[False]:.0f} ms), walk tally = plain counts and the models' slots; SIMT "
             f"efficiency of the walk {eff[0]:.4f} there against {eff[1]:.4f} for the "
-            f"per-thread walk, leaf pass share {eff[2]:.4f}; {n} lanes: kernel "
+            f"per-thread walk, box tests' lane efficiency {eff[3]:.4f} against {eff[4]:.4f} "
+            f"own-thread, leaf pass share {eff[2]:.4f}; {n} lanes: kernel "
             f"{spread(t_k)} ms (earlier reading "
             f"{EARLIER_CULLED_MS['bounce'][name]} ms: "
             f"{med(t_k) / EARLIER_CULLED_MS['bounce'][name]:.3f}x), bare {spread(t_b)}, "
             f"{rows:.4g} row tests, {slabs:.4g} slab tests, {int(tally[2]):.4g} slots "
-            f"(efficiency {simt:.4f}), bound {b_b:.4f} ms by {by_b} ({med(t_k) / b_b:.1f}x); "
+            f"(efficiency {simt:.4f}), {int(tally[5]):.4g} box slots, bound {b_b:.4f} ms by {by_b} ({med(t_k) / b_b:.1f}x); "
             f"path_trace one sample of {PLAIN_WAVE_LANES} lanes (wall, once): fused=None "
             f"{fused_ms:.1f} ms (culled bounce kernel, launches {launches[1]}, clipped mean "
             f"{fm:.5f}), fused=False {plain_ms:.1f} ms (clipped mean {pm:.5f}, dropped 0); "
@@ -2793,6 +2813,21 @@ def culled_phases(dev, card: str, scenes: dict) -> dict:
               + "; ".join(lines) + f"; max_abs_err vs plain {bnc_err:.3g}")
 
     wht, wht_err = whitted_culled_phase(dev, card, scenes)
+
+    # the culled kernels (#1b, #3b, #9b) against the parent's in turns,
+    # where a parent tree is unpacked under _checkout/parent
+    parent = ROOT / "_checkout" / "parent" / "software_rasterizer_tpu_torch" / "csrc"
+    if parent.is_dir():
+        trees = {"parent": parent, "this": ROOT / "software_rasterizer_tpu_torch" / "csrc"}
+        ab = path_ab(trees, scenes)
+        ab["whitted"] = whitted_ab(trees, only=tuple(scenes))
+        phase(28, "the culled kernels in turns against _checkout/parent, bare launch, "
+                  "median ms this / parent: " + "; ".join(
+                      f"{kern} {sname} {med(t['this']):.3f} / {med(t['parent']):.3f} "
+                      f"({med(t['this']) / med(t['parent']):.4f}x)"
+                      for kern, by in ab.items() for sname, t in by.items()))
+    else:
+        phase(28, "no parent tree under _checkout/parent: no kernel timed against it")
 
     # ---- 29. the main path: pipeline_from_config -> draw() on both scenes
     cfg = RenderConfig(width=WIDTH, height=HEIGHT, spp=SPP, max_bounces=MAX_BOUNCES, seed=SEED)
@@ -2868,6 +2903,9 @@ def culled_phases(dev, card: str, scenes: dict) -> dict:
              "simt_efficiency_per_thread_walk_147456": cam["large"]["simt_thread"],
              "leaf_pass_share": cam[mid]["leaf_pass"],
              "leaf_pass_share_147456": cam["large"]["leaf_pass"],
+             "box_efficiency": cam[mid]["box"], "box_efficiency_147456": cam["large"]["box"],
+             "box_efficiency_own_thread": cam[mid]["box_thread"],
+             "box_efficiency_own_thread_147456": cam["large"]["box_thread"],
              "issue_floor_ms": cam[mid]["floor"], "issue_floor_ms_147456": cam["large"]["floor"],
              "sass_per_row_step": cam[mid]["loop"]["per_row"]},
             {"name": "path_bounce_culled", "route": "cuda",
@@ -2887,7 +2925,10 @@ def culled_phases(dev, card: str, scenes: dict) -> dict:
              "simt_efficiency_147456": bnc["large"]["simt"],
              "simt_efficiency_per_thread_walk_147456": bnc["large"]["simt_thread"],
              "leaf_pass_share": bnc[mid]["leaf_pass"],
-             "leaf_pass_share_147456": bnc["large"]["leaf_pass"]},
+             "leaf_pass_share_147456": bnc["large"]["leaf_pass"],
+             "box_efficiency": bnc[mid]["box"], "box_efficiency_147456": bnc["large"]["box"],
+             "box_efficiency_own_thread": bnc[mid]["box_thread"],
+             "box_efficiency_own_thread_147456": bnc["large"]["box_thread"]},
         ],
         "whitted": {"launches": draw_launches["whitted"], "ms_9216": med(wht[mid]["t"]),
                     "ms_147456": med(wht["large"]["t"]),
@@ -2898,6 +2939,8 @@ def culled_phases(dev, card: str, scenes: dict) -> dict:
                     "plain_ms_9216": wht[mid]["plain"][True], "max_abs_err": wht_err,
                     "simt_efficiency": {sz: {ray: e["frame"] for ray, e in wht[k]["eff"].items()}
                                         for k, sz in (("mid", "9216"), ("large", "147456"))},
+                    "box_efficiency": {sz: {ray: e["box"] for ray, e in wht[k]["eff"].items()}
+                                       for k, sz in (("mid", "9216"), ("large", "147456"))},
                     "issue_floor_ms_9216": wht[mid]["floor"],
                     "issue_floor_ms_147456": wht["large"]["floor"]},
     }
@@ -2956,9 +2999,9 @@ def whitted_culled_phase(dev, card: str, scenes: dict):
         t_b = cuda_times(lambda: wk.launch_whitted_uber(*args, **kw), 10)
         # the culled walk's tallies, main and shadow rays apart: the whole
         # frame, and the plain lanes against the plain version's counts
-        tally = torch.zeros((2, 3), dtype=torch.int64, device=dev)
+        tally = torch.zeros((2, len(wk.TALLY_COLUMNS)), dtype=torch.int64, device=dev)
         wk.launch_whitted_uber(*args, tally=tally, **kw)
-        tally_pl = torch.zeros((2, 3), dtype=torch.int64, device=dev)
+        tally_pl = torch.zeros_like(tally)
         wk.launch_whitted_uber(*args[:6], o_[sl], d_[sl], tally=tally_pl, **kw)
         torch.cuda.synchronize()
         (b_w, by_w), rows, slabs = tests_bound_ms(
@@ -2967,14 +3010,17 @@ def whitted_culled_phase(dev, card: str, scenes: dict):
         eff = {}
         for i, ray in enumerate(wk.TALLY_ROWS):
             fr, pl, want = tally[i].tolist(), tally_pl[i].tolist(), st[ray]
-            if pl != [want["row_tests"], want["slab_tests"], want["slots"]]:
+            if pl != [want[k] for k in wk.TALLY_COLUMNS]:
                 fail(f"Whitted culled walk on {name}, {ray} rays: tally (row tests, slab "
-                     f"tests, slots) {pl} on the plain lanes, plain {want} (slots: the "
-                     f"warp walk's model)")
+                     f"tests, slots, box slots) {pl} on the plain lanes, plain {want} "
+                     f"(slots: the warp walk's and the box tests' models)")
             eff[ray] = {"frame": fr[0] / fr[2], "lanes": pl[0] / pl[2],
                         "model_per_ray": want["row_tests"] / want["slots_thread"],
                         "model_warp": want["row_tests"] / want["slots"],
-                        "leaf_pass": want["row_tests"] / want["chunk_rows"]}
+                        "leaf_pass": want["row_tests"] / want["chunk_rows"],
+                        "box": want["box_tests"] / max(pl[3], 1),
+                        "box_thread": want["box_tests"] / max(want["box_slots_thread"], 1),
+                        "box_slots": fr[3]}
         # the culled instance with the 8-entry stack (max_depth 5)
         floor_ms, loop = issue_floor("whitted_uber", "whitted_uber_kernelILb1ELi8E", 1,
                                      int(tally[:, 2].sum()), rays=1)
@@ -3001,6 +3047,11 @@ def whitted_culled_phase(dev, card: str, scenes: dict):
             + f", an earlier reading); leaf pass share (rows tested / rows of the chunks "
             f"entered, plain lanes), main / shadow rays "
             + ", ".join(f"{e['leaf_pass']:.4f}" for e in eff.values())
+            + "; box tests' lane efficiency (chunk and leaf tests / box slots, plain lanes), "
+            "main / shadow rays " + ", ".join(f"{e['box']:.4f}" for e in eff.values())
+            + " against " + ", ".join(f"{e['box_thread']:.4f}" for e in eff.values())
+            + " own-thread (trace_tiers.box_steps), box slots on the frame "
+            + ", ".join(f"{e['box_slots']:.4g}" for e in eff.values())
             + f"; issue floor {floor_ms:.4f} ms ({loop['per_row']:g} SASS "
             f"instructions a row and ray in the walk's row loop, {loop['unroll']} rows a loop "
             f"iteration, x {int(tally[:, 2].sum())} slots / 32), bare "
@@ -3033,7 +3084,8 @@ def whitted_culled_phase(dev, card: str, scenes: dict):
     return wht, wht_err
 
 
-def whitted_ab(csrc_dirs: dict, rounds: int = 4, repeats: int = 5) -> dict:
+def whitted_ab(csrc_dirs: dict, rounds: int = 4, repeats: int = 5,
+               only: tuple = ()) -> dict:
     """Times the Whitted kernel as built from other sources, in turns in one
     process on one card, at 1024x1024 max_depth 5:
 
@@ -3048,8 +3100,10 @@ def whitted_ab(csrc_dirs: dict, rounds: int = 4, repeats: int = 5) -> dict:
     of 9,216 and 147,456 triangles (the culled walk), `rounds` rounds of
     `repeats` launches, the order of the builds reversed every other round.
     Every build's frame and ray counts must equal the first's bit for bit.
-    Prints a line a scene and the builds' ptxas register and spill lines;
-    returns {scene: {build: sorted ms}}."""
+    `only` names the scenes to time ("cornell", "mirror_glass",
+    "two_emitters_spp4", "mid", "large"; empty: all). Prints a line a
+    scene and the builds' ptxas register and spill lines; returns {scene:
+    {build: sorted ms}}."""
     import ctypes
 
     import torch
@@ -3102,6 +3156,8 @@ def whitted_ab(csrc_dirs: dict, rounds: int = 4, repeats: int = 5) -> dict:
     res = {}
     try:
         for sname, (build, spp) in scenes.items():
+            if only and sname not in only:
+                continue
             scene = build()
             scene.set_ndc_matrix(WIDTH, HEIGHT)
             rt = prepare_rt_scene(scene.rt_geometry(), scene.rt_frame(), dev)
@@ -3128,6 +3184,121 @@ def whitted_ab(csrc_dirs: dict, rounds: int = 4, repeats: int = 5) -> dict:
                   + f"; frames and ray counts equal to {names[0]}'s", flush=True)
     finally:
         wk._cuda_fn = own
+    return res
+
+
+def path_ab(csrc_dirs: dict, scenes: dict = None, rounds: int = 4, repeats: int = 3) -> dict:
+    """Times the culled path kernels as built from other sources, in turns
+    in one process on one card:
+
+        python3 -c "import chip_smoke as c; c.path_ab({'parent': 'DIR', 'this':
+            'software_rasterizer_tpu_torch/csrc'})"
+
+    `csrc_dirs` names directories that each hold a path_camera.cu and a
+    path_bounce.cu (and the headers they include) with this tree's C
+    interfaces, e.g. the csrc/ of an unpacked earlier commit or a variant.
+    Each is built with the package's nvcc flags; on phase 20's `scenes`
+    (built here when None) the bare launches of the culled camera kernel
+    (#1b: the 16-spp frame of WIDTH x HEIGHT) and of the culled bounce
+    kernel (#3b: MAX_BOUNCES bounces of the frame's primary hits) are
+    timed `rounds` rounds of `repeats` launches, the order of the builds
+    reversed every other round. Every build's outputs must equal the
+    first's bit for bit. Prints a line a kernel and scene and the builds'
+    ptxas register and spill lines for the culled kernels; returns
+    {"camera" or "bounce": {scene: {build: sorted ms}}}."""
+    import ctypes
+
+    import torch
+
+    from software_rasterizer_tpu_torch.ops import intersect as ti
+    from software_rasterizer_tpu_torch.ops import path as tp
+    from software_rasterizer_tpu_torch.ops import path_kernel as pk
+    from software_rasterizer_tpu_torch.utils import cuda_build
+    from software_rasterizer_tpu_torch.utils.rng import fold_in, key_bits, sample_seeds
+
+    card = card_line()
+    dev = torch.device("cuda")
+    if scenes is None:
+        scenes, _ = stress_scenes(dev)
+    names = list(csrc_dirs)
+    cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    binds = {"camera": ("path_camera", "srt_path_camera_render", "_cuda_fn"),
+             "bounce": ("path_bounce", "srt_path_bounce", "_bounce_fn")}
+    procs = {}
+    for name, d in csrc_dirs.items():
+        for kern, (lib, _, _) in binds.items():
+            out = cuda_build.BUILD_DIR / f"ab_{lib}_{name}.so"
+            procs[name, kern] = (out, subprocess.Popen(
+                [cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS, "-o", str(out),
+                 str(pathlib.Path(d) / f"{lib}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    fns = {}
+    for (name, kern), (out, proc) in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            fail(f"nvcc failed on {csrc_dirs[name]}: {log}")
+        lines = log.splitlines()
+        for i, ln in enumerate(lines):
+            # the culled instances' resource lines follow their entry line
+            if "entry function" in ln and ("ILb1E" in ln or "culled" in ln):
+                for ln2 in lines[i:i + 4]:
+                    if "registers" in ln2 or "spill" in ln2 or "entry function" in ln2:
+                        print(f"[ab] {name} {kern}: {ln2.strip()}", flush=True)
+        lib, sym, getter = binds[kern]
+        own = getattr(pk, getter)()
+        fn = getattr(ctypes.CDLL(str(out)), sym)
+        fn.argtypes, fn.restype = own.argtypes, own.restype
+        fns[name, kern] = fn
+    own = {kern: getattr(pk, getter) for kern, (_, _, getter) in binds.items()}
+    n = WIDTH * HEIGHT
+    seed = int(key_bits(fold_in(fold_in(SEED, 0), 0)))
+    res = {"camera": {}, "bounce": {}}
+    try:
+        for sname, sc in scenes.items():
+            rt = sc["rt"]
+            attr_t, sph_t, n_sph = pk.pack_scene_tables(rt)
+            ct = pk.pack_cull_tables(rt)
+            tri, ecr = rt.tri_table.float().contiguous(), rt.emitter_cr.float().contiguous()
+            o_, d_ = sc["rays"]["camera"]
+            hit = ti.nearest_hit(rt, o_, d_)
+            state, live = tp.primary_state(hit).contiguous(), hit.hit.contiguous()
+            calls = {
+                "camera": lambda: pk.launch_path_camera(
+                    tri, attr_t, sph_t, ecr, torch.as_tensor(sample_seeds(SEED, 0, SPP)).to(dev),
+                    pk._camera_table(rt, sc["scene"].fovy, WIDTH, HEIGHT), n_tri=rt.n_tri,
+                    n_sph=n_sph, n_emitters=rt.n_emitters, lane_offset=0, n_lanes=n,
+                    width=WIDTH, height=HEIGHT, p_rr=sc["scene"].rr, max_bounces=MAX_BOUNCES,
+                    cull_tables=ct),
+                "bounce": lambda: pk.launch_path_bounce(
+                    tri, attr_t, sph_t, ecr, state, live, n_tri=rt.n_tri, n_sph=n_sph,
+                    n_emitters=rt.n_emitters, seed=seed, n_bounces=MAX_BOUNCES,
+                    p_rr=sc["scene"].rr, cull_tables=ct),
+            }
+            for kern, call in calls.items():
+                getter = binds[kern][2]
+                outs, times = {}, {b: [] for b in names}
+                for b in names:
+                    setattr(pk, getter, lambda b=b, kern=kern: fns[b, kern])
+                    out = call()
+                    outs[b] = out if isinstance(out, tuple) else (out,)
+                torch.cuda.synchronize()
+                same = {b: all(torch.equal(x, y) for x, y in zip(outs[b], outs[names[0]]))
+                        for b in names}
+                if not all(same.values()):
+                    fail(f"path_ab {kern} on {sname}: outputs equal to {names[0]}'s: {same}")
+                for rnd in range(rounds):
+                    for b in (names if rnd % 2 == 0 else names[::-1]):
+                        setattr(pk, getter, lambda b=b, kern=kern: fns[b, kern])
+                        times[b] += cuda_times(call, repeats)
+                res[kern][sname] = {b: sorted(t) for b, t in times.items()}
+                print(f"[ab] {kern} culled on {sname} ({rt.n_tri} triangles, {n} lanes, bare "
+                      f"launch, ms as median [min-max] of {rounds * repeats} in turns, on "
+                      f"{card}): " + ", ".join(f"{b} {spread(res[kern][sname][b])}"
+                                                for b in names)
+                      + f"; outputs equal to {names[0]}'s", flush=True)
+    finally:
+        for kern, (_, _, getter) in binds.items():
+            setattr(pk, getter, own[kern])
     return res
 
 

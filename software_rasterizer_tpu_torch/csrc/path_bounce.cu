@@ -117,8 +117,8 @@ struct BounceParams {
   float* scratch;
   float4* done;
   // (n_tally,) [row tests, slab tests, row-test slots of the culled walk's
-  // warps, the full sweep's active lane-bounces and issued lane-slots]
-  // added, or null
+  // warps, the full sweep's active lane-bounces and issued lane-slots, the
+  // box-test slots of the culled walk's warps] added, or null
   unsigned long long* tally;
   int n_tally;
   // (n_bounces + 3,) the bounce-major kernel's device clock (ns) at its
@@ -430,7 +430,7 @@ __global__ void __launch_bounds__(kThreads) path_bounce_culled(const BounceParam
   bool live = valid && p.live[valid ? lane : 0] != 0;
   float acc[3] = {0.0f, 0.0f, 0.0f};
   srt::Tally tl;
-  unsigned long long slots = 0;
+  srt::WalkSlots slots;
 
   for (int b = 0; b < p.n_bounces; ++b) {
     if (!__any_sync(srt::kFullMask, live)) break;
@@ -448,8 +448,8 @@ __global__ void __launch_bounds__(kThreads) path_bounce_culled(const BounceParam
   if (!valid) return;
   write_lane(p, lane, s, live, acc);
   tl.flush(p.tally);
-  if (p.tally != nullptr && p.n_tally > 2 && slots != 0)
-    atomicAdd(p.tally + 2, slots);
+  if (p.tally != nullptr)
+    slots.flush(p.n_tally > 2 ? p.tally + 2 : nullptr, p.n_tally > 5 ? p.tally + 5 : nullptr);
 }
 
 }  // namespace

@@ -87,8 +87,8 @@ struct Params {
   float* acc;          // (3, n_lanes) radiance sum
   CullTables cull;     // read by the culled instance only
   // (n_tally,) [row tests, slab tests, row-test slots of the culled walk's
-  // warps, the full sweep's active lane-iterations and issued lane-slots]
-  // added, or null
+  // warps, the full sweep's active lane-iterations and issued lane-slots,
+  // the box-test slots of the culled walk's warps] added, or null
   unsigned long long* tally;
   int n_tally;
   int n_tri, n_sph, n_emitters, spp, lane_offset, n_lanes, width, height,
@@ -98,15 +98,19 @@ struct Params {
 
 constexpr int kThreads = 128;
 
-// blocks an SM the full sweep asks of the compiler: 6 cap a thread at 80
-// registers (it takes 104 unasked, 5 blocks), which took less time on an
-// H100 with the warp-uniform loop than 5 or 8 (64 registers). The culled
-// instance asks 1: it takes 127 registers unasked (CUDA 12.8), so four
-// blocks' WarpStages fill the SM either way (asking 4 took the same time).
+// blocks an SM each instance asks of the compiler. The full sweep: 6 cap a
+// thread at 80 registers (it takes 104 unasked, 5 blocks), which took less
+// time on an H100 with the warp-uniform loop than 5 or 8 (64 registers).
+// The culled instance: 4, as many as the blocks' WarpStages let share an
+// SM, which caps a thread at 128 registers. Unasked it took 130 with the
+// cooperative box tests (CUDA 12.8; 127 before them), so 3 blocks an SM,
+// and its 16-spp frame on an H100 121.7 / 197.5 ms at 9,216 / 147,456
+// triangles against 101.3 / 166.2 asking 4 (no spill).
 constexpr int kMinBlocksFull = 6;
+constexpr int kMinBlocksCull = 4;
 
 template <bool kCull>
-__global__ void __launch_bounds__(kThreads, kCull ? 1 : kMinBlocksFull)
+__global__ void __launch_bounds__(kThreads, kCull ? kMinBlocksCull : kMinBlocksFull)
 path_camera_kernel(const Params p) {
   // culled: a WarpStage a warp; full sweep: the staged table rows
   extern __shared__ float4 s_dyn[];
@@ -144,7 +148,7 @@ path_camera_kernel(const Params p) {
   V3 tp = pos;
   float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
   srt::Tally tl;
-  unsigned long long slots = 0;
+  srt::WalkSlots slots;
   LoopTally lt;
 
   while (true) {
@@ -276,8 +280,8 @@ path_camera_kernel(const Params p) {
   p.acc[p.n_lanes + idx] = acc_g;
   p.acc[2 * p.n_lanes + idx] = acc_b;
   tl.flush(p.tally);
-  if (kCull && p.tally != nullptr && p.n_tally > 2 && slots != 0)
-    atomicAdd(p.tally + 2, slots);
+  if (kCull && p.tally != nullptr)
+    slots.flush(p.n_tally > 2 ? p.tally + 2 : nullptr, p.n_tally > 5 ? p.tally + 5 : nullptr);
   lt.flush(p.tally, p.n_tally);
 }
 

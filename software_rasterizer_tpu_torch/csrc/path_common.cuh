@@ -314,7 +314,7 @@ __device__ __forceinline__ void dual_trace_culled(
     const float* __restrict__ tri, const float* __restrict__ attr,
     const float* __restrict__ sph, int n_tri, int n_sph, const CullTables& ct,
     V3 o, V3 la, V3 lb, bool active, srt::WarpStage& stage, Hit* A, Hit* B,
-    srt::Tally& tl, unsigned long long& slots) {
+    srt::Tally& tl, srt::WalkSlots& slots) {
   no_hit(A, B);
   srt::RowHit ha = {kBig, -1}, hb = ha;
 #pragma unroll 1

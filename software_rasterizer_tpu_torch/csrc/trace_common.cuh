@@ -256,7 +256,8 @@ struct Tally {
 // across the warp, stages the entered leaves' rows, and then lets all 32
 // threads test them for one entering ray at a time, one row a thread: a
 // warp issues one row-step for each (ray, leaf) pair, the sum of its rays'
-// leaves, not the union.
+// leaves, not the union. Where few of its rays enter a box, the warp tests
+// their (ray, child box) pairs one a thread too (child_boxes).
 
 constexpr unsigned kFullMask = 0xffffffffu;
 // rows of one staged slice: kSliceLeaves entered leaves, packed in walk
@@ -304,16 +305,154 @@ struct WalkCursor {
   unsigned ltodo, lmine;
 };
 
+// The slots a warp's walk issues, warp-uniform (every thread holds the
+// same counts; lane 0 adds them up): `rows`, 32 a row-step, one (ray,
+// leaf) pair; `box_steps`, the slab-test steps of the chunk and leaf
+// levels (32 slots each), the work the box tests' lane efficiency (the
+// chunk and leaf tests / box slots) is read from.
+struct WalkSlots {
+  unsigned long long rows = 0;
+  uint32_t box_steps = 0;
+  // lane 0 adds the row-test slots to *rows_total and the box slots to
+  // *box_total, either of them skipped where null
+  __device__ __forceinline__ void flush(unsigned long long* rows_total,
+                                        unsigned long long* box_total) const {
+    if ((threadIdx.x & 31) != 0) return;
+    if (rows_total != nullptr && rows != 0) atomicAdd(rows_total, rows);
+    if (box_total != nullptr && box_steps != 0)
+      atomicAdd(box_total, 32ull * box_steps);
+  }
+};
+
+// ---- cooperative box tests: one (ray, child box) pair a thread
+//
+// A box (a super box, or a chunk) that k rays of the warp enter has n
+// child boxes (its chunks, or its leaves), at most `per` of them. Each ray
+// testing its own children on its own thread costs the warp n slab-test
+// steps while the 32 - k threads whose ray did not enter sit idle. The
+// cooperative form tests the k x n pairs 32 threads at a time instead:
+// pass p gives thread i the ray of rank p * (32 / per) + i / per among the
+// entering rays (the rank-th set bit of their ballot) and child i % per,
+// so a pass holds 32 / per rays, and costs ceil(k / (32 / per)) steps.
+// It runs where `per` divides 32 (so no pair straddles two passes),
+// where k <= kCoopRays and where it takes fewer steps than the n of the
+// own-thread loop; otherwise each ray tests its own children, as before.
+// The choice depends on the ballot and the table alone, so it is
+// warp-uniform. Coherent rays (camera rays enter most boxes together)
+// keep the own-thread loop, which needs no shuffle.
+//
+// Why the cooperative form enters exactly the boxes the own-thread loop
+// enters, and leaves every tally equal:
+//   * every pair (ray q, child j < n) is tested once, in pass q / (32 /
+//     per), by thread (q % (32 / per)) * per + j: the passes step the
+//     ranks by 32 / per, and a thread's rank and child are fixed within a
+//     pass;
+//   * the test is slab_enter on the ray's own origin and its own InvDir,
+//     moved bit for bit from the ray's thread by __shfl_sync (inv_dir is
+//     computed there, as in the own-thread loop), against the same six
+//     floats of the same box: the same expression on the same bits, so
+//     the same bool. A chunk past n_rows is not entered in both forms;
+//   * the ray's thread takes bits [(q % (32 / per)) * per, + per) of that
+//     pass's ballot as its own children's bits, bit j for child j; a child
+//     j >= n is never tested and reads 0 in both forms. So `mine` /
+//     `lmine`, and with them `todo` / `ltodo`, each leaf's ballot and the
+//     order of the leaves, are the own-thread loop's; the row-steps, the
+//     winners and the tie rule follow unchanged;
+//   * the thread that makes a test counts it (one slab test; an entered
+//     leaf's rows), where the ray's own thread counted it before: the
+//     warp's sums are k x n slab tests and the same rows, and the flush
+//     adds every thread's counts, so `rows` and `slabs` are unchanged.
+// Only the slots move: `box_steps` counts the passes, or n.
+
+// rays of the warp at most that test a box's children together
+// (cooperative form). A tuning value that changes no result: on an H100
+// the culled camera kernel's 16-spp frame took 101.1 / 164.8 ms at 9,216 /
+// 147,456 triangles at 24, the same within 0.5% at 16 and 32 (where the
+// step count alone decides), and 101.6 / 167.5 at 8.
+constexpr int kCoopRays = 24;
+
+// position of the (q + 1)-th set bit of m, for q < popc(m): a binary search
+// on the population counts of the low halves
+__device__ __forceinline__ int nth_set_bit(unsigned m, int q) {
+  int pos = 0;
+#pragma unroll
+  for (int w = 16; w >= 1; w >>= 1) {
+    const int c = __popc(m & ((1u << w) - 1u));
+    const bool up = q >= c;
+    q -= up ? c : 0;
+    m = up ? m >> w : m;
+    pos += up ? w : 0;
+  }
+  return pos;
+}
+
+// Of the boxes `first` .. `first + n - 1` of lo / hi (children of a box
+// entered by the rays of the threads in ballot `in`; n <= per <= 32),
+// those this thread's ray enters, bit j for box first + j (0 for a thread
+// outside `in`). `enter(b, ray, inv)` is the test of box b (counting
+// what it enters); `tl.slabs` gets a count a test made, `box_steps` the
+// steps the warp issues. Warp-uniform.
+template <typename Enter>
+__device__ __forceinline__ unsigned child_boxes(const Ray& r, const InvDir& inv,
+                                                unsigned in, int first, int n, int per,
+                                                Enter enter, Tally& tl,
+                                                uint32_t& box_steps) {
+  const int lane = threadIdx.x & 31;
+  const bool mine_in = (in >> lane) & 1u;
+  const int k = __popc(in);
+  const int shift = __ffs(per) - 1;  // log2(per) where per divides 32
+  const int rays = 32 >> shift;      // rays a pass
+  const int passes = (k + rays - 1) >> (5 - shift);
+  unsigned bits = 0u;
+  if ((per & (per - 1)) == 0 && k <= kCoopRays && passes < n) {
+    box_steps += passes;
+    // `src`: the thread whose ray has rank `lane`; `rank`: this thread's
+    // ray's rank among the entering rays, 32 outside `in`: in no pass, as
+    // every pass's base is a multiple of `rays` below 32
+    const int src = nth_set_bit(in, min(lane, k - 1));
+    const int rank = mine_in ? __popc(in & ((1u << lane) - 1u)) : 32;
+    for (int base = 0; base < k; base += rays) {
+      // this thread's pair: rank base + lane / per, child lane % per
+      const int q = base + (lane >> shift), j = lane & (per - 1);
+      const int from = __shfl_sync(kFullMask, src, min(q, k - 1));
+      const Ray rq = {__shfl_sync(kFullMask, r.ox, from), __shfl_sync(kFullMask, r.oy, from),
+                      __shfl_sync(kFullMask, r.oz, from), 0.0f, 0.0f, 0.0f};
+      const InvDir iq = {__shfl_sync(kFullMask, inv.x, from),
+                         __shfl_sync(kFullMask, inv.y, from),
+                         __shfl_sync(kFullMask, inv.z, from)};
+      bool hit = false;
+      if (q < k && j < n) {
+        tl.slabs += 1;
+        hit = enter(first + j, rq, iq);
+      }
+      const unsigned bal = __ballot_sync(kFullMask, hit);
+      const unsigned d = (unsigned)(rank - base);
+      if (d < (unsigned)rays) bits = (bal >> (d << shift)) & (kFullMask >> (32 - per));
+    }
+  } else {
+    box_steps += n;
+    if (mine_in) {
+      tl.slabs += n;
+      for (int j = 0; j < n; ++j)
+        if (enter(first + j, r, inv)) bits |= 1u << j;
+    }
+  }
+  return bits;
+}
+
 // Advance `cur` to the next leaf in row order that some active ray of the
 // warp enters, with its ballot; false when none is left. Each ray makes
 // its slab tests in the per-ray walk's order (the super box, then the
-// chunks of an entered super box, then the leaves of an entered chunk)
-// and tallies them and the rows of its leaves alike. Warp-uniform: every
+// chunks of an entered super box, then the leaves of an entered chunk),
+// the chunk and leaf tests through child_boxes, own-thread or
+// cooperative, which enter the same boxes and tally the same tests and
+// rows either way (the argument above child_boxes). Warp-uniform: every
 // thread of the warp calls it together.
 __device__ __forceinline__ bool walk_next_leaf(const Ray& r, const InvDir& inv,
                                                bool active, const CullTables& ct,
                                                int n_rows, WalkCursor& cur, int& leaf,
-                                               unsigned& mask, Tally& tl) {
+                                               unsigned& mask, Tally& tl,
+                                               uint32_t& box_steps) {
   const int per_chunk = ct.chunk / kLeaf;
   while (true) {
     if (cur.ltodo != 0) {
@@ -323,36 +462,50 @@ __device__ __forceinline__ bool walk_next_leaf(const Ray& r, const InvDir& inv,
       mask = __ballot_sync(kFullMask, (cur.lmine >> j) & 1u);
       return true;
     }
-    if (cur.todo != 0) {
+    // the next box whose children the warp tests: a chunk still to visit
+    // (its leaves), else the next super box that some ray enters (its
+    // chunks)
+    const bool leaves = cur.todo != 0;
+    unsigned in;
+    int first, n, per;
+    if (leaves) {
       const int j = __ffs(cur.todo) - 1;
       cur.todo &= cur.todo - 1;
       cur.c = cur.sc * kSuper + j;
-      cur.lmine = 0;
-      if ((cur.mine >> j) & 1u) {
-        const int l0 = cur.c * per_chunk;
-        const int l_end = min(l0 + per_chunk, (n_rows + kLeaf - 1) / kLeaf);
-        tl.slabs += l_end - l0;
-        for (int l = l0; l < l_end; ++l) {
-          if (!slab_enter(r, inv, ct.lo3 + 3 * l, ct.hi3 + 3 * l)) continue;
-          tl.rows += min(kLeaf, n_rows - l * kLeaf);
-          cur.lmine |= 1u << (l - l0);
-        }
-      }
-      cur.ltodo = __reduce_or_sync(kFullMask, cur.lmine);
-      continue;
+      in = __ballot_sync(kFullMask, (cur.mine >> j) & 1u);
+      first = cur.c * per_chunk;
+      n = min(per_chunk, (n_rows + kLeaf - 1) / kLeaf - first);
+      per = per_chunk;
+    } else {
+      if (++cur.sc >= ct.nsc) return false;
+      const int sc = cur.sc;
+      in = __ballot_sync(kFullMask,
+                         active && slab_enter(r, inv, ct.lo2 + 3 * sc, ct.hi2 + 3 * sc));
+      if (in == 0u) continue;
+      first = sc * kSuper;
+      n = min(kSuper, ct.nc - first);
+      per = kSuper;
     }
-    if (++cur.sc >= ct.nsc) return false;
-    const int sc = cur.sc;
-    const bool e2 = active && slab_enter(r, inv, ct.lo2 + 3 * sc, ct.hi2 + 3 * sc);
-    cur.mine = 0;
-    if (e2) {
-      const int c_end = min((sc + 1) * kSuper, ct.nc);
-      tl.slabs += c_end - sc * kSuper;
-      for (int c = sc * kSuper; c < c_end; ++c)
-        if (c * ct.chunk < n_rows && slab_enter(r, inv, ct.lo + 3 * c, ct.hi + 3 * c))
-          cur.mine |= 1u << (c - sc * kSuper);
+    const float* lo = leaves ? ct.lo3 : ct.lo;
+    const float* hi = leaves ? ct.hi3 : ct.hi;
+    const unsigned bits = child_boxes(
+        r, inv, in, first, n, per,
+        [&](int b, const Ray& rb, const InvDir& ib) {
+          // a chunk past n_rows is not entered
+          if (!leaves && b * ct.chunk >= n_rows) return false;
+          if (!slab_enter(rb, ib, lo + 3 * b, hi + 3 * b)) return false;
+          if (leaves) tl.rows += min(kLeaf, n_rows - b * kLeaf);
+          return true;
+        },
+        tl, box_steps);
+    const unsigned any = __reduce_or_sync(kFullMask, bits);
+    if (leaves) {
+      cur.lmine = bits;
+      cur.ltodo = any;
+    } else {
+      cur.mine = bits;
+      cur.todo = any;
     }
-    cur.todo = __reduce_or_sync(kFullMask, cur.mine);
   }
 }
 
@@ -360,7 +513,8 @@ __device__ __forceinline__ bool walk_next_leaf(const Ray& r, const InvDir& inv,
 // when none is left. Warp-uniform.
 __device__ __forceinline__ bool walk_next(const Ray& r, const InvDir& inv, bool active,
                                           const CullTables& ct, int n_rows,
-                                          WalkCursor& cur, WalkItem& item, Tally& tl) {
+                                          WalkCursor& cur, WalkItem& item, Tally& tl,
+                                          uint32_t& box_steps) {
 #pragma unroll
   for (int q = 0; q < kSliceLeaves; ++q) {
     item.leaf[q] = 0;
@@ -370,7 +524,7 @@ __device__ __forceinline__ bool walk_next(const Ray& r, const InvDir& inv, bool 
   int leaf;
   unsigned mask;
   while (item.n < kSliceLeaves &&
-         walk_next_leaf(r, inv, active, ct, n_rows, cur, leaf, mask, tl)) {
+         walk_next_leaf(r, inv, active, ct, n_rows, cur, leaf, mask, tl, box_steps)) {
 #pragma unroll
     for (int q = 0; q < kSliceLeaves; ++q)
       if (q == item.n) {
@@ -415,25 +569,25 @@ __device__ __forceinline__ void walk_stage(float4* __restrict__ dst,
 //     wins a tie.
 // An inactive thread (active false) enters nothing and keeps a miss but
 // takes part in every vote and shuffle: the whole warp must call this
-// together. `stage` is the warp's own area; `slots` gets 32 a row-step
-// the warp issues, one a (ray, leaf) pair (lane 0 only), the work the
-// SIMT efficiency is read from.
+// together. `stage` is the warp's own area; `slots` gets the row-steps
+// the warp issues, one a (ray, leaf) pair, the work the SIMT efficiency
+// is read from, and the slab-test steps of its chunk and leaf levels.
 template <typename Test>
 __device__ __forceinline__ RowHit warp_walk_chunks(
     const Ray& r, bool active, const CullTables& ct,
     const float* __restrict__ tri, int n_rows, WarpStage& stage, Test test,
-    Tally& tl, unsigned long long& slots) {
+    Tally& tl, WalkSlots& slots) {
   const int lane = threadIdx.x & 31;
   const InvDir inv = inv_dir(r);
   if (active) tl.slabs += ct.nsc;
   RowHit best = {kBig, -1};
   WalkCursor cur = {-1, 0u, 0u, 0, 0u, 0u};
   WalkItem item, next;
-  bool have = walk_next(r, inv, active, ct, n_rows, cur, item, tl);
+  bool have = walk_next(r, inv, active, ct, n_rows, cur, item, tl, slots.box_steps);
   if (have) walk_stage(stage.rows[0], tri, item, n_rows, lane);
   __pipeline_commit();
   for (int k = 0; have; ++k) {
-    const bool more = walk_next(r, inv, active, ct, n_rows, cur, next, tl);
+    const bool more = walk_next(r, inv, active, ct, n_rows, cur, next, tl, slots.box_steps);
     if (more) walk_stage(stage.rows[(k + 1) & 1], tri, next, n_rows, lane);
     __pipeline_commit();
     __pipeline_wait_prior(1);  // item's rows have landed; next's may fly
@@ -445,7 +599,7 @@ __device__ __forceinline__ RowHit warp_walk_chunks(
       any |= item.mask[q];
       pairs += (unsigned)__popc(item.mask[q]);
     }
-    if (lane == 0) slots += 32ull * pairs;
+    slots.rows += 32ull * pairs;
     for (unsigned m = any; m != 0; m &= m - 1) {
       const int L = __ffs(m) - 1;
       const Ray rl = {__shfl_sync(kFullMask, r.ox, L), __shfl_sync(kFullMask, r.oy, L),

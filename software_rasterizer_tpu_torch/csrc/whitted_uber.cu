@@ -33,8 +33,9 @@
 //
 // Large scenes (the culled instances, kCull): the main trace and each
 // shadow trace go through the warp walk (trace_common.cuh
-// warp_walk_chunks): each ray makes its own slab tests on the super, chunk
-// and leaf boxes, the warp ballots every entered leaf, stages its rows in
+// warp_walk_chunks): each ray's slab tests on the super, chunk and leaf
+// boxes (those of the chunks and leaves one a thread where few rays of the
+// warp enter their box), the warp ballots every entered leaf, stages its rows in
 // shared memory (a WarpStage a warp) and tests them for one entering ray
 // at a time with the kernel's own `mt`; the winner is the full sweep's,
 // pixel for pixel. The full-sweep instance reads the table from global
@@ -145,11 +146,11 @@ struct Nearest {
 };
 
 // What the traces of one kind of ray (main or shadow) cost: the (ray,
-// row) and slab tests of its lanes, and the row-test slots its warps
-// issued (lane 0's count, 32 a row-step of the warp).
+// row) and slab tests of its lanes, and the row-test slots (32 a row-step
+// of the warp) and box-test slots its warps issued.
 struct TraceTally {
   srt::Tally tests;
-  unsigned long long slots = 0;
+  srt::WalkSlots slots;
 };
 
 struct Params {
@@ -166,8 +167,8 @@ struct Params {
   float* rgb;            // (N,3)
   int* nray;             // (2,N) [main rays traced, diffuse hits]
   CullTables cull;       // read by the culled instances only
-  // (2,3) [main | shadow] x [row tests, slab tests, row-test slots] added,
-  // or null
+  // (2,4) [main | shadow] x [row tests, slab tests, row-test slots, box-test
+  // slots] added, or null
   unsigned long long* tally;
   int n_tri, n_sph, n_lanes, tex_h, tex_w, max_depth;
   int n_emitters, spp, lane_offset;
@@ -197,7 +198,7 @@ __device__ __forceinline__ Nearest trace(const Params& p, V3 o, V3 d,
       r.bf = best.row;
     }
   } else {
-    if ((threadIdx.x & 31) == 0) tt.slots += 32ull * (unsigned)p.n_tri;
+    tt.slots.rows += 32ull * (unsigned)p.n_tri;
     if (active) {
       tt.tests.rows += (uint32_t)p.n_tri;
       for (int f = 0; f < p.n_tri; ++f) {
@@ -532,9 +533,9 @@ whitted_uber_kernel(const Params p) {
   }
   if (p.tally != nullptr) {
     t_main.tests.flush(p.tally);
-    t_shadow.tests.flush(p.tally + 3);
-    if (t_main.slots != 0) atomicAdd(p.tally + 2, t_main.slots);
-    if (t_shadow.slots != 0) atomicAdd(p.tally + 5, t_shadow.slots);
+    t_shadow.tests.flush(p.tally + 4);
+    t_main.slots.flush(p.tally + 2, p.tally + 3);
+    t_shadow.slots.flush(p.tally + 6, p.tally + 7);
   }
 }
 

@@ -211,23 +211,26 @@ def _check_cull(ct: Optional[CullTables], n_rows: int, device) -> tuple:
 
 
 # the entries of a path kernel's tally: (ray, row) tests, slab tests, the
-# row-test slots the culled walk's warps issue (32 a row-step), and the
-# full sweep's loop: the iterations its lanes were active in
-# (lane-iterations, lane-bounces) and the lane-slots its warps issued (32
-# an iteration of a warp with any lane active)
-TALLY_ENTRIES = ("row_tests", "slab_tests", "walk_slots", "loop_active", "loop_slots")
+# row-test slots the culled walk's warps issue (32 a row-step), the full
+# sweep's loop: the iterations its lanes were active in (lane-iterations,
+# lane-bounces) and the lane-slots its warps issued (32 an iteration of a
+# warp with any lane active), and the box-test slots of the culled walk's
+# chunk and leaf levels (32 a slab-test step of a warp; the box tests'
+# lane efficiency is the chunk and leaf tests / box slots)
+TALLY_ENTRIES = ("row_tests", "slab_tests", "walk_slots", "loop_active", "loop_slots",
+                 "box_slots")
 
 
 def _check_tally(tally: Optional[torch.Tensor], device, slots: bool = False):
     """The kernels' optional (2,) int64 [row tests, slab tests] total; with
-    `slots` also (3,) or (5,), the later entries those of
+    `slots` also (3,), (5,) or (6,), the later entries those of
     `TALLY_ENTRIES`."""
     if tally is None:
         return None
     _check_table("tally", tally, torch.int64, None, device)
-    if tally.shape != (2,) and not (slots and tally.shape in ((3,), (5,))):
+    if tally.shape != (2,) and not (slots and tally.shape in ((3,), (5,), (6,))):
         raise ValueError(f"tally has shape {tuple(tally.shape)}, expected (2,)"
-                         + (", (3,) or (5,)" if slots else ""))
+                         + (", (3,), (5,) or (6,)" if slots else ""))
     return tally.data_ptr()
 
 
@@ -249,7 +252,10 @@ def launch_path_camera(tri: torch.Tensor, attr: torch.Tensor,
     warp walk: the SIMT efficiency is row tests / slots); a (5,) one also,
     from the full sweep, its loop's active lane-iterations and issued
     lane-slots (`TALLY_ENTRIES`; the loop's SIMT efficiency is their
-    ratio). Checks every operand and raises on a launch error."""
+    ratio); a (6,) one also, from the culled instance, the box-test slots
+    of its walk's chunk and leaf levels (32 a slab-test step of a warp:
+    the box tests' lane efficiency is the chunk and leaf tests / box
+    slots). Checks every operand and raises on a launch error."""
     global LAUNCHES, LAUNCHES_CULLED
     device = tri.device
     if device.type != "cuda":
@@ -515,8 +521,13 @@ def path_camera_render_plain(scene: RTScene, seed: int, width: int,
     iterations, the counts the kernel's `tally` adds up; with the culled
     walk also "slots" / "slots_thread": the row-test slots the kernel's
     warps issue (its `tally`'s third entry) and those the per-thread walk
-    would (`trace_tiers.warp_slots`), and "chunk_rows": the rows of the
-    chunks the rays enter, what they would test without the leaf boxes."""
+    would (`trace_tiers.warp_slots`), "box_slots" / "box_slots_thread":
+    the box-test slots the kernel's warps issue (its `tally`'s sixth
+    entry) and those of the own-thread box tests alone
+    (`trace_tiers.box_steps`), "box_tests": the chunk and leaf tests they
+    hold (the box tests' lane efficiency is box_tests / box_slots), and
+    "chunk_rows": the rows of the chunks the rays enter, what they would
+    test without the leaf boxes."""
     n = _lane_count(width, height, lane_offset, n_lanes, spp, max_bounces)
     dev = scene.device
     f32 = torch.float32
@@ -660,7 +671,8 @@ def path_camera_render_plain(scene: RTScene, seed: int, width: int,
 
 
 def _add_tally(stats: dict, tally: dict) -> None:
-    for k in ("row_tests", "slab_tests", "slots", "slots_thread", "chunk_rows"):
+    for k in ("row_tests", "slab_tests", "slots", "slots_thread", "chunk_rows", "box_tests",
+              "box_slots", "box_slots_thread"):
         stats[k] = stats.get(k, 0) + tally.get(k, 0)
 
 
@@ -731,7 +743,8 @@ def launch_path_bounce(tri: torch.Tensor, attr: torch.Tensor,
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch csrc/path_bounce.cu on the current stream; returns (acc
     (3,N), state (18,N), live (N,)). `cull_tables` and `tally` as in
-    `launch_path_camera` (a (5,) tally's loop entries count lane-bounces).
+    `launch_path_camera` (a (5,) or (6,) tally's loop entries count
+    lane-bounces).
     The full sweep is one cooperative launch that runs bounce-major over
     lists of the live lanes, in a workspace allocated here (two planes of
     `BOUNCE_SCRATCH_ROWS` floats, `BOUNCE_DONE_ROWS` floats and two ints a
@@ -944,8 +957,8 @@ def fused_bounce_group_plain(scene: RTScene, state: torch.Tensor,
     semantics), on the scene's device. A `stats` dict gets
     "lane_bounces": the bounces summed over the lanes live at their start
     (the kernel's unit of work), "per_lane": those bounces lane by lane
-    ((N,) int64), and "row_tests" / "slab_tests" as in
-    `path_camera_render_plain`."""
+    ((N,) int64), and "row_tests" / "slab_tests" and, with the culled
+    walk, the slots as in `path_camera_render_plain`."""
     state, live, n, ecr, n_e, p_rr = _bounce_inputs(scene, state, live, p_rr)
     dev = scene.device
     tabs = _plain_tables(scene, cull)

@@ -68,7 +68,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from software_rasterizer_tpu_torch.ops.bvh import _inv_dir, slab_test
+from software_rasterizer_tpu_torch.ops.bvh import _inv_dir, _slab, slab_test
 from software_rasterizer_tpu_torch.ops.trace_kernel import (
     BIG,
     NEAREST_RAYS,
@@ -108,6 +108,9 @@ _PLAIN_STEP = 1 << 22
 WARP = 32
 LEAF = 32
 SLICE_LEAVES = 4
+# rays of a warp at most whose (ray, child box) pairs the warp tests one a
+# thread (csrc/trace_common.cuh kCoopRays, `box_steps`)
+COOP_RAYS = 24
 # the leaf boxes' outward margin, a share of the scene's extent (8 float32
 # ulps at it): a ray through an edge that two coplanar triangles of
 # different leaves share meets both flat boxes only at a face, where the
@@ -1019,8 +1022,72 @@ def fused_warp_plain(tri_table, chunk_lo, chunk_hi, orig, d, chunk: int = 128,
 # ---------------------------------------------------- the per-ray leaf walk
 
 
+def box_steps(k: torch.Tensor, n: int, per: int) -> Tuple[torch.Tensor, torch.Tensor,
+                                                           torch.Tensor]:
+    """Slab-test steps each warp issues on the `n` child boxes (of at most
+    `per`) of a box that `k` ((W,) int64, one a warp; 0: the warp skips
+    the box) of its rays enter (csrc/trace_common.cuh child_boxes): (the
+    steps under the kernels' choice, the steps of the own-thread loop,
+    whether the warp tests the pairs cooperatively). The own-thread loop
+    takes `n` steps; the cooperative form, where `per` divides `WARP`,
+    k <= `COOP_RAYS` and it takes fewer, one step a pass of `WARP // per`
+    rays."""
+    own = torch.where(k > 0, n, 0)
+    if per & (per - 1) or not 0 < per <= WARP:
+        return own, own, torch.zeros_like(k, dtype=torch.bool)
+    passes = -(-k // (WARP // per))
+    coop = (k > 0) & (k <= COOP_RAYS) & (passes < n)
+    return torch.where(coop, passes, own), own, coop
+
+
+def coop_children(orig, inv, enter_parent, lo, hi, per: int, ok=None):
+    """The child boxes `lo` / `hi` ((n, 3), n <= `per`, `per` dividing
+    `WARP`) that each ray enters, found as the kernels' cooperative form
+    finds them (csrc/trace_common.cuh child_boxes): ((N, n) bool, the slab
+    tests made). The rays of `enter_parent` ((N,) bool) are ranked in lane
+    order within their warp (`WARP` lanes in launch order); pass p of a
+    warp gives thread i the ray of rank p * (WARP // per) + i // per, by
+    its lane, and child i % per; each thread's test goes into the pass's
+    ballot, and a ray's thread takes its `per` bits of it. `inv` is each
+    ray's `_inv_dir`; `ok` ((n,) bool) marks the children that may be
+    entered (a chunk past the table's rows may not). A lane outside
+    `enter_parent` enters nothing."""
+    n_rays, n, dev = enter_parent.shape[0], lo.shape[0], enter_parent.device
+    n_warps = -(-n_rays // WARP)
+    ballot = torch.zeros(n_warps * WARP, dtype=torch.bool, device=dev)
+    ballot[:n_rays] = enter_parent
+    ballot = ballot.view(n_warps, WARP)
+    k = ballot.sum(dim=1)
+    # lane of each rank: the entering lanes first, in lane order
+    lane_of = torch.argsort((~ballot).to(torch.uint8), dim=1, stable=True)
+    rays = WARP // per
+    thread = torch.arange(WARP, device=dev)
+    child = thread % per
+    base = WARP * torch.arange(n_warps, device=dev)[:, None]
+    bits = torch.zeros((n_warps, WARP, n), dtype=torch.bool, device=dev)
+    tests = 0
+    for p in range(-(-int(k.max()) // rays) if n_rays else 0):
+        rank = p * rays + thread // per                                   # (WARP,)
+        use = (rank[None] < k[:, None]) & (child[None] < n)              # (W, WARP)
+        src = lane_of.gather(1, rank.clamp(max=WARP - 1).expand(n_warps, -1))
+        ray = (base + src).clamp(max=n_rays - 1)
+        box = child.clamp(max=n - 1)
+        tmin, tmax = _slab(orig[ray], inv[ray], lo[box], hi[box])
+        hit = use & (tmax >= torch.clamp(tmin, min=0.0))
+        if ok is not None:
+            hit &= ok[box]
+        tests += int(use.sum())
+        for q in range(rays):
+            has = (p * rays + q < k)[:, None]                             # (W, 1)
+            lane = lane_of[:, min(p * rays + q, WARP - 1)]
+            mine = hit[:, q * per:q * per + n]
+            cur = bits[torch.arange(n_warps, device=dev), lane]
+            bits[torch.arange(n_warps, device=dev), lane] = torch.where(has, mine, cur)
+    return bits.view(n_warps * WARP, n)[:n_rays] & enter_parent[:, None], tests
+
+
 def _walk_spans(cull: Optional[CullTables], n_rows: int, orig, d, active,
-                tally: Optional[dict]):
+                tally: Optional[dict], coop: bool = False):
     """(lanes, r0, r1) spans of a nearest-row search in ascending row
     order: with `cull`, the rows [r0, r1) of each leaf and the lanes (a
     (k,) index) whose rays pass the slab test of its super-chunk's box, of
@@ -1029,8 +1096,15 @@ def _walk_spans(cull: Optional[CullTables], n_rows: int, orig, d, active,
     `active` lanes ((N,) bool; None: all, and lanes None) are walked;
     `tally` gets their (ray, row) and slab tests, as the kernels count
     them, and with `cull` the row-test slots of both warp schedules
-    (`warp_slots`) and the rows of the chunks they enter ("chunk_rows",
-    what a walk without leaf boxes would test)."""
+    (`warp_slots`), the slab tests of the chunk and leaf levels
+    ("box_tests", a part of "slab_tests") and their slots under the
+    kernels' choice ("box_slots") and under the own-thread loop alone
+    ("box_slots_thread", `box_steps`; lanes form warps of `WARP` in
+    launch order), and the rows of the chunks they enter ("chunk_rows",
+    what a walk without leaf boxes would test). With `coop`, the warps
+    that the kernels' choice sends to the cooperative form find their
+    chunks and leaves, and count their slab tests, through
+    `coop_children`: the same spans and counts."""
     n = orig.shape[0]
     n_act = n if active is None else int(active.sum())
     if cull is None:
@@ -1043,25 +1117,49 @@ def _walk_spans(cull: Optional[CullTables], n_rows: int, orig, d, active,
         return
     nc, nsc = cull.lo.shape[0], cull.lo2.shape[0]
     per_chunk, n_leaves = cull.chunk // LEAF, -(-n_rows // LEAF)
+    warp = torch.div(torch.arange(n, device=orig.device), WARP, rounding_mode="floor")
+    n_warps = -(-n // WARP)
+    inv = _inv_dir(d)
     enter2 = slab_test(orig, d, cull.lo2, cull.hi2)            # (N, nsc)
     if active is not None:
         enter2 &= active[:, None]
     if tally is not None:
-        per_super = torch.clamp(nc - MM2C_SUPER * torch.arange(nsc, device=orig.device),
-                                max=MM2C_SUPER)
-        tally["slab_tests"] = (tally.get("slab_tests", 0) + n_act * nsc
-                               + int((enter2.sum(dim=0) * per_super).sum()))
+        for k in ("slab_tests", "box_tests", "box_slots", "box_slots_thread"):
+            tally.setdefault(k, 0)
+        tally["slab_tests"] += n_act * nsc
+
+    def children(enter_parent, lo, hi, per, ok=None):
+        """(N, n) bool: the children each ray enters, and the tally of the
+        box tests of one level under one entered box."""
+        k = torch.bincount(warp[enter_parent], minlength=n_warps)
+        steps, own, use_coop = box_steps(k, lo.shape[0], per)
+        enter = slab_test(orig, d, lo, hi) & enter_parent[:, None]
+        if ok is not None:
+            enter &= ok[None]
+        tests = int(k.sum()) * lo.shape[0]
+        if coop and bool(use_coop.any()):
+            by_coop = use_coop[warp]
+            together, t_coop = coop_children(orig, inv, enter_parent & by_coop, lo, hi, per, ok)
+            enter = torch.where(by_coop[:, None], together, enter)
+            tests = int(k[~use_coop].sum()) * lo.shape[0] + t_coop
+        if tally is not None:
+            tally["slab_tests"] += tests
+            tally["box_tests"] += tests
+            tally["box_slots"] += WARP * int(steps.sum())
+            tally["box_slots_thread"] += WARP * int(own.sum())
+        return enter
+
     for sc in torch.nonzero(enter2.any(dim=0)).flatten().tolist():
         c0, c1 = sc * MM2C_SUPER, min((sc + 1) * MM2C_SUPER, nc)
-        enter = slab_test(orig, d, cull.lo[c0:c1], cull.hi[c0:c1]) & enter2[:, sc:sc + 1]
+        # a chunk past the table's rows is not entered
+        enter = children(enter2[:, sc], cull.lo[c0:c1], cull.hi[c0:c1], MM2C_SUPER,
+                         torch.arange(c0, c1, device=orig.device) * cull.chunk < n_rows)
         for j in torch.nonzero(enter.any(dim=0)).flatten().tolist():
             l0, l1 = (c0 + j) * per_chunk, min((c0 + j + 1) * per_chunk, n_leaves)
-            if l0 >= l1:
-                continue
             in_chunk = torch.nonzero(enter[:, j]).flatten()
-            enter3 = slab_test(orig[in_chunk], d[in_chunk], cull.lo3[l0:l1], cull.hi3[l0:l1])
+            enter3 = children(enter[:, j], cull.lo3[l0:l1], cull.hi3[l0:l1],
+                              per_chunk)[in_chunk]
             if tally is not None:
-                tally["slab_tests"] += in_chunk.numel() * (l1 - l0)
                 tally["chunk_rows"] = (tally.get("chunk_rows", 0) + in_chunk.numel()
                                        * (min(l1 * LEAF, n_rows) - l0 * LEAF))
             for i in torch.nonzero(enter3.any(dim=0)).flatten().tolist():
@@ -1070,8 +1168,8 @@ def _walk_spans(cull: Optional[CullTables], n_rows: int, orig, d, active,
                 if tally is not None:
                     tally["row_tests"] = (tally.get("row_tests", 0)
                                           + lanes.numel() * (r1 - r0))
-                    warp, thread = warp_slots(lanes, r0, r1)
-                    tally["slots"] = tally.get("slots", 0) + warp
+                    warp_, thread = warp_slots(lanes, r0, r1)
+                    tally["slots"] = tally.get("slots", 0) + warp_
                     tally["slots_thread"] = tally.get("slots_thread", 0) + thread
                 yield lanes, r0, r1
 
@@ -1137,8 +1235,11 @@ def warp_walk_plain(tri_table, n_rows: int, orig, d, cull: CullTables,
     WARP, which keeps its least t under a strict `<` over the ascending
     leaves; the warp takes the lexicographic minimum of (t, row) over its
     slots, and the lane merges it with a strict `<`, slices ascending.
-    (u, v) are the winning slot's. `tally` gets what `walk_nearest_plain`'s
-    gets, the slots of both schedules included (`warp_slots`). A model
+    (u, v) are the winning slot's. A warp finds the chunks and leaves its
+    rays enter as the kernels do: own-thread, or one (ray, child box) pair
+    a thread where the kernels' choice (`box_steps`) takes that form
+    (`coop_children`). `tally` gets what `walk_nearest_plain`'s gets, the
+    slots of both schedules included (`warp_slots`, `box_steps`). A model
     that shows the ordering and the tie rule of the schedule, not a second
     reference."""
     n, dev = orig.shape[0], orig.device
@@ -1147,7 +1248,7 @@ def warp_walk_plain(tri_table, n_rows: int, orig, d, cull: CullTables,
     best_f = torch.full((n,), -1, dtype=torch.int64, device=dev)
     best_u = torch.zeros((n,), dtype=torch.float32, device=dev)
     best_v = torch.zeros_like(best_u)
-    spans = list(_walk_spans(cull, n_rows, orig, d, active, tally))
+    spans = list(_walk_spans(cull, n_rows, orig, d, active, tally, coop=True))
     # the slice of each (warp, leaf) pair: the rank of the leaf among the
     # leaves some lane of the warp enters, over SLICE_LEAVES
     warp = torch.div(torch.arange(n, device=dev), WARP, rounding_mode="floor")

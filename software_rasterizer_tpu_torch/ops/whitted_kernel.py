@@ -95,11 +95,13 @@ _A_KA, _A_KS, _A_SPEC = 33, 36, 39
 LAUNCHES = 0
 LAUNCHES_CULLED = 0
 
-# the kernel's optional (2, 3) int64 tally: a row for the main rays and
+# the kernel's optional (2, 4) int64 tally: a row for the main rays and
 # one for the shadow rays, each [(ray, row) tests, slab tests, row-test
-# slots the warps issued]; the SIMT efficiency of a trace is tests / slots
+# slots the warps issued, box-test slots the culled walk's warps issued];
+# the SIMT efficiency of a trace is tests / slots (the box tests' lane
+# efficiency needs the plain version's chunk and leaf tests, "box_tests")
 TALLY_ROWS = ("main", "shadow")
-TALLY_COLUMNS = ("row_tests", "slab_tests", "slots")
+TALLY_COLUMNS = ("row_tests", "slab_tests", "slots", "box_slots")
 
 
 def pack_whitted_tables(scene: RTScene) -> Tuple[torch.Tensor, torch.Tensor,
@@ -216,9 +218,9 @@ def launch_whitted_uber(tri: torch.Tensor, attr: torch.Tensor,
     """Launch csrc/whitted_uber.cu on the current stream; returns rgb
     (N,3) float32 and nray (2,N) int32. `ecr` (O,4) and `pick_seeds`
     (max_depth+1, spp) int32 are read only when n_emitters > 1. With
-    `cull_tables` a culled instance runs; a `tally` (2, 3) int64 gets the
-    (ray, row) tests, slab tests and row-test slots of the main rays (row
-    0) and of the shadow rays (row 1) added (`TALLY_ROWS`,
+    `cull_tables` a culled instance runs; a `tally` (2, 4) int64 gets the
+    (ray, row) tests, slab tests, row-test slots and box-test slots of the
+    main rays (row 0) and of the shadow rays (row 1) added (`TALLY_ROWS`,
     `TALLY_COLUMNS`). Checks every operand and raises on a launch
     error."""
     global LAUNCHES, LAUNCHES_CULLED
@@ -356,8 +358,10 @@ def _trace(tri_t, cull, sph, n_tri, n_sph, o, d, active=None, tally=None):
     Lanes outside `active` miss every triangle; `tally` counts the tests
     of those inside and the row-test slots of their warps (`WARP` lanes in
     launch order): with `cull` those of the warp walk ("slots") and of the
-    per-ray walk ("slots_thread", `trace_tiers.warp_slots`); without, a
-    warp with an active lane steps through every row in both."""
+    per-ray walk ("slots_thread", `trace_tiers.warp_slots`), and the
+    box-test slots of the walk and the slab tests they hold ("box_slots",
+    "box_slots_thread", "box_tests", `trace_tiers.box_steps`); without, a warp with an active lane steps
+    through every row in both, and makes no box test."""
     ox, oy, oz = o
     dx, dy, dz = d
     tt, bf, _, _ = walk_nearest_plain(tri_t, n_tri, torch.stack(o, dim=1),
@@ -436,8 +440,9 @@ def whitted_uber_trace_plain(scene: RTScene, orig: torch.Tensor,
     a pass, as the JAX kernel sweeps a tile. A `stats` dict gets
     "row_tests" and "slab_tests": the (ray, row) and slab tests of the
     traces the kernel makes, and "main" and "shadow": dicts of the same
-    two counts, the row-test slots ("slots", "slots_thread", see
-    `_trace`) and the rows of the chunks entered ("chunk_rows",
+    two counts, the row-test and box-test slots ("slots", "slots_thread",
+    "box_slots", "box_slots_thread", "box_tests", see `_trace`) and the rows of the
+    chunks entered ("chunk_rows",
     `trace_tiers._walk_spans`) of the main and the shadow traces apart;
     the kernel's `tally`
     adds them up (`TALLY_ROWS`, `TALLY_COLUMNS`). A `rays` list gets an
@@ -706,6 +711,7 @@ def _uber_plain(scene, orig, d, max_depth, shadow_bias, key, spp, lane_offset, c
             stats[k] = stats.get(k, 0) + sum(t.get(k, 0) for t in tally.values())
         for ray, t in tally.items():
             part = stats.setdefault(ray, {})
-            for k in ("row_tests", "slab_tests", "slots", "slots_thread", "chunk_rows"):
+            for k in ("row_tests", "slab_tests", "slots", "slots_thread", "chunk_rows",
+                      "box_tests", "box_slots", "box_slots_thread"):
                 part[k] = part.get(k, 0) + t.get(k, 0)
     return torch.stack(rgb, dim=1), nray

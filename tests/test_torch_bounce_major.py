@@ -171,9 +171,13 @@ def test_loop_slots_by_hand(case):
 def test_tally_of_five_entries_is_accepted():
     t5 = torch.zeros(5, dtype=torch.int64)
     assert pk._check_tally(t5, t5.device, slots=True) == t5.data_ptr()
-    with pytest.raises(ValueError):
-        pk._check_tally(torch.zeros(4, dtype=torch.int64), t5.device, slots=True)
-    assert len(pk.TALLY_ENTRIES) == 5
+    # six: the box-test slots of the culled walk after the loop's entries
+    t6 = torch.zeros(6, dtype=torch.int64)
+    assert pk._check_tally(t6, t6.device, slots=True) == t6.data_ptr()
+    for bad in (4, 7):
+        with pytest.raises(ValueError):
+            pk._check_tally(torch.zeros(bad, dtype=torch.int64), t5.device, slots=True)
+    assert len(pk.TALLY_ENTRIES) == 6 and pk.TALLY_ENTRIES[5] == "box_slots"
 
 
 @pytest.fixture

@@ -29,6 +29,14 @@ Rules.
   * The warp walk issues no more row-test slots than the per-thread walk
     and no fewer than its row tests (`warp_slots`, a hand count for a
     leaf).
+  * The cooperative box tests (a warp testing its rays' (ray, child box)
+    pairs one a thread, `coop_children`, where `box_steps` chooses it)
+    enter the same leaves with the same lanes in the same order as each
+    ray's own tests, and count the same slab tests; the warps issue no
+    more box-test slots than the own-thread loop, fewer on these rays,
+    and no fewer than the chunk and leaf tests. `coop_children` equals
+    `slab_test` ray by ray for ballots from none to a full warp, 1 to 32
+    children a pass, and children barred by `ok`; `box_steps` by hand.
   * Against the JAX package's XLA sweep (`_intersect_tri_raw`, no cull):
     the same winner, bar rays proven in float64 to be ties or to sit on an
     acceptance threshold (`torch_scenes.mt_knife_edge_rays`; XLA contracts
@@ -247,6 +255,77 @@ def test_warp_walk_issues_no_more_slots_than_the_per_thread_walk(rays):
     assert tm["row_tests"] == tm["slots"] < tm["slots_thread"]
 
 
+@pytest.mark.parametrize("rays", ["camera", "bounce"])
+def test_cooperative_box_tests_enter_the_same_leaves(rays):
+    rt, sets = _scene()
+    o, d = sets[rays]
+    ct = pk.pack_cull_tables(rt)
+    tc, to = {}, {}
+    coop = list(tt._walk_spans(ct, rt.n_tri, o, d, None, tc, coop=True))
+    own = list(tt._walk_spans(ct, rt.n_tri, o, d, None, to))
+    assert len(coop) == len(own) > 0
+    for (la, a0, a1), (lb, b0, b1) in zip(coop, own):
+        assert (a0, a1) == (b0, b1) and torch.equal(la, lb)
+    assert tc == to
+    # every box slot tests at most one (ray, box) pair of the chunk and
+    # leaf levels; the cooperative form takes fewer here
+    assert tc["box_tests"] == tc["slab_tests"] - o.shape[0] * ct.lo2.shape[0]
+    assert 0 < tc["box_tests"] <= tc["box_slots"] < tc["box_slots_thread"]
+
+
+@pytest.mark.parametrize("per", [1, 4, 8, 32])
+@pytest.mark.parametrize("rays", ["camera", "bounce"])
+def test_cooperative_pairing_equals_each_rays_own_tests(rays, per):
+    from software_rasterizer_tpu_torch.ops.bvh import _inv_dir, slab_test
+
+    rt, sets = _scene()
+    o, d = sets[rays]
+    ct = pk.pack_cull_tables(rt)
+    n = min(o.shape[0], 1000)   # a partial last warp
+    o, d = o[:n], d[:n]
+    rng = np.random.default_rng(SEED + per)
+    # each warp's share of lanes in the ballot: none, all, then at random
+    share = rng.random(-(-n // tt.WARP))
+    share[:2] = (0.0, 1.0)
+    share = torch.from_numpy(share).repeat_interleave(tt.WARP)[:n]
+    parent = torch.from_numpy(rng.random(n)) < share
+    for nb in sorted({1, max(per // 2, 1), min(per, ct.lo3.shape[0])}):
+        l0 = min(3, ct.lo3.shape[0] - nb)
+        lo, hi = ct.lo3[l0:l0 + nb], ct.hi3[l0:l0 + nb]
+        ok = torch.from_numpy(rng.random(nb) < 0.8)
+        got, tests = tt.coop_children(o, _inv_dir(d), parent, lo, hi, per, ok)
+        want = slab_test(o, d, lo, hi) & parent[:, None] & ok[None]
+        assert torch.equal(got, want), nb
+        assert tests == int(parent.sum()) * nb
+    assert bool(want.any())
+
+
+def test_box_steps_by_hand():
+    # the model's constants are the kernels'
+    import pathlib
+    import re
+
+    header = (pathlib.Path(tt.__file__).parents[1] / "csrc" / "trace_common.cuh").read_text()
+    for name, value in (("kCoopRays", tt.COOP_RAYS), ("kSuper", tt.MM2C_SUPER),
+                        ("kLeaf", tt.LEAF)):
+        assert re.search(rf"constexpr int {name} = (\d+);", header).group(1) == str(value)
+    assert tt.COOP_RAYS == 24
+    k = torch.tensor([0, 1, 4, 5, 16, 17, 24, 25, 28, 32])
+    # 8 chunks of a super box, 4 rays a pass: ceil(k / 4) passes where
+    # that is fewer than 8 steps and k <= COOP_RAYS
+    steps, own, coop = tt.box_steps(k, 8, 8)
+    assert steps.tolist() == [0, 1, 1, 2, 4, 5, 6, 8, 8, 8]
+    assert own.tolist() == [0] + [8] * 9
+    assert coop.tolist() == [False] + [True] * 6 + [False] * 3
+    # a short last super box of 2 chunks: one pass of up to 4 rays
+    assert tt.box_steps(k, 2, 8)[0].tolist() == [0, 1, 1, 2, 2, 2, 2, 2, 2, 2]
+    # 4 leaves a chunk, 8 rays a pass; 32 rays would take 4 passes = 4 steps
+    assert tt.box_steps(k, 4, 4)[0].tolist() == [0, 1, 1, 1, 2, 3, 3, 4, 4, 4]
+    # 3 leaves a chunk does not divide a warp: the own-thread loop
+    steps, own, coop = tt.box_steps(k, 3, 3)
+    assert torch.equal(steps, own) and not bool(coop.any())
+
+
 def test_warp_slots_by_hand():
     # lanes 0 and 1 (warp 0) and 40 (warp 1) on the leaf of rows [32, 64):
     # one row-step a lane; the per-thread walk steps through all 32 rows
@@ -285,9 +364,10 @@ def card():
 
 @pytest.mark.cuda
 def test_kernel_tally_equals_the_model(card):
-    """On the card: the culled camera kernel's (3,) tally of row tests,
-    slab tests and row-test slots equals its plain version's counts,
-    whose slots are the model's (`warp_slots`)."""
+    """On the card: the culled camera kernel's (6,) tally of row tests,
+    slab tests, row-test slots and box-test slots equals its plain
+    version's counts, whose slots are the models' (`warp_slots`,
+    `box_steps`); the full sweep's loop entries stay 0."""
     from software_rasterizer_tpu_torch.utils.rng import sample_seeds
 
     scene = stress_cornell(build_cornell_scene, subdivide_mesh, 2)
@@ -295,7 +375,7 @@ def test_kernel_tally_equals_the_model(card):
     rt = prepare_rt_scene(scene.rt_geometry(), scene.rt_frame(), card)
     fovy = scene.fovy
     attr, sph, n_sph = pk.pack_scene_tables(rt)
-    tally = torch.zeros(3, dtype=torch.int64, device=card)
+    tally = torch.zeros(len(pk.TALLY_ENTRIES), dtype=torch.int64, device=card)
     got = pk.launch_path_camera(
         rt.tri_table.float().contiguous(), attr, sph, rt.emitter_cr.float().contiguous(),
         torch.as_tensor(sample_seeds(5, 0, 1)).to(card), pk._camera_table(rt, fovy, W, W),
@@ -310,4 +390,5 @@ def test_kernel_tally_equals_the_model(card):
     close = torch.isclose(got, want, rtol=1e-3, atol=1e-4).all(dim=0)
     assert close.float().mean() >= 0.99
     if bool(close.all()):
-        assert tally.tolist() == [st["row_tests"], st["slab_tests"], st["slots"]]
+        assert tally.tolist() == [st["row_tests"], st["slab_tests"], st["slots"], 0, 0,
+                                  st["box_slots"]]

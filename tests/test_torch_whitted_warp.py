@@ -25,7 +25,7 @@ Rules.
     of them partial, under both walks; 40 rays that leave the box through
     the full sweep.
   * On the card (`cuda`): the kernel against the plain version on a window
-    of each scene, its (2, 3) tally against the plain version's counts
+    of each scene, its (2, 4) tally against the plain version's counts
     (slots: the warp walk's and the full sweep's models).
 """
 
@@ -215,10 +215,12 @@ def test_full_sweep_slots_by_hand():
     st = {}
     rgb, nray = wk.whitted_uber_trace_plain(rt, o, d, MD, stats=st)
     assert rt.n_tri == 36 and (nray[0] == 1).all() and (nray[1] == 0).all()
+    # the full sweep makes no box test
+    no_box = {"box_tests": 0, "box_slots": 0, "box_slots_thread": 0}
     assert st["main"] == {"row_tests": 40 * 36, "slab_tests": 0, "slots": 2 * 32 * 36,
-                          "slots_thread": 2 * 32 * 36, "chunk_rows": 0}
+                          "slots_thread": 2 * 32 * 36, "chunk_rows": 0, **no_box}
     assert st["shadow"] == {"row_tests": 0, "slab_tests": 0, "slots": 0, "slots_thread": 0,
-                            "chunk_rows": 0}
+                            "chunk_rows": 0, **no_box}
 
 
 @pytest.mark.parametrize("name", sorted(SCENES))
@@ -252,11 +254,11 @@ def card():
 def test_kernel_equals_plain_on_the_card(card, name, spp):
     """The kernel (the warp walk above 512 rows) against the plain version
     on the frame's middle 512 lanes: ray counts equal, pixels equal bar
-    knife edges of a transcendental's last bit, and the (2, 3) tally equal
+    knife edges of a transcendental's last bit, and the (2, 4) tally equal
     to the plain version's counts where every pixel is equal."""
     rt, o, d = _rt(name, card)
     sl = slice(W * W // 2 - 256, W * W // 2 + 256)
-    tally = torch.zeros((2, 3), dtype=torch.int64, device=card)
+    tally = torch.zeros((2, len(wk.TALLY_COLUMNS)), dtype=torch.int64, device=card)
     args, kw = wk.whitted_launch_args(rt, o[sl], d[sl], MD, key=SEED, spp=spp)
     got = wk.launch_whitted_uber(*args, tally=tally, **kw)
     st = {}
